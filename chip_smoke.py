@@ -3,13 +3,25 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
-``build/repro_torch``), holds each kernel against its plain PyTorch version
-on the card at the main path's shapes and times both, then drives the main
-path through the user entry points: ``HSDAG.search(..., engine="level")`` on
-Inception-v3 at the Table-6 widths (hidden 128, 2+2+2 layers, T=20) with 16
-chains for 3 episodes, followed by the greedy ``place()``.  The kernels'
-launch counters are zeroed just before that run and read just after it.
+Builds the port's five CUDA kernels from ``src/repro_torch/csrc`` (into
+``build/repro_torch``, one ``nvcc`` per source, all at once), holds each
+kernel against its plain PyTorch version on the card at the main paths'
+shapes and times both, then drives the two main paths through the user entry
+points:
+
+1. the placement search: ``HSDAG.search(..., engine="level")`` on
+   Inception-v3 at the Table-6 widths (hidden 128, 2+2+2 layers, T=20) with
+   16 chains for 3 episodes, followed by the greedy ``place()``
+   (``level_makespan``, ``gcn_aggregate``);
+2. LM serving: ``repro_torch.launch.serve`` at full width in bf16 with
+   random weights, h2o-danube-1.8b (batch 4, prompt 4608 > its 4096 window,
+   32 steps: ``rmsnorm``, ``flash_attention``) and mamba2-130m (batch 4,
+   prompt 4096, 32 steps, SSD chunk 32: ``rmsnorm``, ``ssd_scan``), then a
+   float32 check that prefill + greedy decode agrees with ``forward`` for
+   each model.
+
+Each path's kernel launch counters are zeroed just before it and read just
+after it; every wall time is printed per phase.
 
 Lines it prints, in order: phase results, one JSON line
 ``{"kernels": [...]}``, the card's name and power limit as ``nvidia-smi``
@@ -33,8 +45,16 @@ SRC = os.path.join(ROOT, "src")
 # outside the tensor cores.
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOPS = 67e12
+H100_BF16_FLOPS = 989e12     # dense bf16 on the tensor cores
 
 TOL = 1e-5
+# LM kernels against their plain versions (normwise): f32 as above; bf16 as
+# the reference's own kernel tests (tests/test_kernels.py:14-15)
+LM_TOL = {"torch.float32": 1e-5, "torch.bfloat16": 2e-2}
+# prefill + decode against forward at full width in float32
+CONSISTENCY_TOL = 1e-4
+# the main path's serves: (arch, batch, prompt, steps)
+SERVES = (("h2o-danube-1.8b", 4, 4608, 32), ("mamba2-130m", 4, 4096, 32))
 
 
 class CheckFailed(Exception):
@@ -192,6 +212,283 @@ def gcn_checks(torch, graphs):
     return worst, timing
 
 
+def bound_ms_bf16(nbytes: float, ops: float):
+    """As ``bound_ms`` for work on the bf16 tensor cores."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def lm_check(torch, name, got, want, dtype, worst):
+    """Normwise check of a kernel against its plain version; → new worst
+    max abs error."""
+    torch.cuda.synchronize()
+    tol = LM_TOL[str(dtype)]
+    err = rel_err(torch, got.float(), want.float())
+    abs_err = float((got.float() - want.float()).abs().max())
+    print(f"[lm-kernels] {name}: rel err {err:.3e} (tol {tol:g}), max abs "
+          f"err {abs_err:.3e}")
+    check(bool(torch.isfinite(got.float()).all()) and err <= tol,
+          f"{name} disagrees with its plain version")
+    return max(worst, abs_err)
+
+
+def rmsnorm_serve_shapes(torch):
+    """Every rmsnorm launch of one main-path run, by shape:
+    → [(arch, rows, d, dtype, launches)].
+
+    Per forward, danube norms (rows, 2560) bf16 twice per layer and once at
+    the end; mamba2 norms (rows, 768) bf16 once per layer and at the end,
+    and its gated norm (rows, 1536) in f32 once per layer.  Prefill has
+    batch·prompt rows and runs once; each of the steps−1 decode steps has
+    batch rows."""
+    from repro_torch.configs import get
+    shapes = []
+    for arch, batch, prompt, steps in SERVES:
+        cfg = get(arch).config
+        mixers = {m for m, _ in cfg.block_pattern}
+        per_fwd = [(cfg.d_model, torch.bfloat16, cfg.n_layers * (
+            2 if "attn" in mixers else 1) + 1)]
+        if "mamba" in mixers:
+            per_fwd.append((cfg.d_inner, torch.float32, cfg.n_layers))
+        for rows, times in ((batch * prompt, 1), (batch, steps - 1)):
+            shapes += [(arch, rows, d, dt, n * times)
+                       for d, dt, n in per_fwd]
+    return shapes
+
+
+def rmsnorm_checks(torch):
+    """rmsnorm at the main path's shapes: danube prefill (4·4608 × 2560),
+    mamba2 prefill (4·4096 × 768) and its gated norm (4·4096 × 1536), each in
+    f32 and bf16; then the kernel's time at every shape the serves launch it
+    at (decode's 4-row norms included)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm, rmsnorm_ref
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst = 0.0
+    for rows, d in ((4 * 4608, 2560), (4 * 4096, 768), (4 * 4096, 1536)):
+        scale = torch.randn(d, generator=gen, device="cuda") + 1.0
+        x32 = torch.randn(rows, d, generator=gen, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            worst = lm_check(torch, f"rmsnorm {rows}x{d} {dtype}",
+                             rmsnorm(x, scale), rmsnorm_ref(x, scale), dtype,
+                             worst)
+    rows, d = 4 * 4608, 2560
+    x = torch.randn(rows, d, generator=gen, device="cuda").bfloat16()
+    scale = torch.randn(d, generator=gen, device="cuda") + 1.0
+    ms, host = cuda_ms(torch, lambda: rmsnorm(x, scale), 50)
+    plain, _ = cuda_ms(torch, lambda: rmsnorm_ref(x, scale), 20)
+    # the library call takes the weight in x's dtype: a yardstick of speed
+    w16 = scale.bfloat16()
+    lib, _ = cuda_ms(torch, lambda: F.rms_norm(x, (d,), w16, 1e-6), 50)
+    nbytes = 2 * rows * d * 2 + 4 * d
+    ops = 4 * rows * d
+    t = (ms, plain, *bound_ms(nbytes, ops), lib)
+    print(f"[lm-kernels] rmsnorm timing {rows}x{d} bf16: kernel {ms:.4f} ms "
+          f"on the card ({host:.4f} ms of host time to launch), plain "
+          f"{plain:.4f} ms, F.rms_norm {lib:.4f} ms, bound {t[2]:.6f} ms "
+          f"({t[3]}: {nbytes} B, {ops} ops)")
+
+    # device time above the bound, summed over the serves' launches
+    shapes = rmsnorm_serve_shapes(torch)
+    excess = 0.0
+    for arch, rows, d, dtype, n in shapes:
+        x = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
+        scale = torch.randn(d, generator=gen, device="cuda") + 1.0
+        ms_s, _ = cuda_ms(torch, lambda: rmsnorm(x, scale),
+                          50 if rows > 64 else 500)
+        nbytes = 2 * rows * d * x.element_size() + 4 * d
+        b_ms, _ = bound_ms(nbytes, 4 * rows * d)
+        excess += n * max(ms_s - b_ms, 0.0)
+        print(f"[lm-kernels] rmsnorm {arch} {rows}x{d} {dtype}: {n} launches"
+              f" per main-path run, kernel {ms_s:.5f} ms, bound "
+              f"{b_ms:.6f} ms, above the bound {n * (ms_s - b_ms):.4f} ms")
+    print(f"[lm-kernels] rmsnorm device time above its bound over one "
+          f"main-path run: {excess:.4f} ms")
+    return worst, t, shapes
+
+
+def _window_mask(torch, s, window):
+    i = torch.arange(s, device="cuda")[:, None]
+    j = torch.arange(s, device="cuda")[None, :]
+    return (j <= i) & (j > i - window)
+
+
+def flash_checks(torch):
+    """flash_attention at danube's prefill shape (B=4, H=32, KV=8, S=4608,
+    D=80, window 4096) in bf16, batch 1 of it in f32, and small GQA/window,
+    D=64/128 and non-causal cases."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, flash_attention_ref
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def qkv(b, h, kv, s, d, dtype):
+        return (torch.randn(b, h, s, d, generator=gen, device="cuda")
+                .to(dtype),
+                torch.randn(b, kv, s, d, generator=gen, device="cuda")
+                .to(dtype),
+                torch.randn(b, kv, s, d, generator=gen, device="cuda")
+                .to(dtype))
+
+    worst = 0.0
+    cases = [((1, 32, 8, 4608, 80), True, 4096, torch.float32),
+             ((2, 8, 2, 700, 64), True, 256, torch.float32),
+             ((2, 8, 2, 700, 64), True, 256, torch.bfloat16),
+             ((1, 4, 1, 333, 128), True, 0, torch.float32),
+             ((1, 4, 1, 333, 128), True, 0, torch.bfloat16),
+             ((1, 4, 2, 300, 80), False, 64, torch.float32)]
+    for shape, causal, window, dtype in cases:
+        q, k, v = qkv(*shape, dtype)
+        worst = lm_check(
+            torch, f"flash_attention {shape} causal={causal} "
+            f"window={window} {dtype}",
+            flash_attention(q, k, v, causal=causal, window=window),
+            flash_attention_ref(q, k, v, causal=causal, window=window),
+            dtype, worst)
+        del q, k, v
+    B, H, KV, S, D, W = 4, 32, 8, 4608, 80, 4096
+    q, k, v = qkv(B, H, KV, S, D, torch.bfloat16)
+    got = flash_attention(q, k, v, window=W)
+    want = flash_attention_ref(q, k, v, window=W)
+    worst = lm_check(torch, f"flash_attention {(B, H, KV, S, D)} causal=True "
+                     f"window={W} bf16", got, want, torch.bfloat16, worst)
+    mask = _window_mask(torch, S, W)
+    if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+    else:   # torch < 2.5: the same call on K/V repeated to H heads
+        k_h = k.repeat_interleave(H // KV, dim=1)
+        v_h = v.repeat_interleave(H // KV, dim=1)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k_h, v_h, attn_mask=mask)
+    lib_out = library()
+    lib_err = rel_err(torch, lib_out.float(), want.float())
+    del got, want, lib_out
+    ms, host = cuda_ms(torch, lambda: flash_attention(q, k, v, window=W), 5)
+    plain, _ = cuda_ms(torch, lambda: flash_attention_ref(q, k, v, window=W),
+                       2, 1)
+    lib, _ = cuda_ms(torch, library, 5)
+    pairs = int(mask.sum())
+    nbytes = 2 * (2 * B * H * S * D + 2 * B * KV * S * D)
+    ops = 4 * B * H * D * pairs
+    t = (ms, plain, *bound_ms_bf16(nbytes, ops), lib)
+    print(f"[lm-kernels] flash_attention timing {(B, H, KV, S, D)} window "
+          f"{W} bf16: kernel {ms:.3f} ms on the card ({host:.4f} ms of host "
+          f"time to launch), plain {plain:.3f} ms, "
+          f"scaled_dot_product_attention(mask, enable_gqa) {lib:.3f} ms "
+          f"(rel err vs plain {lib_err:.2e}), bound {t[2]:.6f} ms ({t[3]}: "
+          f"{nbytes} B, {ops} ops over {pairs} unmasked (query, key) pairs "
+          f"per head)")
+    return worst, t
+
+
+def ssd_scan_checks(torch):
+    """ssd_scan at mamba2-130m's prefill (B=4, prompt 4096, chunk 32 → C=128,
+    H=24, P=64, N=128), f32."""
+    from repro_torch.kernels import ssd_scan, ssd_scan_ref
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    B, C, H, P, N = 4, 128, 24, 64, 128
+    dec = 0.3 + 0.699 * torch.rand(B, C, H, generator=gen, device="cuda")
+    dbx = torch.randn(B, C, H, P, N, generator=gen, device="cuda")
+    kb, kf = ssd_scan(dec, dbx)
+    rb, rf = ssd_scan_ref(dec, dbx)
+    worst = lm_check(torch, f"ssd_scan h_before {(B, C, H, P, N)}", kb, rb,
+                     torch.float32, 0.0)
+    worst = lm_check(torch, f"ssd_scan h_final {(B, H, P, N)}", kf, rf,
+                     torch.float32, worst)
+    del kb, kf, rb, rf
+    ms, host = cuda_ms(torch, lambda: ssd_scan(dec, dbx), 20)
+    plain, _ = cuda_ms(torch, lambda: ssd_scan_ref(dec, dbx), 3, 1)
+    nbytes = 4 * (B * C * H + 2 * B * C * H * P * N + B * H * P * N)
+    ops = 2 * B * C * H * P * N
+    t = (ms, plain, *bound_ms(nbytes, ops), None)
+    print(f"[lm-kernels] ssd_scan timing {(B, C, H, P, N)}: kernel "
+          f"{ms:.4f} ms on the card ({host:.4f} ms of host time to launch), "
+          f"plain {plain:.3f} ms, bound {t[2]:.6f} ms ({t[3]}: {nbytes} B, "
+          f"{ops} ops)")
+    return worst, t
+
+
+def serve_phase(torch, arch, batch, prompt, steps):
+    """Drive ``repro_torch.launch.serve`` at full width; → launches."""
+    from repro_torch.configs import get
+    from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan
+    from repro_torch.launch import serve
+    kernels = (rmsnorm, flash_attention, ssd_scan)
+    cfg = get(arch).config
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = serve.main(["--arch", arch, "--batch", str(batch), "--prompt",
+                      str(prompt), "--steps", str(steps)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    print(f"[serve] {arch} {cfg.dtype} B={batch} prompt={prompt} "
+          f"steps={steps}: prefill {res.prefill_ms:.3f} ms, decode "
+          f"{res.decode_ms:.3f} ms for {steps - 1} steps "
+          f"({res.decode_tok_s:.1f} tok/s), wall {wall:.3f} s (weights "
+          f"included); launches {launches}")
+    check(tuple(res.tokens.shape) == (batch, steps)
+          and int(res.tokens.min()) >= 0
+          and int(res.tokens.max()) < cfg.vocab_size,
+          f"{arch} serve returned invalid tokens")
+    mixers = {m for m, _ in cfg.block_pattern}
+    check(launches["rmsnorm"] > 0, f"{arch} serve launched no rmsnorm")
+    want_flash = cfg.n_layers if "attn" in mixers else 0
+    want_ssd = cfg.n_layers if "mamba" in mixers else 0
+    check(launches["flash_attention"] == want_flash,
+          f"{arch} serve launched flash_attention "
+          f"{launches['flash_attention']} times, not {want_flash}")
+    check(launches["ssd_scan"] == want_ssd,
+          f"{arch} serve launched ssd_scan {launches['ssd_scan']} times, "
+          f"not {want_ssd}")
+    return launches
+
+
+def decode_consistency(torch, arch, prompt, n, batch=2):
+    """Full-width float32: prefill(prompt) + n greedy decode steps against
+    forward over prompt + generated (tests/test_models.py:21)."""
+    import dataclasses
+    from repro_torch.configs import get
+    from repro_torch.models import (decode_step, forward, init_params,
+                                    prefill)
+    cfg = dataclasses.replace(get(arch).config, dtype="float32")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        params = init_params(cfg, seed=0, device="cuda")
+        gen = torch.Generator().manual_seed(5)
+        toks = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                             generator=gen, dtype=torch.int32).cuda()
+        logits, caches = prefill(params, cfg, toks, ssd_chunk=32,
+                                 max_len=prompt + n)
+        steps = [logits[:, -1]]
+        tok = torch.argmax(logits[:, -1:], -1).to(torch.int32)
+        gen_toks = [tok]
+        for i in range(n - 1):
+            logits, caches = decode_step(params, cfg, tok, caches, prompt + i)
+            steps.append(logits[:, -1])
+            tok = torch.argmax(logits[:, -1:], -1).to(torch.int32)
+            gen_toks.append(tok)
+        seq = torch.cat([toks] + gen_toks[:-1], dim=1)
+        full = forward(params, cfg, seq, ssd_chunk=32)[:, prompt - 1:]
+        got = torch.stack(steps, dim=1)
+        torch.cuda.synchronize()
+    err = rel_err(torch, got, full)
+    same = bool(torch.equal(torch.cat(gen_toks, 1),
+                            torch.argmax(full, -1).to(torch.int32)))
+    print(f"[consistency] {arch} float32 B={batch} prompt={prompt} + {n} "
+          f"decode steps vs forward: logits rel err {err:.3e} (tol "
+          f"{CONSISTENCY_TOL:g}), greedy tokens equal: {same} "
+          f"({time.perf_counter() - t0:.2f} s)")
+    check(err <= CONSISTENCY_TOL and same,
+          f"{arch} decode disagrees with forward")
+    del params, caches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -209,6 +506,7 @@ def main() -> int:
     from repro_torch.kernels import gcn_aggregate, level_makespan
     from repro_torch.kernels._build import build_all, build_dir
 
+    t_start = time.perf_counter()
     # Full float32 everywhere: the checks below compare at 1e-5.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -236,6 +534,7 @@ def main() -> int:
     arrays = extract_features(g)
     cfg = HSDAGConfig(batch_chains=16, engine="level", max_episodes=3)
     agent = HSDAG(cfg)
+    t_phase = time.perf_counter()
     level_makespan.launches = 0
     gcn_aggregate.launches = 0
     t0 = time.perf_counter()
@@ -279,6 +578,41 @@ def main() -> int:
           f"{g.num_nodes} nodes on GPU, latency {greedy * 1e3:.6f} ms")
     check(greedy == greedy and greedy > 0, "greedy latency is not finite")
 
+    print(f"[phase] search + place: {time.perf_counter() - t_phase:.2f} s")
+
+    # ---- the LM kernels against their plain versions ----
+    t_phase = time.perf_counter()
+    rms_err, rms_t, rms_shapes = rmsnorm_checks(torch)
+    flash_err, flash_t = flash_checks(torch)
+    ssd_err, ssd_t = ssd_scan_checks(torch)
+    torch.cuda.empty_cache()
+    print(f"[phase] LM kernel checks: {time.perf_counter() - t_phase:.2f} s")
+
+    # ---- the LM main path: serve both models at full width (bf16) ----
+    t_phase = time.perf_counter()
+    from repro_torch.launch import serve
+    # warm-up (cuBLAS handles, allocator) before the counted runs
+    serve.main(["--arch", "h2o-danube-1.8b", "--batch", "1", "--prompt",
+                "128", "--steps", "2"])
+    torch.cuda.empty_cache()
+    served = {}
+    for arch, batch, prompt, steps in SERVES:
+        served[arch] = serve_phase(torch, arch, batch, prompt, steps)
+        torch.cuda.empty_cache()
+        want = sum(n for a, *_, n in rms_shapes if a == arch)
+        check(served[arch]["rmsnorm"] == want,
+              f"{arch} serve launched rmsnorm {served[arch]['rmsnorm']} "
+              f"times, not the {want} its timing counted")
+    danube, mamba = served["h2o-danube-1.8b"], served["mamba2-130m"]
+    print(f"[phase] serve: {time.perf_counter() - t_phase:.2f} s")
+
+    # ---- decode consistency at full width, float32, TF32 off ----
+    t_phase = time.perf_counter()
+    decode_consistency(torch, "h2o-danube-1.8b", 200, 8)
+    torch.cuda.empty_cache()
+    decode_consistency(torch, "mamba2-130m", 200, 8)
+    print(f"[phase] decode consistency: {time.perf_counter() - t_phase:.2f} s")
+
     kernels = [
         {"name": "level_makespan", "route": "cuda",
          "source": "src/repro_torch/csrc/levelsim.cu",
@@ -292,9 +626,29 @@ def main() -> int:
          "launches": launches["gcn_aggregate"], "max_abs_err": gcn_err,
          "ms": gcn_t[0], "plain_ms": gcn_t[1], "bound_ms": gcn_t[2],
          "bound_by": gcn_t[3], "library_ms": gcn_t[4]},
+        {"name": "rmsnorm", "route": "cuda",
+         "source": "src/repro_torch/csrc/rmsnorm.cu",
+         "replaces": "src/repro/kernels/rmsnorm.py:24",
+         "launches": danube["rmsnorm"] + mamba["rmsnorm"],
+         "max_abs_err": rms_err, "ms": rms_t[0], "plain_ms": rms_t[1],
+         "bound_ms": rms_t[2], "bound_by": rms_t[3], "library_ms": rms_t[4]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:35",
+         "launches": danube["flash_attention"] + mamba["flash_attention"],
+         "max_abs_err": flash_err, "ms": flash_t[0], "plain_ms": flash_t[1],
+         "bound_ms": flash_t[2], "bound_by": flash_t[3],
+         "library_ms": flash_t[4]},
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan.py:27",
+         "launches": danube["ssd_scan"] + mamba["ssd_scan"],
+         "max_abs_err": ssd_err, "ms": ssd_t[0], "plain_ms": ssd_t[1],
+         "bound_ms": ssd_t[2], "bound_by": ssd_t[3], "library_ms": ssd_t[4]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)
+    print(f"[done] total wall {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the HSDAG placement search.
+"""PyTorch/CUDA port of the HSDAG placement search and of the LM serving
+path (``repro_torch.models``, ``repro_torch.launch.serve``).
 
 The JAX package ``repro`` is the reference; this package mirrors its module
 paths (``repro_torch/core/gpn.py`` ports ``repro/core/gpn.py``) and imports

@@ -6,6 +6,9 @@ The reference keeps its parameters as a nested tree of arrays,
 (in, out) and applied as ``x @ w``.  ``nn.Linear`` stores the transpose.
 This module maps between the two and reads the reference's ``save_policy``
 checkpoints (``step_<n>/state.npz`` + ``manifest.json``) with numpy alone.
+
+The LM's parameters keep the reference's tree and layouts in the port, so
+``lm_params_from_numpy`` copies them leaf for leaf.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import torch
 from ..core.hsdag import HSDAGPolicy
 
 __all__ = ["params_from_numpy", "params_to_numpy", "tree_from_tensors",
-           "load_reference_policy"]
+           "load_reference_policy", "lm_params_from_numpy"]
 
 
 def _ref_path(name: str) -> Tuple[Tuple, bool]:
@@ -123,3 +126,54 @@ def load_reference_policy(directory: str,
                 node = node.setdefault(p, {})
             node[path[-1]] = data[key]
     return _lists(tree), manifest
+
+
+def _leaf_tensor(a, path: str) -> torch.Tensor:
+    """A numpy leaf as a CPU tensor of the same bits.  bf16 arrays (the
+    ml_dtypes type JAX hands out) go across as their 16-bit patterns."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    if a.dtype not in (np.float32, np.int32):
+        raise ValueError(f"{path}: unsupported leaf dtype {a.dtype}")
+    return torch.from_numpy(a.copy())
+
+
+def lm_params_from_numpy(tree: Dict, cfg, device="cuda") -> Dict:
+    """The reference LM's ``init_params`` tree (numpy leaves) as the port's
+    params for ``cfg`` on ``device``.
+
+    Every leaf of the port's ``model_defs(cfg)`` must be in ``tree`` with the
+    same shape and dtype, and ``tree`` may hold nothing else: a missing,
+    extra or mis-shaped leaf raises ``ValueError``.
+    """
+    from ..models.lm import model_defs
+    from ..models.params import ParamDef
+    device = torch.device(device)
+
+    def walk(defs, node, path):
+        where = "/".join(map(str, path)) or "<root>"
+        if isinstance(defs, ParamDef):
+            if isinstance(node, (dict, list, tuple)) or node is None:
+                raise ValueError(f"{where}: expected an array leaf")
+            t = _leaf_tensor(node, where)
+            if tuple(t.shape) != defs.shape or t.dtype != defs.dtype:
+                raise ValueError(
+                    f"{where}: {t.dtype} {tuple(t.shape)} does not fit "
+                    f"{defs.dtype} {defs.shape}")
+            return t.to(device)
+        if isinstance(defs, dict):
+            if not isinstance(node, dict):
+                raise ValueError(f"{where}: expected a dict")
+            missing = sorted(set(defs) - set(node))
+            extra = sorted(set(node) - set(defs))
+            if missing or extra:
+                raise ValueError(f"{where}: missing leaves {missing}, extra "
+                                 f"leaves {extra}")
+            return {k: walk(defs[k], node[k], path + (k,)) for k in defs}
+        if not isinstance(node, (list, tuple)) or len(node) != len(defs):
+            raise ValueError(f"{where}: expected a list of {len(defs)}")
+        return [walk(d, n, path + (i,)) for i, (d, n) in
+                enumerate(zip(defs, node))]
+
+    return walk(model_defs(cfg), tree, ())

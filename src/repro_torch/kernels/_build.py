@@ -27,7 +27,9 @@ __all__ = ["build_all", "library", "build_dir", "SOURCES"]
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 
 #: kernel library name → its source under ``csrc/``
-SOURCES = {"levelsim": "levelsim.cu", "gcn_spmm": "gcn_spmm.cu"}
+SOURCES = {"levelsim": "levelsim.cu", "gcn_spmm": "gcn_spmm.cu",
+           "rmsnorm": "rmsnorm.cu", "flash_attention": "flash_attention.cu",
+           "ssd_scan": "ssd_scan.cu"}
 
 # --fmad=false: the kernels round like their plain PyTorch versions, which
 # multiply and add in separate steps.

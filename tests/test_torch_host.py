@@ -87,6 +87,10 @@ def test_port_imports_without_jax():
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
         "import repro_torch\n"
+        "import repro_torch.models, repro_torch.configs\n"
+        "import repro_torch.launch.serve\n"
+        "assert repro_torch.configs.all_archs() == ('h2o-danube-1.8b',"
+        " 'mamba2-130m')\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and"
