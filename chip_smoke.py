@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the port's five CUDA kernels from ``src/repro_torch/csrc`` (into
-``build/repro_torch``, one ``nvcc`` per source, all at once), holds each
-kernel against its plain PyTorch version on the card at the main paths'
-shapes and times both, then drives the two main paths through the user entry
-points:
+Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
+``build/repro_torch``, one ``nvcc`` per source, all at once: six sources, as
+flash_attention has a bf16 tensor-core kernel, ``flash_attention_sm90.cu``,
+and an f32 SIMT one), holds each kernel against its plain PyTorch version on
+the card at the main paths' shapes and times both, then drives the two main
+paths through the user entry points:
 
 1. the placement search: ``HSDAG.search(..., engine="level")`` on
    Inception-v3 at the Table-6 widths (hidden 128, 2+2+2 layers, T=20) with
@@ -46,6 +47,10 @@ SRC = os.path.join(ROOT, "src")
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOPS = 67e12
 H100_BF16_FLOPS = 989e12     # dense bf16 on the tensor cores
+# flash_attention's bf16 time at danube's prefill shape on the SIMT kernel,
+# before the tensor-core kernel took bf16 (PERF.md section 6: chip_smoke.py
+# on an NVIDIA H100 80GB HBM3 at 700 W)
+FLASH_SIMT_BF16_MS = 31.708
 
 TOL = 1e-5
 # LM kernels against their plain versions (normwise): f32 as above; bf16 as
@@ -309,19 +314,43 @@ def rmsnorm_checks(torch):
     return worst, t, shapes
 
 
-def _window_mask(torch, s, window):
-    i = torch.arange(s, device="cuda")[:, None]
-    j = torch.arange(s, device="cuda")[None, :]
-    return (j <= i) & (j > i - window)
+def flash_sm90_report():
+    """The bf16 tensor-core flash kernel's build: per head dim, its registers
+    and spills from nvcc's ``-Xptxas -v`` log and the dynamic shared memory
+    a block takes."""
+    import ctypes
+    import re
+    from repro_torch.kernels._build import _lib_path, library
+    smem = library("flash_attention_sm90").flash_attention_bf16_sm90_smem
+    smem.restype, smem.argtypes = ctypes.c_int, [ctypes.c_int]
+    log = _lib_path("flash_attention_sm90").with_suffix(".log").read_text()
+    d = None
+    for line in log.splitlines():
+        entry = re.search(r"flash_attention_sm90_kernelILi(\d+)E", line)
+        if entry and "Compiling entry" in line:
+            d = int(entry.group(1))
+        elif d is not None and ("registers" in line or "spill" in line):
+            print(f"[build] flash_attention_sm90 D={d}: {line.strip()}"
+                  + (f"; dynamic shared memory {smem(d)} B per block"
+                     if "registers" in line else ""))
 
 
 def flash_checks(torch):
-    """flash_attention at danube's prefill shape (B=4, H=32, KV=8, S=4608,
-    D=80, window 4096) in bf16, batch 1 of it in f32, and small GQA/window,
-    D=64/128 and non-causal cases."""
+    """flash_attention on both routes, each case against
+    ``flash_attention_ref``: bf16 through the tensor-core kernel
+    (``csrc/flash_attention_sm90.cu``) at danube's prefill shape (B=4, H=32,
+    KV=8, S=4608, D=80, window 4096) and at D=64/80/128 with GQA, MHA, a
+    window edge inside a tile, a ragged S and causal=False; f32 through the
+    SIMT kernel (``csrc/flash_attention.cu``) at batch 1 of danube's shape and
+    the small cases.  Then the bf16 kernel's time beside
+    ``scaled_dot_product_attention`` on the same inputs."""
     import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention, flash_attention_ref
+    from repro_torch.kernels import (flash_attention, flash_attention_ref,
+                                     flash_pairs)
+    from repro_torch.kernels.flash_attention import flash_mask
     gen = torch.Generator(device="cuda").manual_seed(3)
+    f32, bf16 = torch.float32, torch.bfloat16
+    routes = {f32: "simt_f32", bf16: "wgmma_bf16"}
 
     def qkv(b, h, kv, s, d, dtype):
         return (torch.randn(b, h, s, d, generator=gen, device="cuda")
@@ -332,28 +361,42 @@ def flash_checks(torch):
                 .to(dtype))
 
     worst = 0.0
-    cases = [((1, 32, 8, 4608, 80), True, 4096, torch.float32),
-             ((2, 8, 2, 700, 64), True, 256, torch.float32),
-             ((2, 8, 2, 700, 64), True, 256, torch.bfloat16),
-             ((1, 4, 1, 333, 128), True, 0, torch.float32),
-             ((1, 4, 1, 333, 128), True, 0, torch.bfloat16),
-             ((1, 4, 2, 300, 80), False, 64, torch.float32)]
+    cases = [((1, 32, 8, 4608, 80), True, 4096, f32),
+             ((2, 8, 2, 700, 64), True, 256, f32),
+             ((1, 4, 1, 333, 128), True, 0, f32),
+             ((1, 4, 2, 300, 80), False, 64, f32),
+             ((2, 8, 2, 700, 64), True, 256, bf16),
+             ((1, 4, 1, 333, 128), True, 0, bf16),
+             ((1, 8, 2, 333, 80), True, 100, bf16),   # window edge in a tile
+             ((2, 4, 4, 520, 64), True, 0, bf16),     # KV = H
+             ((1, 8, 2, 777, 64), True, 300, bf16),   # H / KV = 4
+             ((2, 4, 4, 520, 128), True, 0, bf16),
+             ((1, 8, 2, 777, 128), True, 300, bf16),
+             ((2, 8, 8, 640, 80), True, 0, bf16),
+             ((1, 4, 2, 300, 80), False, 64, bf16),   # window not applied
+             ((1, 4, 1, 1000, 64), False, 0, bf16),
+             ((1, 4, 1, 333, 128), False, 0, bf16)]
     for shape, causal, window, dtype in cases:
         q, k, v = qkv(*shape, dtype)
+        before = dict(flash_attention.route_launches)
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        route = routes[dtype]
+        check(flash_attention.route_launches[route] == before[route] + 1,
+              f"flash_attention {shape} {dtype} did not take the {route} "
+              f"kernel")
         worst = lm_check(
-            torch, f"flash_attention {shape} causal={causal} "
-            f"window={window} {dtype}",
-            flash_attention(q, k, v, causal=causal, window=window),
+            torch, f"flash_attention[{route}] {shape} causal={causal} "
+            f"window={window} {dtype}", got,
             flash_attention_ref(q, k, v, causal=causal, window=window),
             dtype, worst)
-        del q, k, v
+        del q, k, v, got
     B, H, KV, S, D, W = 4, 32, 8, 4608, 80, 4096
-    q, k, v = qkv(B, H, KV, S, D, torch.bfloat16)
+    q, k, v = qkv(B, H, KV, S, D, bf16)
     got = flash_attention(q, k, v, window=W)
     want = flash_attention_ref(q, k, v, window=W)
-    worst = lm_check(torch, f"flash_attention {(B, H, KV, S, D)} causal=True "
-                     f"window={W} bf16", got, want, torch.bfloat16, worst)
-    mask = _window_mask(torch, S, W)
+    worst = lm_check(torch, f"flash_attention[wgmma_bf16] {(B, H, KV, S, D)} "
+                     f"causal=True window={W} bf16", got, want, bf16, worst)
+    mask = flash_mask(S, True, W, "cuda")
     if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
         def library():
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
@@ -367,21 +410,31 @@ def flash_checks(torch):
     lib_out = library()
     lib_err = rel_err(torch, lib_out.float(), want.float())
     del got, want, lib_out
-    ms, host = cuda_ms(torch, lambda: flash_attention(q, k, v, window=W), 5)
+    ms, host = cuda_ms(torch, lambda: flash_attention(q, k, v, window=W), 20)
+    lib, _ = cuda_ms(torch, library, 10)
+    ms2, _ = cuda_ms(torch, lambda: flash_attention(q, k, v, window=W), 20)
     plain, _ = cuda_ms(torch, lambda: flash_attention_ref(q, k, v, window=W),
                        2, 1)
-    lib, _ = cuda_ms(torch, library, 5)
-    pairs = int(mask.sum())
+    # the pair count comes from the kernel's own tile plan
+    pairs, visited = flash_pairs(S, True, W)
+    check(pairs == int(mask.sum()), "flash_pairs disagrees with the mask")
     nbytes = 2 * (2 * B * H * S * D + 2 * B * KV * S * D)
     ops = 4 * B * H * D * pairs
-    t = (ms, plain, *bound_ms_bf16(nbytes, ops), lib)
+    t = (min(ms, ms2), plain, *bound_ms_bf16(nbytes, ops), lib)
     print(f"[lm-kernels] flash_attention timing {(B, H, KV, S, D)} window "
-          f"{W} bf16: kernel {ms:.3f} ms on the card ({host:.4f} ms of host "
-          f"time to launch), plain {plain:.3f} ms, "
-          f"scaled_dot_product_attention(mask, enable_gqa) {lib:.3f} ms "
-          f"(rel err vs plain {lib_err:.2e}), bound {t[2]:.6f} ms ({t[3]}: "
-          f"{nbytes} B, {ops} ops over {pairs} unmasked (query, key) pairs "
-          f"per head)")
+          f"{W} bf16: tensor-core kernel {ms:.4f} / {ms2:.4f} ms on the card "
+          f"(two runs around the library's; {host:.4f} ms of host time to "
+          f"launch), {ops / (t[0] * 1e-3) / 1e12:.1f} TFLOP/s on the "
+          f"unmasked pairs, {100 * t[2] / t[0]:.1f} % of the bound; "
+          f"before: the SIMT kernel {FLASH_SIMT_BF16_MS} ms (PERF.md); "
+          f"scaled_dot_product_attention(mask, enable_gqa) {lib:.4f} ms "
+          f"(rel err vs plain {lib_err:.2e}); plain {plain:.3f} ms; bound "
+          f"{t[2]:.6f} ms ({t[3]}: {nbytes} B, {ops} ops over {pairs} "
+          f"unmasked (query, key) pairs per head; the visited tiles hold "
+          f"{visited}); design goal half the bound "
+          f"({2 * t[2]:.4f} ms): {'met' if t[0] <= 2 * t[2] else 'not met'}")
+    check(t[0] < lib, f"the bf16 flash_attention kernel ({t[0]:.4f} ms) is "
+          f"not faster than scaled_dot_product_attention ({lib:.4f} ms)")
     return worst, t
 
 
@@ -421,12 +474,15 @@ def serve_phase(torch, arch, batch, prompt, steps):
     cfg = get(arch).config
     for k in kernels:
         k.launches = 0
+    for route in flash_attention.route_launches:
+        flash_attention.route_launches[route] = 0
     t0 = time.perf_counter()
     res = serve.main(["--arch", arch, "--batch", str(batch), "--prompt",
                       str(prompt), "--steps", str(steps)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
+    launches.update(flash_attention.route_launches)
     print(f"[serve] {arch} {cfg.dtype} B={batch} prompt={prompt} "
           f"steps={steps}: prefill {res.prefill_ms:.3f} ms, decode "
           f"{res.decode_ms:.3f} ms for {steps - 1} steps "
@@ -443,6 +499,13 @@ def serve_phase(torch, arch, batch, prompt, steps):
     check(launches["flash_attention"] == want_flash,
           f"{arch} serve launched flash_attention "
           f"{launches['flash_attention']} times, not {want_flash}")
+    # the bf16 serve runs every layer's prefill attention on the tensor-core
+    # kernel, none on the SIMT one
+    check(launches["wgmma_bf16"] == want_flash
+          and launches["simt_f32"] == 0,
+          f"{arch} serve launched the bf16 tensor-core flash kernel "
+          f"{launches['wgmma_bf16']} times and the f32 SIMT kernel "
+          f"{launches['simt_f32']} times, not {want_flash} and 0")
     check(launches["ssd_scan"] == want_ssd,
           f"{arch} serve launched ssd_scan {launches['ssd_scan']} times, "
           f"not {want_ssd}")
@@ -523,6 +586,7 @@ def main() -> int:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {log.stem}: {line.strip()}")
+    flash_sm90_report()
 
     plat = paper_platform()
     graphs = {name: build() for name, build in PAPER_BENCHMARKS.items()}
@@ -633,9 +697,9 @@ def main() -> int:
          "max_abs_err": rms_err, "ms": rms_t[0], "plain_ms": rms_t[1],
          "bound_ms": rms_t[2], "bound_by": rms_t[3], "library_ms": rms_t[4]},
         {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
          "replaces": "src/repro/kernels/flash_attention.py:35",
-         "launches": danube["flash_attention"] + mamba["flash_attention"],
+         "launches": danube["wgmma_bf16"] + mamba["wgmma_bf16"],
          "max_abs_err": flash_err, "ms": flash_t[0], "plain_ms": flash_t[1],
          "bound_ms": flash_t[2], "bound_by": flash_t[3],
          "library_ms": flash_t[4]},

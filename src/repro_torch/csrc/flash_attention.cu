@@ -1,7 +1,9 @@
 // Causal (optionally sliding-window) GQA attention with an online softmax on
-// Hopper.  q is (B, H, S, D), k and v are (B, KV, S, D), head h reads KV head
-// h / (H / KV); the output is (B, H, S, D) in q's type.  All arithmetic is
-// f32; inputs are f32 or bf16.  D is 64, 80 or 128.
+// Hopper, in float32.  q is (B, H, S, D), k and v are (B, KV, S, D), head h
+// reads KV head h / (H / KV); the output is (B, H, S, D).  D is 64, 80 or
+// 128.  bf16 attention runs flash_attention_sm90.cu on the tensor cores;
+// this kernel keeps f32 exact to 1e-5 (TF32 tensor cores could not), for
+// the float32 prefill.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::_flash_kernel
 // (via flash_attention).  The Pallas grid makes the key blocks its innermost
@@ -11,7 +13,7 @@
 // running state never leaves the SM:
 //
 //   * the query tile and the current key and value tiles sit in shared
-//     memory as f32 (rows padded to D+1 floats, so the lanes of a warp read
+//     memory (rows padded to D+1 floats, so the lanes of a warp read
 //     distinct banks);
 //   * four threads share one query row: each computes the scores of 16 of
 //     the tile's 64 keys, the row's max and sum are reduced over the four
@@ -31,13 +33,9 @@
 // its diagonal key, so no row ends fully masked.
 //
 // What bounds it on this card: operations.  At the h2o-danube-1.8b prefill
-// (S=4608, D=80, window 4096) it does ~900 multiply-adds per byte of q, k,
-// v and o.  This first version runs them on the f32 units from shared memory
-// (one shared load per multiply-add), not on the tensor cores: a wgmma/TMA
-// redesign is later work, and its time stands beside the bf16 tensor-core
-// bound in PERF.md.
+// shape it does ~900 multiply-adds per byte of q, k, v and o, on the f32
+// units from shared memory (one shared load per multiply-add).
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -48,38 +46,31 @@ constexpr int kThreads = 256;  // 4 threads per query row
 constexpr int kKeysPerThread = kBK / 4;
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
 template <int D>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (kBQ * (D + 1) + kBK * (D + 1) + kBK * D);
 }
 
-// Rows [t0, t0 + 64) of a (S, D) matrix into dst (row stride `stride`) as
-// f32; rows at or past S are zero.  Loads query tiles too (kBQ == kBK).
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src, int t0,
-                                          int S, float* dst, int stride) {
+// Rows [t0, t0 + 64) of a (S, D) matrix into dst (row stride `stride`);
+// rows at or past S are zero.  Loads query tiles too (kBQ == kBK).
+template <int D>
+__device__ __forceinline__ void load_tile(const float* __restrict__ src,
+                                          int t0, int S, float* dst,
+                                          int stride) {
   for (int i = threadIdx.x; i < kBK * D; i += kThreads) {
     const int row = i / D;
     const int col = i - row * D;
     const int t = t0 + row;
     dst[row * stride + col] =
-        t < S ? to_f32(src[static_cast<size_t>(t) * D + col]) : 0.f;
+        t < S ? src[static_cast<size_t>(t) * D + col] : 0.f;
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out,
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out,
                        int H, int KV, int S, float scale, int causal,
                        int window) {
   static_assert(D % 4 == 0, "D must be a multiple of 4");
@@ -95,10 +86,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.z;
   const int kvh = h / (H / KV);
   const size_t sd = static_cast<size_t>(S) * D;
-  const T* qb = q + (static_cast<size_t>(b) * H + h) * sd;
-  const T* kb = k + (static_cast<size_t>(b) * KV + kvh) * sd;
-  const T* vb = v + (static_cast<size_t>(b) * KV + kvh) * sd;
-  T* ob = out + (static_cast<size_t>(b) * H + h) * sd;
+  const float* qb = q + (static_cast<size_t>(b) * H + h) * sd;
+  const float* kb = k + (static_cast<size_t>(b) * KV + kvh) * sd;
+  const float* vb = v + (static_cast<size_t>(b) * KV + kvh) * sd;
+  float* ob = out + (static_cast<size_t>(b) * H + h) * sd;
 
   const int tid = threadIdx.x;
   const int r = tid >> 2;            // query row within the tile
@@ -107,7 +98,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row_lane0 = lane & ~3;
   const int i = q0 + r;              // query index
 
-  load_tile<T, D>(qb, q0, S, qs, kDP);
+  load_tile<D>(qb, q0, S, qs, kDP);
 
   // Key tiles to visit: under causal masking, none above the block's last
   // query, and (with a window) none wholly older than its first query's
@@ -129,8 +120,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
     const int t0 = kt * kBK;
     __syncthreads();                 // previous tile fully consumed
-    load_tile<T, D>(kb, t0, S, ks, kDP);
-    load_tile<T, D>(vb, t0, S, vs, D);
+    load_tile<D>(kb, t0, S, ks, kDP);
+    load_tile<D>(vb, t0, S, vs, D);
     __syncthreads();
 
     float s[kKeysPerThread];
@@ -189,19 +180,17 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (i < S) {
     const float inv = l == 0.f ? 1.f : l;
-    T* orow = ob + static_cast<size_t>(i) * D + qt;
+    float* orow = ob + static_cast<size_t>(i) * D + qt;
 #pragma unroll
-    for (int j = 0; j < kAcc; ++j) {
-      store(orow + 4 * j, __fdiv_rn(acc[j], inv));
-    }
+    for (int j = 0; j < kAcc; ++j) orow[4 * j] = __fdiv_rn(acc[j], inv);
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int H, int KV, int S, float scale, int causal, int window,
            cudaStream_t stream) {
-  auto* kernel = flash_attention_kernel<T, D>;
+  auto* kernel = flash_attention_kernel<D>;
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -209,28 +198,10 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), H, KV, S, scale,
-      causal, window);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), H, KV, S,
+      scale, causal, window);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int B,
-             int H, int KV, int S, int D, float scale, int causal,
-             int window, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64:
-      return launch<T, 64>(q, k, v, out, B, H, KV, S, scale, causal, window, s);
-    case 80:
-      return launch<T, 80>(q, k, v, out, B, H, KV, S, scale, causal, window, s);
-    case 128:
-      return launch<T, 128>(q, k, v, out, B, H, KV, S, scale, causal, window,
-                            s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
@@ -242,14 +213,16 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* out, int B, int H,
                                    int KV, int S, int D, float scale,
                                    int causal, int window, void* stream) {
-  return dispatch<float>(q, k, v, out, B, H, KV, S, D, scale, causal, window,
-                         stream);
-}
-
-extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* out, int B, int H,
-                                    int KV, int S, int D, float scale,
-                                    int causal, int window, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, out, B, H, KV, S, D, scale, causal,
-                                 window, stream);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64:
+      return launch<64>(q, k, v, out, B, H, KV, S, scale, causal, window, s);
+    case 80:
+      return launch<80>(q, k, v, out, B, H, KV, S, scale, causal, window, s);
+    case 128:
+      return launch<128>(q, k, v, out, B, H, KV, S, scale, causal, window,
+                         s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

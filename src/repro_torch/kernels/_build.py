@@ -26,15 +26,29 @@ __all__ = ["build_all", "library", "build_dir", "SOURCES"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 
-#: kernel library name → its source under ``csrc/``
-SOURCES = {"levelsim": "levelsim.cu", "gcn_spmm": "gcn_spmm.cu",
-           "rmsnorm": "rmsnorm.cu", "flash_attention": "flash_attention.cu",
-           "ssd_scan": "ssd_scan.cu"}
+# --fmad=false: a kernel rounds like its plain PyTorch version, which
+# multiplies and adds in separate steps.
+_EXACT = ("--fmad=false",)
 
-# --fmad=false: the kernels round like their plain PyTorch versions, which
-# multiply and add in separate steps.
+#: kernel library name → (its source under ``csrc/``, its own nvcc flags).
+#: The bf16 attention kernel runs on the tensor cores and compares with its
+#: plain version at bf16's tolerance, so it keeps fused multiply-adds; it
+#: takes cuTensorMapEncodeTiled from libcuda through the CUDA runtime, so
+#: it links nothing beyond the runtime either.
+SOURCES = {"levelsim": ("levelsim.cu", _EXACT),
+           "gcn_spmm": ("gcn_spmm.cu", _EXACT),
+           "rmsnorm": ("rmsnorm.cu", _EXACT),
+           "flash_attention": ("flash_attention.cu", _EXACT),
+           "flash_attention_sm90": ("flash_attention_sm90.cu", ()),
+           "ssd_scan": ("ssd_scan.cu", _EXACT)}
+
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _flags(name: str):
+    return (*_FLAGS, *SOURCES[name][1])
+
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -57,8 +71,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (_CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(_FLAGS).encode()).hexdigest()[:16]
+    src = (_CSRC / SOURCES[name][0]).read_bytes()
+    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()) \
+        .hexdigest()[:16]
     return build_dir() / f"lib{name}-{digest}.so"
 
 
@@ -82,7 +97,8 @@ def build_all() -> Dict[str, float]:
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
         log = open(path.with_suffix(".log"), "w")
         proc = subprocess.Popen(
-            [nvcc, *_FLAGS, "-o", str(tmp), str(_CSRC / SOURCES[name])],
+            [nvcc, *_flags(name), "-o", str(tmp),
+             str(_CSRC / SOURCES[name][0])],
             stdout=log, stderr=subprocess.STDOUT)
         procs[name] = (proc, tmp, path, log)
     seconds: Dict[str, float] = {}

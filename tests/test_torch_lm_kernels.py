@@ -74,6 +74,27 @@ def test_flash_attention_matches_pallas(b, h, kv, s, d, window, dtype):
     _close(got, want, TOL[dtype])
 
 
+def test_flash_attention_bf16_window_off_the_tile_grid_matches_pallas():
+    """bf16 at head dim 80 with a window that is not a multiple of 64 (its
+    edge falls inside the kernels' key tiles) and a ragged S: the wrapper
+    against ``flash_attention_ref`` and against the Pallas kernel in
+    interpret mode, at the reference's bf16 tolerance."""
+    from repro_torch.kernels import flash_attention_ref
+    rng = np.random.default_rng(333)
+    b, h, kv, s, d, window = 1, 4, 2, 333, 80, 100
+    qn, kn, vn = (rng.standard_normal(shape).astype(np.float32)
+                  for shape in ((b, h, s, d), (b, kv, s, d), (b, kv, s, d)))
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(a, "bfloat16")
+                                    for a in (qn, kn, vn))
+    got = flash_attention(qt, kt, vt, causal=True, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == qt.shape
+    want = flash_attention_ref(qt, kt, vt, causal=True, window=window)
+    _close(got, want.to(torch.float32).numpy(), TOL["bfloat16"])
+    pallas = ref_flash(qj, kj, vj, causal=True, window=window,
+                       interpret=True)
+    _close(got, pallas, TOL["bfloat16"])
+
+
 def test_flash_attention_non_causal_matches_pallas():
     rng = np.random.default_rng(2)
     q, k, v = (rng.standard_normal((1, 2, 128, 64)).astype(np.float32)
@@ -119,6 +140,38 @@ def test_ssd_scan_matches_pallas(b, c, h, p, n):
 
 
 # ----------------------------------------------------------------- wrappers
+def test_flash_attention_argument_checks_and_routes():
+    """What the CUDA kernels refuse raises before any launch (checked here
+    on CPU tensors, which the wrapper itself hands to the plain version),
+    and the dtype picks the route: bf16 the tensor-core kernel, f32 the
+    SIMT kernel."""
+    from repro_torch.kernels.flash_attention import _check_args
+    q = torch.zeros(1, 4, 8, 80, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 2, 8, 80, dtype=torch.bfloat16)
+    assert _check_args(q, kv, kv, 0) == "wgmma_bf16"
+    assert _check_args(q.float(), kv.float(), kv.float(), 0) == "simt_f32"
+    with pytest.raises(ValueError, match="head dim 96"):
+        _check_args(*(torch.zeros(1, 2, 8, 96, dtype=torch.bfloat16),) * 3,
+                    0)
+    with pytest.raises(ValueError, match="k must be a contiguous"):
+        _check_args(q, kv.float(), kv, 0)
+    with pytest.raises(ValueError, match="q must be a contiguous"):
+        _check_args(q.transpose(2, 3).contiguous().transpose(2, 3), kv, kv,
+                    0)
+    with pytest.raises(ValueError, match="v must be a contiguous"):
+        _check_args(q, kv, kv.transpose(2, 3).contiguous().transpose(2, 3),
+                    0)
+    with pytest.raises(ValueError, match="do not group"):
+        _check_args(q, *(torch.zeros(1, 3, 8, 80, dtype=torch.bfloat16),)
+                    * 2, 0)
+    with pytest.raises(ValueError, match="window must be"):
+        _check_args(q, kv, kv, -1)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        flat = torch.zeros(1 + 4 * 8 * 80, dtype=torch.bfloat16)
+        _check_args(flat[1:].view(1, 4, 8, 80), *(kv[:, :2],) * 2, 0)
+
+
+
 def test_wrappers_take_the_plain_version_only_on_cpu():
     """CPU tensors run the plain versions without counting a launch; a
     tensor on any other non-CUDA device raises instead of falling back."""
