@@ -7,8 +7,11 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
 ``build/repro_torch``, one ``nvcc`` per source, all at once: six sources, as
 flash_attention has a bf16 tensor-core kernel, ``flash_attention_sm90.cu``,
 and an f32 SIMT one), holds each kernel against its plain PyTorch version on
-the card at the main paths' shapes and times both, then drives the two main
-paths through the user entry points:
+the card at the main paths' shapes and on every route a kernel has
+(rmsnorm's warp, block and general routes over rows x widths x dtypes;
+gcn_aggregate's float4 and scalar routes on the three paper graphs, forward
+and backward) and times both, then drives the two main paths through the
+user entry points:
 
 1. the placement search: ``HSDAG.search(..., engine="level")`` on
    Inception-v3 at the Table-6 widths (hidden 128, 2+2+2 layers, T=20) with
@@ -21,8 +24,9 @@ paths through the user entry points:
    float32 check that prefill + greedy decode agrees with ``forward`` for
    each model.
 
-Each path's kernel launch counters are zeroed just before it and read just
-after it; every wall time is printed per phase.
+Each path's kernel launch counters (and per-route counters) are zeroed just
+before it and read just after it; every wall time is printed per phase, and
+each redesign's design goals are printed as met or not met.
 
 Lines it prints, in order: phase results, one JSON line
 ``{"kernels": [...]}``, the card's name and power limit as ``nvidia-smi``
@@ -53,6 +57,16 @@ H100_BF16_FLOPS = 989e12     # dense bf16 on the tensor cores
 FLASH_SIMT_BF16_MS = 31.708
 
 TOL = 1e-5
+# The redesigns' goals on the card (design goals, printed as met or not):
+# gcn_aggregate at the search's shape, device and host ms per launch;
+GCN_GOAL_MS, GCN_HOST_GOAL_MS = 0.0059, 0.020
+# rmsnorm at danube's prefill (18432x2560 bf16) and decode (4x2560 bf16)
+# shapes, its device time above the bound over one main-path run, and its
+# host ms per launch at the prefill shape (below the 0.0199 ms the same
+# measurement gave before the redesign: PERF.md, NVIDIA H100 80GB HBM3 at
+# 700 W).
+RMS_PREFILL_GOAL_MS, RMS_DECODE_GOAL_MS = 0.0704, 0.003
+RMS_EXCESS_GOAL_MS, RMS_HOST_BEFORE_MS = 10.0, 0.0199
 # LM kernels against their plain versions (normwise): f32 as above; bf16 as
 # the reference's own kernel tests (tests/test_kernels.py:14-15)
 LM_TOL = {"torch.float32": 1e-5, "torch.bfloat16": 2e-2}
@@ -163,38 +177,60 @@ def level_checks(torch, graphs, plat):
 
 
 def gcn_checks(torch, graphs):
+    """gcn_aggregate forward and backward against its plain version on the
+    three paper graphs at F = 37 (the scalar route), 128 and 200 (the
+    float4 route, 200 with a ragged second pass) and B = 1 and 16,
+    each case checking the route it took; then its time at the search's
+    shape (Inception-v3, B=16, F=128) beside the plain version and a dense
+    ``torch.bmm``."""
     from repro_torch.core.gnn import normalize_adjacency
     from repro_torch.kernels import (GCNAggregate, gcn_aggregate,
                                      gcn_aggregate_ref, gcn_graph)
     gen = torch.Generator(device="cuda").manual_seed(1)
     worst = 0.0
     timing = None
-    B, F = 16, 128
     for name, g in graphs.items():
         V, E = g.num_nodes, g.num_edges
         graph = gcn_graph(g.edges, V, "cuda")
-        keep = (torch.rand(B, E, generator=gen, device="cuda") < 0.8).float()
-        h = torch.randn(B, V, F, generator=gen, device="cuda")
-        gout = torch.randn(B, V, F, generator=gen, device="cuda")
-        out_k = gcn_aggregate(graph, keep, h)
-        out_r = gcn_aggregate_ref(graph, keep, h)
-        hk = h.clone().requires_grad_(True)
-        (gk,) = torch.autograd.grad(GCNAggregate.apply(graph, keep, hk), hk,
-                                    gout)
-        hr = h.clone().requires_grad_(True)
-        (gr,) = torch.autograd.grad(gcn_aggregate_ref(graph, keep, hr), hr,
-                                    gout)
-        torch.cuda.synchronize()
-        e_f, e_b = rel_err(torch, out_k, out_r), rel_err(torch, gk, gr)
-        abs_err = float(max((out_k - out_r).abs().max(),
-                            (gk - gr).abs().max()))
-        worst = max(worst, abs_err)
-        print(f"[kernels] gcn_aggregate {name}: B={B} V={V} E={E} F={F} "
-              f"forward rel err {e_f:.3e}, backward rel err {e_b:.3e}, "
-              f"max abs err {abs_err:.3e}")
-        check(e_f <= TOL and e_b <= TOL,
-              f"gcn_aggregate disagrees with its plain version on {name}")
+        for B in (1, 16):
+            keep = (torch.rand(B, E, generator=gen, device="cuda")
+                    < 0.8).float()
+            for F in (37, 128, 200):
+                h = torch.randn(B, V, F, generator=gen, device="cuda")
+                gout = torch.randn(B, V, F, generator=gen, device="cuda")
+                route = "vec4" if F % 4 == 0 else "scalar"
+                before = gcn_aggregate.route_launches[route]
+                out_k = gcn_aggregate(graph, keep, h)
+                out_r = gcn_aggregate_ref(graph, keep, h)
+                hk = h.clone().requires_grad_(True)
+                (gk,) = torch.autograd.grad(
+                    GCNAggregate.apply(graph, keep, hk), hk, gout)
+                hr = h.clone().requires_grad_(True)
+                (gr,) = torch.autograd.grad(
+                    gcn_aggregate_ref(graph, keep, hr), hr, gout)
+                torch.cuda.synchronize()
+                # the call, GCNAggregate's forward and its backward
+                check(gcn_aggregate.route_launches[route] == before + 3,
+                      f"gcn_aggregate {name} F={F} did not take the {route} "
+                      f"route forward and backward")
+                e_f, e_b = rel_err(torch, out_k, out_r), rel_err(torch, gk,
+                                                                 gr)
+                abs_err = float(max((out_k - out_r).abs().max(),
+                                    (gk - gr).abs().max()))
+                worst = max(worst, abs_err)
+                print(f"[kernels] gcn_aggregate[{route}] {name}: B={B} "
+                      f"V={V} E={E} F={F} forward rel err {e_f:.3e}, "
+                      f"backward rel err {e_b:.3e}, max abs err "
+                      f"{abs_err:.3e}")
+                check(e_f <= TOL and e_b <= TOL,
+                      f"gcn_aggregate disagrees with its plain version on "
+                      f"{name} B={B} F={F}")
         if name == "inception_v3":
+            B, F = 16, 128
+            keep = (torch.rand(B, E, generator=gen, device="cuda")
+                    < 0.8).float()
+            h = torch.randn(B, V, F, generator=gen, device="cuda")
+            out_r = gcn_aggregate_ref(graph, keep, h)
             adj = torch.zeros(B, V, V, device="cuda")
             bidx = torch.arange(B, device="cuda")[:, None]
             adj[bidx, graph.src[None], graph.dst[None]] = keep
@@ -209,11 +245,16 @@ def gcn_checks(torch, graphs):
             ops = B * F * (2 * V + 6 * E) + B * (2 * E + 2 * V)
             timing = (ms, plain, *bound_ms(nbytes, ops), lib)
             print(f"[kernels] gcn_aggregate timing at inception_v3, B={B}, "
-                  f"F={F}: kernel {ms:.4f} ms on the card ({host:.4f} ms of "
+                  f"F={F}: kernel {ms:.5f} ms on the card ({host:.5f} ms of "
                   f"host time to launch), plain {plain:.4f} ms, "
                   f"torch.bmm(dense Â, H) {lib:.4f} ms (rel err vs plain "
                   f"{lib_err:.2e}), bound {timing[2]:.6f} ms ({timing[3]}: "
-                  f"{nbytes} B, {ops} ops)")
+                  f"{nbytes} B, {ops} ops; the bytes stay in the 50 MB L2 "
+                  f"between calls); design goals: device <= "
+                  f"{GCN_GOAL_MS} ms "
+                  f"{'met' if ms <= GCN_GOAL_MS else 'not met'}, host <= "
+                  f"{GCN_HOST_GOAL_MS} ms "
+                  f"{'met' if host <= GCN_HOST_GOAL_MS else 'not met'}")
     return worst, timing
 
 
@@ -262,23 +303,59 @@ def rmsnorm_serve_shapes(torch):
     return shapes
 
 
+def rmsnorm_route_sweep(torch, gen, worst):
+    """rmsnorm against rmsnorm_ref at rows {1, 4, 5, 18432} x d {37, 200,
+    768, 1536, 2560, 8192} in f32 and bf16, at mamba2's prefill rows, and
+    with x and scale off a 16-byte boundary, each case checking that it took
+    the route ``rmsnorm_launch_plan`` gives; → (worst max abs error,
+    cases per route)."""
+    from repro_torch.kernels import rmsnorm, rmsnorm_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_launch_plan
+    cases = [(rows, d, dtype, 0)
+             for rows in (1, 4, 5, 18432)
+             for d in (37, 200, 768, 1536, 2560, 8192)
+             for dtype in (torch.float32, torch.bfloat16)]
+    # mamba2's prefill norms at their own row count
+    cases += [(4 * 4096, d, dtype, 0) for d in (768, 1536)
+              for dtype in (torch.float32, torch.bfloat16)]
+    # one element past the allocation's start: no longer 16-byte aligned
+    cases += [(rows, 2560, dtype, 1) for rows in (4, 18432)
+              for dtype in (torch.float32, torch.bfloat16)]
+    per_route = dict.fromkeys(rmsnorm.route_launches, 0)
+    for rows, d, dtype, skew in cases:
+        buf = torch.randn(rows * d + skew, generator=gen, device="cuda")
+        x = buf.to(dtype)[skew:].view(rows, d)
+        sbuf = torch.randn(d + skew, generator=gen, device="cuda") + 1.0
+        scale = sbuf[skew:]
+        plan = rmsnorm_launch_plan(rows, d, dtype, skew == 0)
+        before = rmsnorm.route_launches[plan.route]
+        got = rmsnorm(x, scale)
+        check(rmsnorm.route_launches[plan.route] == before + 1,
+              f"rmsnorm {rows}x{d} {dtype} did not take {plan.route}")
+        per_route[plan.route] += 1
+        worst = lm_check(torch, f"rmsnorm[{plan.route} x{plan.per_thread}"
+                         f"] {rows}x{d} {dtype}"
+                         + (" unaligned" if skew else ""), got,
+                         rmsnorm_ref(x, scale), dtype, worst)
+        del buf, x, got
+    check(all(per_route.values()),
+          f"the rmsnorm sweep left a route unrun: {per_route}")
+    return worst, per_route
+
+
 def rmsnorm_checks(torch):
-    """rmsnorm at the main path's shapes: danube prefill (4·4608 × 2560),
-    mamba2 prefill (4·4096 × 768) and its gated norm (4·4096 × 1536), each in
-    f32 and bf16; then the kernel's time at every shape the serves launch it
-    at (decode's 4-row norms included)."""
+    """rmsnorm on every route (``rmsnorm_route_sweep``); then at the main
+    path's shapes: its time at danube's prefill (4·4608 × 2560 bf16) beside
+    the plain version and ``F.rms_norm``, and at every shape the serves
+    launch it at (decode's 4-row norms included) its device and host time
+    beside ``F.rms_norm``'s, summed above its bound over one main-path
+    run."""
     import torch.nn.functional as F
     from repro_torch.kernels import rmsnorm, rmsnorm_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_launch_plan
     gen = torch.Generator(device="cuda").manual_seed(2)
-    worst = 0.0
-    for rows, d in ((4 * 4608, 2560), (4 * 4096, 768), (4 * 4096, 1536)):
-        scale = torch.randn(d, generator=gen, device="cuda") + 1.0
-        x32 = torch.randn(rows, d, generator=gen, device="cuda")
-        for dtype in (torch.float32, torch.bfloat16):
-            x = x32.to(dtype)
-            worst = lm_check(torch, f"rmsnorm {rows}x{d} {dtype}",
-                             rmsnorm(x, scale), rmsnorm_ref(x, scale), dtype,
-                             worst)
+    worst, per_route = rmsnorm_route_sweep(torch, gen, 0.0)
+    print(f"[lm-kernels] rmsnorm route sweep: cases per route {per_route}")
     rows, d = 4 * 4608, 2560
     x = torch.randn(rows, d, generator=gen, device="cuda").bfloat16()
     scale = torch.randn(d, generator=gen, device="cuda") + 1.0
@@ -293,24 +370,50 @@ def rmsnorm_checks(torch):
     print(f"[lm-kernels] rmsnorm timing {rows}x{d} bf16: kernel {ms:.4f} ms "
           f"on the card ({host:.4f} ms of host time to launch), plain "
           f"{plain:.4f} ms, F.rms_norm {lib:.4f} ms, bound {t[2]:.6f} ms "
-          f"({t[3]}: {nbytes} B, {ops} ops)")
+          f"({t[3]}: {nbytes} B, {ops} ops), {100 * t[2] / ms:.1f} % of the "
+          f"bound; design goals: <= {RMS_PREFILL_GOAL_MS} ms and no slower "
+          f"than F.rms_norm "
+          f"{'met' if ms <= min(RMS_PREFILL_GOAL_MS, lib) else 'not met'}, "
+          f"host time below the {RMS_HOST_BEFORE_MS} ms this measurement "
+          f"gave before the redesign "
+          f"{'met' if host < RMS_HOST_BEFORE_MS else 'not met'}")
 
-    # device time above the bound, summed over the serves' launches
+    # every serve shape: device and host time beside F.rms_norm, and the
+    # device time above the bound summed over the serves' launches
     shapes = rmsnorm_serve_shapes(torch)
-    excess = 0.0
+    excess, hosts, slower = 0.0, [], []
     for arch, rows, d, dtype, n in shapes:
         x = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
         scale = torch.randn(d, generator=gen, device="cuda") + 1.0
-        ms_s, _ = cuda_ms(torch, lambda: rmsnorm(x, scale),
-                          50 if rows > 64 else 500)
+        w = scale.to(dtype)
+        iters = 50 if rows > 64 else 500
+        ms_s, host_s = cuda_ms(torch, lambda: rmsnorm(x, scale), iters)
+        lib_s, _ = cuda_ms(torch, lambda: F.rms_norm(x, (d,), w, 1e-6),
+                           iters)
         nbytes = 2 * rows * d * x.element_size() + 4 * d
         b_ms, _ = bound_ms(nbytes, 4 * rows * d)
         excess += n * max(ms_s - b_ms, 0.0)
-        print(f"[lm-kernels] rmsnorm {arch} {rows}x{d} {dtype}: {n} launches"
-              f" per main-path run, kernel {ms_s:.5f} ms, bound "
-              f"{b_ms:.6f} ms, above the bound {n * (ms_s - b_ms):.4f} ms")
+        hosts.append(host_s)
+        if ms_s > lib_s:
+            slower.append(f"{rows}x{d} {dtype}")
+        route = rmsnorm_launch_plan(rows, d, dtype).route
+        print(f"[lm-kernels] rmsnorm {arch} {rows}x{d} {dtype} ({route}): "
+              f"{n} launches per main-path run, kernel {ms_s:.5f} ms "
+              f"({host_s:.5f} ms of host time to launch), F.rms_norm "
+              f"{lib_s:.5f} ms, bound {b_ms:.6f} ms, above the bound "
+              f"{n * (ms_s - b_ms):.4f} ms")
+        if (rows, d, dtype) == (4, 2560, torch.bfloat16):
+            print(f"[lm-kernels] rmsnorm decode 4x2560 bf16: design goal <= "
+                  f"{RMS_DECODE_GOAL_MS} ms: "
+                  f"{'met' if ms_s <= RMS_DECODE_GOAL_MS else 'not met'}")
     print(f"[lm-kernels] rmsnorm device time above its bound over one "
-          f"main-path run: {excess:.4f} ms")
+          f"main-path run: {excess:.4f} ms (design goal <= "
+          f"{RMS_EXCESS_GOAL_MS} ms: "
+          f"{'met' if excess <= RMS_EXCESS_GOAL_MS else 'not met'}); no "
+          f"slower than F.rms_norm at every serve shape: "
+          f"{'met' if not slower else 'not met, slower at ' + ', '.join(slower)}"
+          f"; host time per launch {min(hosts):.5f}-{max(hosts):.5f} ms at "
+          f"these shapes")
     return worst, t, shapes
 
 
@@ -474,8 +577,9 @@ def serve_phase(torch, arch, batch, prompt, steps):
     cfg = get(arch).config
     for k in kernels:
         k.launches = 0
-    for route in flash_attention.route_launches:
-        flash_attention.route_launches[route] = 0
+    for routes in (flash_attention.route_launches, rmsnorm.route_launches):
+        for route in routes:
+            routes[route] = 0
     t0 = time.perf_counter()
     res = serve.main(["--arch", arch, "--batch", str(batch), "--prompt",
                       str(prompt), "--steps", str(steps)])
@@ -483,6 +587,7 @@ def serve_phase(torch, arch, batch, prompt, steps):
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
     launches.update(flash_attention.route_launches)
+    launches["rmsnorm_routes"] = dict(rmsnorm.route_launches)
     print(f"[serve] {arch} {cfg.dtype} B={batch} prompt={prompt} "
           f"steps={steps}: prefill {res.prefill_ms:.3f} ms, decode "
           f"{res.decode_ms:.3f} ms for {steps - 1} steps "
@@ -568,6 +673,7 @@ def main() -> int:
     from repro_torch.core.sim import LevelBackend
     from repro_torch.kernels import gcn_aggregate, level_makespan
     from repro_torch.kernels._build import build_all, build_dir
+    from repro_torch.kernels.rmsnorm import rmsnorm_launch_plan
 
     t_start = time.perf_counter()
     # Full float32 everywhere: the checks below compare at 1e-5.
@@ -601,13 +707,16 @@ def main() -> int:
     t_phase = time.perf_counter()
     level_makespan.launches = 0
     gcn_aggregate.launches = 0
+    for route in gcn_aggregate.route_launches:
+        gcn_aggregate.route_launches[route] = 0
     t0 = time.perf_counter()
     res = agent.search(g, arrays, platform=plat)
     placement = agent.place(arrays)
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launches = {"level_makespan": level_makespan.launches,
-                "gcn_aggregate": gcn_aggregate.launches}
+                "gcn_aggregate": gcn_aggregate.launches,
+                "gcn_aggregate_routes": dict(gcn_aggregate.route_launches)}
     for h in res.history:
         print(f"[search] episode {h['episode']}: wall {h['wall_s']:.3f} s, "
               f"mean reward {h['mean_reward']:.4f}, best "
@@ -626,6 +735,10 @@ def main() -> int:
           "the search scored no window through the level kernel")
     check(launches["gcn_aggregate"] > 0,
           "the encoder never launched the gcn kernel")
+    check(launches["gcn_aggregate_routes"]["vec4"]
+          == launches["gcn_aggregate"],
+          "the encoder's gcn launches (hidden 128) did not all take the "
+          "vec4 route")
 
     order = LevelBackend(device="cuda").prepare(g, plat).arrays.order
     host = simulate(g, res.best_placement, plat, order=order).latency
@@ -667,6 +780,16 @@ def main() -> int:
         check(served[arch]["rmsnorm"] == want,
               f"{arch} serve launched rmsnorm {served[arch]['rmsnorm']} "
               f"times, not the {want} its timing counted")
+        # prefill's norms on the warp route, decode's 4-row ones on the
+        # block route, as the plan says
+        want_routes = dict.fromkeys(served[arch]["rmsnorm_routes"], 0)
+        for a, rows, d, dtype, n in rms_shapes:
+            if a == arch:
+                want_routes[rmsnorm_launch_plan(rows, d, dtype).route] += n
+        check(served[arch]["rmsnorm_routes"] == want_routes,
+              f"{arch} serve's rmsnorm launches per route "
+              f"{served[arch]['rmsnorm_routes']} are not the plan's "
+              f"{want_routes}")
     danube, mamba = served["h2o-danube-1.8b"], served["mamba2-130m"]
     print(f"[phase] serve: {time.perf_counter() - t_phase:.2f} s")
 

@@ -11,94 +11,239 @@
 //   out[b,i,:] = r_i · (r_i · h[b,i,:] + Σ_{k ∈ row i} keep[b,eid[k]] · r_j · h[b,j,:])
 //
 // What bounds it on this card: bytes.  It does ~2 operations per 4-byte
-// element of h it reads.  Threads run over the feature axis, so each
-// neighbour row of h is one coalesced read.  The normalised operator is
-// symmetric, so the gradient with respect to h is this same kernel applied to
-// the output gradient.
+// element of h it reads.  At the search's size (B=16, V=602, F=128: 9.9 MB,
+// which stays in the 50 MB L2 from call to call) the time goes to the
+// per-row work around those bytes: a chain of dependent index loads and
+// the degree sums, which a warp executes once for however many features it
+// carries.  So the design makes one launch of it and gives each row few
+// lanes:
+//
+//   - G lanes per row (chain b, node i), 32 / G rows a warp, 8 warps a
+//     block.  With F a multiple of 4 (and h 16-byte aligned) a row takes 16
+//     lanes and each lane two float4 of a 128-feature pass, so F = 128 is
+//     one pass and a warp's index work serves two rows; otherwise a row
+//     takes 8 lanes of 8 floats (a 64-feature pass).  Wider F takes more
+//     passes over the same neighbour list.
+//   - The degrees are fused.  Each row computes r for itself and for its
+//     neighbours from keep (about two keep reads each at these E/V, from
+//     L2), so no pass over the whole graph runs first and no (B, V) scratch
+//     is written.
+//   - Lane g of a row takes entry g of the row's CSR list with one 16-byte
+//     load (neighbour j, edge e, and the bounds of j's own list, stored with
+//     the entry by gcn_graph), so the chain is rowptr → entry → (keep[e],
+//     the eids of j's list) → their keeps.  The neighbours and their
+//     coefficients keep · r_j are broadcast within the row's lanes with
+//     __shfl_sync, and the h rows of two neighbours are loaded before the
+//     first is added.
+//
+// B·V must fit an int (the wrapper checks); nothing else bounds V.  The
+// normalised operator is symmetric, so the gradient with respect to h is
+// this same kernel applied to the output gradient.
 //
 // Arithmetic is rounded like the plain PyTorch version (gcn_aggregate_ref):
-// no fused multiply-add, neighbours summed in CSR order (edges where i is the
-// source, then edges where i is the destination, each in edge order).
+// no fused multiply-add, degrees and neighbours summed in CSR order (edges
+// where i is the source, then edges where i is the destination, each in edge
+// order), the self term first.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-__global__ void gcn_degree_kernel(const int32_t* __restrict__ rowptr,
-                                  const int32_t* __restrict__ eid,
-                                  const float* __restrict__ keep,   // (B, E)
-                                  float* __restrict__ rscale,       // (B, V)
-                                  int B, int V, int E) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= B * V) return;
-  const int b = idx / V;
-  const int i = idx - b * V;
-  const float* kb = keep + static_cast<size_t>(b) * E;
+constexpr int kWarp = 32;
+constexpr int kWarpsPerBlock = 8;
+constexpr int kLoadAhead = 2;        // neighbours' h rows in flight at once
+constexpr unsigned kAll = 0xffffffffu;
+
+// 1 / sqrt(1 + Σ keep over the edges eid[lo..hi)), summed in order; the
+// edges' ids are loaded four at a time, then their keeps.
+__device__ __forceinline__ float rscale(const int32_t* __restrict__ eid,
+                                        const float* __restrict__ kb, int lo,
+                                        int hi) {
   float deg = 1.f;
-  for (int k = rowptr[i]; k < rowptr[i + 1]; ++k) {
-    deg = __fadd_rn(deg, kb[eid[k]]);
+  for (int m = lo; m < hi; m += 4) {
+    int e[4];
+    float kv[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) e[u] = m + u < hi ? eid[m + u] : 0;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) kv[u] = m + u < hi ? kb[e[u]] : 0.f;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (m + u < hi) deg = __fadd_rn(deg, kv[u]);
+    }
   }
-  rscale[idx] = __frcp_rn(__fsqrt_rn(deg));
+  return __frcp_rn(__fsqrt_rn(deg));
 }
 
-__global__ void gcn_aggregate_kernel(const int32_t* __restrict__ rowptr,
-                                     const int32_t* __restrict__ col,
-                                     const int32_t* __restrict__ eid,
-                                     const float* __restrict__ keep,    // (B, E)
-                                     const float* __restrict__ rscale,  // (B, V)
-                                     const float* __restrict__ h,       // (B, V, F)
-                                     float* __restrict__ out,           // (B, V, F)
-                                     int V, int E, int F, int rows_per_block) {
-  const int b = blockIdx.y;
+// W features at p (a float4 or a float); zeros where `active` is false.
+template <int W>
+__device__ __forceinline__ void load(const float* p, bool active,
+                                     float (&v)[W]) {
+#pragma unroll
+  for (int w = 0; w < W; ++w) v[w] = 0.f;
+  if (!active) return;
+  if constexpr (W == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void store(float* p, const float (&v)[W]) {
+  if constexpr (W == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// G lanes a row, P vectors of W features a lane per pass of G·P·W features.
+template <int G, int P, int W>
+__global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
+gcn_aggregate_kernel(const int32_t* __restrict__ rowptr,
+                     const int4* __restrict__ csr,     // (2E,) j, e, lo_j, hi_j
+                     const int32_t* __restrict__ eid,  // (2E,)
+                     const float* __restrict__ keep,   // (B, E)
+                     const float* __restrict__ h,      // (B, V, F)
+                     float* __restrict__ out,          // (B, V, F)
+                     int B, int V, int E, int F) {
+  constexpr int kRows = kWarp / G;   // rows a warp
+  const int lane = threadIdx.x % kWarp;
+  const int g = lane % G;
+  const long long task =
+      (static_cast<long long>(blockIdx.x) * kWarpsPerBlock +
+       threadIdx.x / kWarp) * kRows + lane / G;
+  const bool valid = task < static_cast<long long>(B) * V;
+  if (!__any_sync(kAll, valid)) return;   // the whole warp past the end
+  const int t32 = valid ? static_cast<int>(task) : 0;   // B·V fits an int
+  const int b = t32 / V;
+  const int i = t32 - b * V;
+  const float* kb = keep + static_cast<size_t>(b) * E;
   const size_t vf = static_cast<size_t>(V) * F;
   const float* hb = h + b * vf;
-  const float* rb = rscale + static_cast<size_t>(b) * V;
-  const float* kb = keep + static_cast<size_t>(b) * E;
   float* ob = out + b * vf;
-  const int row0 = blockIdx.x * rows_per_block;
-  const int row1 = min(row0 + rows_per_block, V);
-  for (int i = row0; i < row1; ++i) {
-    const float ri = rb[i];
-    const int k0 = rowptr[i];
-    const int k1 = rowptr[i + 1];
-    for (int f = threadIdx.x; f < F; f += blockDim.x) {
-      float acc = __fmul_rn(ri, hb[static_cast<size_t>(i) * F + f]);
-      for (int k = k0; k < k1; ++k) {
-        const int j = col[k];
-        const float c = __fmul_rn(kb[eid[k]], rb[j]);
-        acc = __fadd_rn(acc, __fmul_rn(c, hb[static_cast<size_t>(j) * F + f]));
+
+  const int k0 = valid ? rowptr[i] : 0;
+  const int n = valid ? rowptr[i + 1] - k0 : 0;   // the row's entries
+  const int nmax = __reduce_max_sync(kAll, n);    // the warp's loop bound
+
+  // The entry a lane holds in the chunk at `off`: its neighbour and
+  // coefficient keep · r_j (zeros past the row's end).
+  auto entry = [&](int off, int& j, float& kp, float& c) {
+    j = 0;
+    kp = c = 0.f;
+    if (off + g < n) {
+      const int4 en = csr[k0 + off + g];
+      j = en.x;
+      kp = kb[en.y];
+      c = __fmul_rn(kp, rscale(eid, kb, en.z, en.w));
+    }
+  };
+
+  // r_i from the keeps in CSR order; the first chunk's entries are kept.
+  int j0;
+  float kp0, c0;
+  entry(0, j0, kp0, c0);
+  float deg = 1.f;
+  for (int off = 0; off < nmax; off += G) {
+    float kp = kp0;
+    if (off > 0) kp = off + g < n ? kb[csr[k0 + off + g].y] : 0.f;
+    for (int t = 0; t < min(nmax - off, G); ++t) {
+      const float kt = __shfl_sync(kAll, kp, t, G);
+      if (off + t < n) deg = __fadd_rn(deg, kt);
+    }
+  }
+  const float ri = __frcp_rn(__fsqrt_rn(deg));
+
+  for (int f0 = 0; f0 < F; f0 += G * P * W) {
+    float acc[P][W];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int f = f0 + (p * G + g) * W;
+      load<W>(hb + static_cast<size_t>(i) * F + f, valid && f < F, acc[p]);
+#pragma unroll
+      for (int w = 0; w < W; ++w) acc[p][w] = __fmul_rn(ri, acc[p][w]);
+    }
+    for (int off = 0; off < nmax; off += G) {
+      int jl = j0;
+      float kl, cl = c0;
+      if (off > 0) entry(off, jl, kl, cl);   // lists longer than G
+      for (int t = 0; t < min(nmax - off, G); t += kLoadAhead) {
+        float hv[kLoadAhead][P][W];
+#pragma unroll
+        for (int u = 0; u < kLoadAhead; ++u) {
+          const int j = __shfl_sync(kAll, jl, (t + u) % G, G);
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            const int f = f0 + (p * G + g) * W;
+            load<W>(hb + static_cast<size_t>(j) * F + f,
+                    off + t + u < n && f < F, hv[u][p]);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kLoadAhead; ++u) {
+          const float c = __shfl_sync(kAll, cl, (t + u) % G, G);
+          if (off + t + u < n) {
+#pragma unroll
+            for (int p = 0; p < P; ++p) {
+#pragma unroll
+              for (int w = 0; w < W; ++w) {
+                acc[p][w] = __fadd_rn(acc[p][w], __fmul_rn(c, hv[u][p][w]));
+              }
+            }
+          }
+        }
       }
-      ob[static_cast<size_t>(i) * F + f] = __fmul_rn(ri, acc);
+    }
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int f = f0 + (p * G + g) * W;
+      if (valid && f < F) {
+#pragma unroll
+        for (int w = 0; w < W; ++w) acc[p][w] = __fmul_rn(ri, acc[p][w]);
+        store<W>(ob + static_cast<size_t>(i) * F + f, acc[p]);
+      }
     }
   }
 }
 
+template <int G, int P, int W>
+int launch(const void* rowptr, const void* csr, const void* eid,
+           const void* keep, const void* h, void* out, int B, int V, int E,
+           int F, cudaStream_t s) {
+  constexpr long long kRowsPerBlock = kWarpsPerBlock * (kWarp / G);
+  const int blocks = static_cast<int>(
+      (static_cast<long long>(B) * V + kRowsPerBlock - 1) / kRowsPerBlock);
+  gcn_aggregate_kernel<G, P, W><<<blocks, kWarpsPerBlock * kWarp, 0, s>>>(
+      static_cast<const int32_t*>(rowptr), static_cast<const int4*>(csr),
+      static_cast<const int32_t*>(eid), static_cast<const float*>(keep),
+      static_cast<const float*>(h), static_cast<float*>(out), B, V, E, F);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Two launches on `stream`: degrees into the caller's (B, V) scratch
-// `rscale`, then the aggregation.  Allocates nothing; returns the launches'
-// cudaError_t (0 on success).
-extern "C" int gcn_aggregate_f32(const void* rowptr, const void* col,
+// One launch on `stream`.  vec4 = 1 takes 16 lanes a row and float4 loads
+// (F a multiple of 4; h, out and csr on 16-byte boundaries), vec4 = 0 takes
+// 8 lanes a row and one float a load.  B·V must fit an int.  Allocates
+// nothing; returns the launch's cudaError_t (0 on success;
+// cudaErrorInvalidValue for vec4 where F or the pointers do not allow it,
+// or a csr off a 16-byte boundary).
+extern "C" int gcn_aggregate_f32(const void* rowptr, const void* csr,
                                  const void* eid, const void* keep,
-                                 const void* h, void* rscale, void* out,
-                                 int B, int V, int E, int F, void* stream) {
+                                 const void* h, void* out, int B, int V,
+                                 int E, int F, int vec4, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = 256;
-  const int blocks = (B * V + threads - 1) / threads;
-  gcn_degree_kernel<<<blocks, threads, 0, s>>>(
-      static_cast<const int32_t*>(rowptr), static_cast<const int32_t*>(eid),
-      static_cast<const float*>(keep), static_cast<float*>(rscale), B, V, E);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const int rows_per_block = 4;
-  int width = ((F + 31) / 32) * 32;
-  if (width > 256) width = 256;
-  const dim3 grid((V + rows_per_block - 1) / rows_per_block, B);
-  gcn_aggregate_kernel<<<grid, width, 0, s>>>(
-      static_cast<const int32_t*>(rowptr), static_cast<const int32_t*>(col),
-      static_cast<const int32_t*>(eid), static_cast<const float*>(keep),
-      static_cast<const float*>(rscale), static_cast<const float*>(h),
-      static_cast<float*>(out), V, E, F, rows_per_block);
-  return static_cast<int>(cudaGetLastError());
+  const uintptr_t vec_ptrs = reinterpret_cast<uintptr_t>(h) |
+                             reinterpret_cast<uintptr_t>(out);
+  if (reinterpret_cast<uintptr_t>(csr) % 16 ||
+      (vec4 && (F % 4 || vec_ptrs % 16))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return vec4 ? launch<16, 2, 4>(rowptr, csr, eid, keep, h, out, B, V, E, F,
+                                 s)
+              : launch<8, 8, 1>(rowptr, csr, eid, keep, h, out, B, V, E, F,
+                                s);
 }

@@ -20,7 +20,8 @@ to the output gradient with the same keep mask.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -29,25 +30,57 @@ __all__ = ["GCNGraph", "gcn_graph", "gcn_aggregate_ref", "gcn_aggregate",
            "GCNAggregate"]
 
 
-class GCNGraph(NamedTuple):
+@dataclass(frozen=True, eq=False)
+class GCNGraph:
     """One graph's edge list and symmetrised CSR on one device.
 
     Row i of the CSR lists i's neighbours: first the edges where i is the
     source, then those where i is the destination, each in edge order (the
     order the plain version sums in).  ``eid`` maps a CSR entry to its edge,
-    i.e. to its column of the (B, E) keep mask.
+    i.e. to its column of the (B, E) keep mask.  ``csr`` holds each entry
+    as the kernel loads it, in one 16-byte record: the neighbour j, the
+    edge, and the bounds of j's own row (``rowptr[j]``, ``rowptr[j + 1]``),
+    so the kernel finds j's degree without a load of ``rowptr`` in between.
+
+    The tensors are checked once, here: one device, the dtypes and shapes
+    below, contiguous, and counts that fit the kernel's int32 indices.  So a
+    launch checks only ``h`` and ``keep`` against the graph.
     """
 
     src: torch.Tensor      # (E,) i64
     dst: torch.Tensor      # (E,) i64
     rowptr: torch.Tensor   # (V+1,) i32
-    col: torch.Tensor      # (2E,) i32 — neighbour node
+    csr: torch.Tensor      # (2E, 4) i32 — neighbour, edge, its row bounds
     eid: torch.Tensor      # (2E,) i32 — edge index into keep
     num_nodes: int
+
+    def __post_init__(self):
+        v, e = self.num_nodes, self.num_edges
+        if not 0 <= v < 2 ** 31 - 1 or 2 * e >= 2 ** 31:
+            raise ValueError(f"GCNGraph: {v} nodes and {e} edges exceed the "
+                             f"kernel's int32 CSR")
+        for name, dtype, shape in (("src", torch.long, (e,)),
+                                   ("dst", torch.long, (e,)),
+                                   ("rowptr", torch.int32, (v + 1,)),
+                                   ("csr", torch.int32, (2 * e, 4)),
+                                   ("eid", torch.int32, (2 * e,))):
+            t = getattr(self, name)
+            if t.device != self.device or t.dtype != dtype \
+                    or tuple(t.shape) != shape or not t.is_contiguous() \
+                    or (name == "csr" and t.data_ptr() % 16):
+                raise ValueError(
+                    f"GCNGraph: {name} must be a contiguous {dtype} tensor "
+                    f"of shape {shape} on {self.device} (csr on a 16-byte "
+                    f"boundary); got {t.dtype} {tuple(t.shape)} on "
+                    f"{t.device}")
 
     @property
     def num_edges(self) -> int:
         return int(self.src.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.rowptr.device
 
 
 def gcn_graph(edges, num_nodes: int, device) -> GCNGraph:
@@ -74,11 +107,14 @@ def gcn_graph(edges, num_nodes: int, device) -> GCNGraph:
     np.add.at(rowptr, ends + 1, 1)
     rowptr = np.cumsum(rowptr)
 
+    col = nbrs[perm]
+    csr = np.stack([col, eids[perm], rowptr[col], rowptr[col + 1]], 1)
+
     def put(a, dtype):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                device=device)
     return GCNGraph(put(e[:, 0], torch.long), put(e[:, 1], torch.long),
-                    put(rowptr, torch.int32), put(nbrs[perm], torch.int32),
+                    put(rowptr, torch.int32), put(csr, torch.int32),
                     put(eids[perm], torch.int32), int(num_nodes))
 
 
@@ -97,13 +133,13 @@ def gcn_aggregate_ref(graph: GCNGraph, keep: torch.Tensor,
     return r[..., None] * acc
 
 
+@functools.cache
 def _lib():
     from ._build import library
     fn = library("gcn_spmm").gcn_aggregate_f32
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 \
-            + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
     return fn
 
 
@@ -111,12 +147,14 @@ def gcn_aggregate(graph: GCNGraph, keep: torch.Tensor,
                   h: torch.Tensor) -> torch.Tensor:
     """keep (B, E) 0/1 f32, h (B, V, F) f32 → (B, V, F).
 
-    CUDA tensors launch ``csrc/gcn_spmm.cu``; CPU tensors take
-    ``gcn_aggregate_ref``.
+    CUDA tensors launch ``csrc/gcn_spmm.cu`` (one launch: degrees and
+    aggregation); CPU tensors take ``gcn_aggregate_ref``.  The graph's own
+    tensors were checked when it was built, so only ``h`` and ``keep`` are
+    checked here.
     """
-    if h.device.type == "cpu":
+    if h.is_cpu:
         return gcn_aggregate_ref(graph, keep, h)
-    if h.device.type != "cuda":
+    if not h.is_cuda:
         raise ValueError(f"gcn_aggregate takes CPU or CUDA tensors; got "
                          f"{h.device}")
     if h.ndim != 3 or h.dtype != torch.float32 or not h.is_contiguous():
@@ -124,36 +162,42 @@ def gcn_aggregate(graph: GCNGraph, keep: torch.Tensor,
                          f"float32 tensor; got {h.dtype} {tuple(h.shape)}")
     B, V, F = h.shape
     E = graph.num_edges
-    if V != graph.num_nodes:
-        raise ValueError(f"gcn_aggregate: h has {V} nodes, the graph "
-                         f"{graph.num_nodes}")
-    for name, t, dtype, shape in (
-            ("keep", keep, torch.float32, (B, E)),
-            ("rowptr", graph.rowptr, torch.int32, (V + 1,)),
-            ("col", graph.col, torch.int32, (2 * E,)),
-            ("eid", graph.eid, torch.int32, (2 * E,))):
-        if t.device != h.device or t.dtype != dtype \
-                or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(
-                f"gcn_aggregate: {name} must be a contiguous {dtype} tensor "
-                f"of shape {shape} on {h.device}; got {t.dtype} "
-                f"{tuple(t.shape)} on {t.device}")
+    dev = h.get_device()
+    if V != graph.num_nodes or not graph.rowptr.is_cuda \
+            or graph.rowptr.get_device() != dev:
+        raise ValueError(f"gcn_aggregate: h has {V} nodes on {h.device}, "
+                         f"the graph {graph.num_nodes} on {graph.device}")
+    if not keep.is_cuda or keep.get_device() != dev \
+            or keep.dtype != torch.float32 or keep.shape != (B, E) \
+            or not keep.is_contiguous():
+        raise ValueError(
+            f"gcn_aggregate: keep must be a contiguous float32 tensor of "
+            f"shape {(B, E)} on {h.device}; got {keep.dtype} "
+            f"{tuple(keep.shape)} on {keep.device}")
+    if B * V >= 2 ** 31 or F >= 2 ** 31:
+        raise ValueError(f"gcn_aggregate: B·V = {B * V} and F = {F} must "
+                         f"each fit the kernel's int32")
     out = torch.empty_like(h)
     if out.numel() == 0:
         return out
-    rscale = torch.empty(B, V, dtype=torch.float32, device=h.device)
-    err = _lib()(graph.rowptr.data_ptr(), graph.col.data_ptr(),
-                 graph.eid.data_ptr(), keep.data_ptr(), h.data_ptr(),
-                 rscale.data_ptr(), out.data_ptr(), B, V, E, F,
-                 torch.cuda.current_stream(h.device).cuda_stream)
+    hp = h.data_ptr()
+    route = "vec4" if F % 4 == 0 and hp % 16 == 0 else "scalar"
+    err = _lib()(graph.rowptr.data_ptr(), graph.csr.data_ptr(),
+                 graph.eid.data_ptr(), keep.data_ptr(), hp, out.data_ptr(),
+                 B, V, E, F, route == "vec4",
+                 torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
-        raise RuntimeError(f"gcn_aggregate kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"gcn_aggregate kernel launch failed ({route}): "
+                           f"CUDA error {err}")
     gcn_aggregate.launches += 1
+    gcn_aggregate.route_launches[route] += 1
     return out
 
 
 gcn_aggregate.launches = 0
+#: launches per route: float4 loads, 16 lanes a row (F a multiple of 4), or
+#: scalar loads, 8 lanes a row
+gcn_aggregate.route_launches = {"vec4": 0, "scalar": 0}
 
 
 class GCNAggregate(torch.autograd.Function):
