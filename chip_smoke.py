@@ -8,10 +8,12 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
 flash_attention has a bf16 tensor-core kernel, ``flash_attention_sm90.cu``,
 and an f32 SIMT one), holds each kernel against its plain PyTorch version on
 the card at the main paths' shapes and on every route a kernel has
-(rmsnorm's warp, block and general routes over rows x widths x dtypes;
-gcn_aggregate's float4 and scalar routes on the three paper graphs, forward
-and backward) and times both, then drives the two main paths through the
-user entry points:
+(level_makespan's staged and general routes, bitwise, on the three paper
+graphs at B = 1, 7, 320 and 4096, a DAG wider than a warp and the
+four-device platform; rmsnorm's warp, block and general routes over rows x
+widths x dtypes; gcn_aggregate's float4 and scalar routes on the three paper
+graphs, forward and backward) and times both, then drives the two main paths
+through the user entry points:
 
 1. the placement search: ``HSDAG.search(..., engine="level")`` on
    Inception-v3 at the Table-6 widths (hidden 128, 2+2+2 layers, T=20) with
@@ -58,6 +60,9 @@ FLASH_SIMT_BF16_MS = 31.708
 
 TOL = 1e-5
 # The redesigns' goals on the card (design goals, printed as met or not):
+# level_makespan at the search's shape (Inception-v3, B=320), device and
+# host ms per launch;
+LEVEL_GOAL_MS, LEVEL_HOST_GOAL_MS = 0.035, 0.025
 # gcn_aggregate at the search's shape, device and host ms per launch;
 GCN_GOAL_MS, GCN_HOST_GOAL_MS = 0.0059, 0.020
 # rmsnorm at danube's prefill (18432x2560 bf16) and decode (4x2560 bf16)
@@ -133,46 +138,175 @@ def rel_err(torch, got, want) -> float:
     return float((got - want).abs().max() / scale)
 
 
+def wide_dag(seed, layers, width, fan_in, params):
+    """A layered DAG wider than a warp: ``layers`` levels of ``width`` ops,
+    each op after the first level fed by ``fan_in`` distinct earlier ops (one
+    of them in the level before) and ``params`` weight ops ("data"), with
+    its inputs in random order, so data predecessors sit between real ones.
+    """
+    import numpy as np
+    from repro_torch.core.graph import CompGraph
+    rng = np.random.default_rng(seed)
+    types = ["MatMul", "ReLU", "Concat", "Convolution", "Add"]
+    g = CompGraph(f"wide{layers}x{width}")
+    ids = []
+    for k in range(layers):
+        ids.append([g.add_op(f"n{k}_{i}", types[int(rng.integers(5))],
+                             output_shape=(1, 8),
+                             flops=float(rng.integers(1, 10 ** 6)),
+                             bytes_out=float(rng.integers(4, 4096)))
+                    for i in range(width)])
+    for k in range(1, layers):
+        earlier = np.concatenate(ids[:k])
+        for v in ids[k]:
+            srcs = {int(rng.choice(ids[k - 1]))}
+            while len(srcs) < min(fan_in, len(earlier)):
+                srcs.add(int(rng.choice(earlier)))
+            srcs = list(srcs) + [
+                g.add_op(f"w{v}_{i}", "Parameter", output_shape=(1, 8),
+                         bytes_out=float(rng.integers(4, 4096)))
+                for i in range(params)]
+            rng.shuffle(srcs)
+            for u in srcs:
+                g.add_edge(int(u), v)
+    return g
+
+
+def four_devices():
+    """A 4-device platform with non-uniform links and 1-3 queues a device
+    (D·Q = 12: the kernel's shared-memory queues)."""
+    import math
+    import numpy as np
+    from repro_torch.core import DeviceSpec, Platform
+    devs = tuple(DeviceSpec(f"d{i}", "gpu", peak_flops=(1 + i) * 4e12,
+                          mem_bw=(2 + i) * 1e11, dispatch_overhead=2e-6,
+                          parallel_queues=1 + i % 3) for i in range(4))
+    bw = np.full((4, 4), 20e9)
+    bw[0, 1] = bw[1, 0] = 300e9
+    np.fill_diagonal(bw, math.inf)
+    lat = np.full((4, 4), 5e-6)
+    np.fill_diagonal(lat, 0.0)
+    return Platform(devs, bw, lat)
+
+
+def level_build_report():
+    """level_makespan's instances as built: registers, spills and shared
+    memory from nvcc's ``-Xptxas -v`` log, for the instances the checks run
+    (queues in registers at D=2, Q=4; in shared memory; the general
+    route)."""
+    import re
+    from repro_torch.kernels._build import _lib_path
+    log = _lib_path("levelsim").with_suffix(".log").read_text()
+    name = {"2,4,1": "staged, registers D=2 Q=4",
+            "0,0,1": "staged, shared queues",
+            "0,0,0": "general"}
+    key = None
+    for line in log.splitlines():
+        entry = re.search(r"level_makespan_kernelILi(\d+)ELi(\d+)ELb([01])E",
+                          line)
+        if entry and "Compiling entry" in line:
+            key = ",".join(entry.groups())
+        elif key in name and ("registers" in line or "spill" in line
+                              or "smem" in line):
+            print(f"[build] level_makespan {name[key]}: {line.strip()}")
+
+
 def level_checks(torch, graphs, plat):
+    """level_makespan against level_makespan_ref, bitwise (max abs err 0),
+    on the three paper graphs at B = 1, 7 (a ragged last warp), 320 (the
+    search's window) and 4096 (a full card), on a DAG wider than a warp with
+    9 real predecessors a node, on the four-device platform (queues in
+    shared memory), and on a DAG whose tables do not fit shared memory (the
+    general route); each case prints its plan and checks that it took the
+    plan's route with the shared memory the kernel computes.  Then device
+    and host time per launch at B=320 on the three paper graphs, and at
+    B=4096 on Inception-v3."""
+    import ctypes
     from repro_torch.core.sim import LevelBackend
     from repro_torch.kernels import level_makespan, level_makespan_ref
+    from repro_torch.kernels._build import library
+    from repro_torch.kernels.levelsim import ROUTES, level_launch_plan
+    smem_of = library("levelsim").level_makespan_smem
+    smem_of.restype = ctypes.c_longlong
+    smem_of.argtypes = [ctypes.c_int] * 7
     backend = LevelBackend(device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
+    four = four_devices()
+    wide = wide_dag(1, 5, 40, 9, 2)
+    big = wide_dag(2, 60, 64, 8, 0)
+    cases = [(g, plat, B) for g in graphs.values() for B in (1, 7, 320, 4096)]
+    cases += [(wide, plat, 7), (wide, plat, 320), (wide, four, 7),
+              (wide, four, 320), (graphs["inception_v3"], four, 7),
+              (graphs["inception_v3"], four, 320), (big, plat, 7)]
     worst = 0.0
     timing = None
-    for name, g in graphs.items():
-        prep = backend.prepare(g, plat)
+    per_route = dict.fromkeys(ROUTES, 0)
+    for g, pf, B in cases:
+        prep = backend.prepare(g, pf)
         sim, lt = prep.sim, prep.tables
-        B, V = 320, g.num_nodes
-        place = torch.randint(0, plat.num_devices, (B, V), generator=gen,
-                              device="cuda", dtype=torch.int32)
+        L, W, P, D = lt.shape
+        V, Q = lt.num_nodes, sim["queue_init"].shape[1]
+        place = torch.randint(0, D, (B, V), generator=gen, device="cuda",
+                              dtype=torch.int32)
         args = (lt, place, sim["queue_init"], sim["inv_bw"], sim["lat"])
+        plan = level_launch_plan(B, L, W, P, V, D, Q, lt.slots)
+        check(smem_of(ROUTES.index(plan.route), plan.per_block, V, D, Q,
+                      lt.slots, lt.offsets[-1]) == plan.smem,
+              f"level_launch_plan's shared memory {plan.smem} B is not the "
+              f"kernel's for {g.name} B={B}")
+        before = level_makespan.route_launches[plan.route]
         fk, tk = level_makespan(*args)
+        check(level_makespan.route_launches[plan.route] == before + 1,
+              f"level_makespan {g.name} B={B} did not take {plan.route}")
+        per_route[plan.route] += 1
         fr, tr = level_makespan_ref(*args)
         torch.cuda.synchronize()
-        e_f, e_t = rel_err(torch, fk, fr), rel_err(torch, tk, tr)
         abs_err = float(max((fk - fr).abs().max(), (tk - tr).abs().max()))
         worst = max(worst, abs_err)
-        L, W = lt.nodes_host.shape
-        P, D = lt.preds.shape[2], sim["inv_bw"].shape[0]
-        print(f"[kernels] level_makespan {name}: B={B} V={V} L={L} W={W} "
-              f"P={P} finish rel err {e_f:.3e}, transfer rel err {e_t:.3e}, "
-              f"max abs err {abs_err:.3e}")
-        check(e_f <= TOL and e_t <= TOL,
-              f"level_makespan disagrees with its plain version on {name}")
-        if name == "inception_v3":
-            Q = sim["queue_init"].shape[1]
-            ms, host = cuda_ms(torch, lambda: level_makespan(*args), 50)
+        print(f"[kernels] level_makespan[{plan.route}] {g.name} D={D} Q={Q}: "
+              f"B={B} V={V} L={L} W={W} P={P} S={lt.slots}; {plan.group} "
+              f"lanes a placement, {plan.per_block} placements and "
+              f"{plan.warps} warps a block, {plan.blocks} blocks, "
+              f"{plan.smem} B shared, queues in {plan.queues}; max abs err "
+              f"{abs_err:.3e}")
+        check(abs_err == 0.0 and torch.equal(fk, fr) and torch.equal(tk, tr),
+              f"level_makespan is not bitwise its plain version on {g.name} "
+              f"B={B} D={D}")
+        del place, fk, tk, fr, tr
+    print(f"[kernels] level_makespan cases per route: {per_route}")
+    check(all(per_route.values()),
+          f"the level_makespan checks left a route unrun: {per_route}")
+    for name, B in [(name, 320) for name in graphs] + [("inception_v3",
+                                                         4096)]:
+        prep = backend.prepare(graphs[name], plat)
+        sim, lt = prep.sim, prep.tables
+        L, W, P, D = lt.shape
+        V, Q = lt.num_nodes, sim["queue_init"].shape[1]
+        place = torch.randint(0, D, (B, V), generator=gen, device="cuda",
+                              dtype=torch.int32)
+        args = (lt, place, sim["queue_init"], sim["inv_bw"], sim["lat"])
+        plan = level_launch_plan(B, L, W, P, V, D, Q, lt.slots)
+        ms, host = cuda_ms(torch, lambda: level_makespan(*args), 200)
+        n_preds = int((lt.pred_data == 0).sum())
+        nbytes = 4 * (lt.offsets[-1] + B * V + 2 * D * D + D * Q
+                      + B * (V + 1) + B)
+        ops = B * (5 * n_preds + lt.slots * (Q + 2))
+        bound, by = bound_ms(nbytes, ops)
+        print(f"[kernels] level_makespan timing {name} B={B} ({plan.route}, "
+              f"{plan.group} lanes a placement, {plan.per_block} placements "
+              f"and {plan.warps} warps a block, {plan.blocks} blocks): "
+              f"kernel {ms:.5f} ms on the card ({host:.5f} ms of host time "
+              f"to launch), {B / ms * 1e3:.6g} placements/s; chain {L} "
+              f"levels, {lt.slots} real slots; bound {bound:.6f} ms ({by}: "
+              f"{nbytes} B, {ops} ops)")
+        if (name, B) == ("inception_v3", 320):
             plain, _ = cuda_ms(torch, lambda: level_makespan_ref(*args), 2, 1)
-            real = int((lt.nodes_host != V).sum())
-            nbytes = 4 * (L * W + 3 * L * W * P + L * W * D + B * V
-                          + 2 * D * D + D * Q + B * (V + 1) + B)
-            ops = B * real * (5 * P + Q + 2)
-            timing = (ms, plain, *bound_ms(nbytes, ops))
-            print(f"[kernels] level_makespan timing at inception_v3, B={B}: "
-                  f"kernel {ms:.4f} ms on the card ({host:.4f} ms of host "
-                  f"time to launch), plain {plain:.3f} ms, bound "
-                  f"{timing[2]:.6f} ms ({timing[3]}: {nbytes} B, {ops} ops)")
+            timing = (ms, plain, bound, by)
+            print(f"[kernels] level_makespan inception_v3 B=320: plain "
+                  f"{plain:.3f} ms; design goals: device <= {LEVEL_GOAL_MS} "
+                  f"ms {'met' if ms <= LEVEL_GOAL_MS else 'not met'}, host "
+                  f"<= {LEVEL_HOST_GOAL_MS} ms "
+                  f"{'met' if host <= LEVEL_HOST_GOAL_MS else 'not met'}")
     return worst, timing
 
 
@@ -693,6 +827,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build] {log.stem}: {line.strip()}")
     flash_sm90_report()
+    level_build_report()
 
     plat = paper_platform()
     graphs = {name: build() for name, build in PAPER_BENCHMARKS.items()}
@@ -706,6 +841,8 @@ def main() -> int:
     agent = HSDAG(cfg)
     t_phase = time.perf_counter()
     level_makespan.launches = 0
+    for route in level_makespan.route_launches:
+        level_makespan.route_launches[route] = 0
     gcn_aggregate.launches = 0
     for route in gcn_aggregate.route_launches:
         gcn_aggregate.route_launches[route] = 0
@@ -715,6 +852,7 @@ def main() -> int:
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launches = {"level_makespan": level_makespan.launches,
+                "level_makespan_routes": dict(level_makespan.route_launches),
                 "gcn_aggregate": gcn_aggregate.launches,
                 "gcn_aggregate_routes": dict(gcn_aggregate.route_launches)}
     for h in res.history:
@@ -733,6 +871,9 @@ def main() -> int:
           f"(search + place took {main_s:.3f} s)")
     check(launches["level_makespan"] >= cfg.max_episodes,
           "the search scored no window through the level kernel")
+    check(launches["level_makespan_routes"]["staged"]
+          == launches["level_makespan"],
+          "the search's level launches did not all take the staged route")
     check(launches["gcn_aggregate"] > 0,
           "the encoder never launched the gcn kernel")
     check(launches["gcn_aggregate_routes"]["vec4"]

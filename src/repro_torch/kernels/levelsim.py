@@ -14,18 +14,24 @@ out-edges pay no transfer.
 
 ``level_makespan`` launches the CUDA kernel ``csrc/levelsim.cu`` on CUDA
 tensors and runs the plain PyTorch version ``level_makespan_ref`` on CPU
-tensors.
+tensors.  The kernel has two routes; ``level_launch_plan`` picks one per
+call from the shapes and is the mirror of the launch (lanes a placement,
+warps a block, shared memory a block).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass, field
 from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 __all__ = ["LevelArrays", "build_level_arrays", "LevelTensors",
-           "level_tensors", "level_makespan_ref", "level_makespan"]
+           "level_tensors", "level_makespan_ref", "level_makespan",
+           "LevelPlan", "level_launch_plan", "level_record_offsets",
+           "level_smem", "ROUTES", "PRE", "STATIC_WORDS", "PARAMS"]
 
 
 class LevelArrays(NamedTuple):
@@ -104,27 +110,260 @@ def build_level_arrays(sa) -> LevelArrays:
                        order=lvl_order.astype(np.int32))
 
 
-class LevelTensors(NamedTuple):
+#: routes of ``csrc/levelsim.cu``, in the order of its ``Route`` enum
+ROUTES = ("staged", "general")
+#: warps a block at most (the kernel's ``kMaxWarpsPerBlock``)
+MAX_WARPS = 4
+#: a placement's D·Q queue state is held in registers up to this many
+#: queues (the kernel's ``kRegQueueMax``), in shared memory above it
+REG_QUEUES = 8
+#: dynamic shared memory a block may take on the H100 (227 KB)
+SMEM_LIMIT = 232448
+#: the H100's SMs: a launch spreads its placements over them before it puts
+#: more in a block
+SMS = 132
+#: predecessors of a slot whose transfer terms the kernel precomputes (its
+#: ``kPre``): the records' ``upre`` section holds their ids
+PRE = 4
+#: 4-byte words of a slot's precomputed half in shared memory (``kStatic``)
+STATIC_WORDS = 4 + PRE
+#: the launch's integer parameters, in the order of the kernel's ``Param``
+#: enum (the ``params`` array it reads)
+PARAMS = ("table_words", "off_nodes", "off_upre", "off_preds", "off_dur", "L",
+          "W", "P", "V", "D", "Q", "S", "route", "group", "per_block",
+          "warps")
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _words16(n: int) -> int:
+    """``n`` 4-byte words rounded up to whole 16-byte vectors."""
+    return _cdiv(n, 4) * 4
+
+
+@functools.lru_cache(maxsize=64)
+def level_record_offsets(L: int, S: int, P: int, D: int) -> Tuple[int, ...]:
+    """Word offsets of the sections of ``LevelTensors.records`` → (nodes,
+    upre, preds, dur, total words).
+
+    The records are one int32 array over the S real slots of the tables (pad
+    slots dropped), in table order, each section starting on a 16-byte
+    boundary: the (L+1,) offset of each level's first real slot, the (S,)
+    node ids, the (S, PRE) ids of each slot's first PRE predecessors, the
+    (S, P) predecessor records {pred id, its bytes as f32 bits} (8 bytes
+    each), then the (S, D) durations as f32 bits.  The kernel copies the
+    whole array into shared memory in 16-byte pieces and reads the sections
+    at these offsets.
+    """
+    off_nodes = _words16(L + 1)
+    off_upre = off_nodes + _words16(S)
+    off_preds = off_upre + S * PRE
+    off_dur = off_preds + _words16(2 * S * P)
+    return off_nodes, off_upre, off_preds, off_dur, off_dur + _words16(S * D)
+
+
+@dataclass(frozen=True, eq=False)
+class LevelTensors:
     """:class:`LevelArrays` tables on one device, ready for a launch.
 
-    ``nodes_host`` keeps the (L, W) node table on the host, where the plain
-    version reads its pad slots without a device round trip.
+    Built by :func:`level_tensors`, which repacks the predecessor table once:
+    a data or pad predecessor contributes finish 0 and transfer +0.0, so
+    each slot lists only its real predecessors, in table order, and the rest
+    of its row is the sentinel V (with ``pred_data`` 1 and ``pred_bytes``
+    0).  P is the most real predecessors of any slot.  The plain version
+    reads these tensors; the kernel reads ``records``, the same tables packed
+    into one int32 array over the ``slots`` real slots
+    (:func:`level_record_offsets`).  ``nodes_host`` keeps the (L, W) node
+    table on the host, where the plain version reads its pad slots without a
+    device round trip.
+
+    The tensors are checked once, here: one device, the dtypes and shapes
+    below, contiguous, ``records`` on a 16-byte boundary, and counts that
+    fit the kernel's int32 indices.  So a launch checks only the placements
+    and the platform's tensors.
     """
 
-    nodes: torch.Tensor       # (L, W) i32
-    preds: torch.Tensor       # (L, W, P) i32
+    nodes: torch.Tensor       # (L, W) i32, pad = V
+    preds: torch.Tensor       # (L, W, P) i32, real preds first, then V
     dur: torch.Tensor         # (L, W, D) f32
     pred_bytes: torch.Tensor  # (L, W, P) f32
-    pred_data: torch.Tensor   # (L, W, P) f32
+    pred_data: torch.Tensor   # (L, W, P) f32, 1 where preds == V
+    records: torch.Tensor     # (words,) i32, the kernel's packed tables
     nodes_host: np.ndarray    # (L, W) i32
+    num_nodes: int            # V, the sentinel
+    slots: int                # S, the real (non-pad) slots
+    #: (B, Q) → (plan, its ``params`` array) of the launches made so far
+    launches: dict = field(default_factory=dict, init=False, repr=False)
+
+    def __post_init__(self):
+        L, W, P, D = self.shape
+        words = self.offsets[-1]
+        if not 0 <= self.num_nodes < 2 ** 31 - 1 or 2 * words >= 2 ** 31:
+            raise ValueError(f"LevelTensors: {self.num_nodes} nodes and "
+                             f"{words} record words exceed the kernel's "
+                             f"int32 indices")
+        for name, dtype, shape in (("nodes", torch.int32, (L, W)),
+                                   ("preds", torch.int32, (L, W, P)),
+                                   ("dur", torch.float32, (L, W, D)),
+                                   ("pred_bytes", torch.float32, (L, W, P)),
+                                   ("pred_data", torch.float32, (L, W, P)),
+                                   ("records", torch.int32, (words,))):
+            t = getattr(self, name)
+            if t.device != self.device or t.dtype != dtype \
+                    or tuple(t.shape) != shape or not t.is_contiguous() \
+                    or (name == "records" and t.data_ptr() % 16):
+                raise ValueError(
+                    f"LevelTensors: {name} must be a contiguous {dtype} "
+                    f"tensor of shape {shape} on {self.device} (records on "
+                    f"a 16-byte boundary); got {t.dtype} {tuple(t.shape)} "
+                    f"on {t.device}")
+        if self.nodes_host.shape != (L, W):
+            raise ValueError(f"LevelTensors: nodes_host must have shape "
+                             f"{(L, W)}; got {self.nodes_host.shape}")
+
+    @property
+    def device(self) -> torch.device:
+        return self.nodes.device
+
+    @functools.cached_property
+    def shape(self) -> Tuple[int, int, int, int]:
+        """(L levels, W slots a level, P preds a slot, D devices)."""
+        L, W, D = self.dur.shape
+        return L, W, int(self.preds.shape[2]), D
+
+    @functools.cached_property
+    def offsets(self) -> Tuple[int, ...]:
+        """:func:`level_record_offsets` of these tables."""
+        L, _, P, D = self.shape
+        return level_record_offsets(L, self.slots, P, D)
+
+
+def _real_preds_first(la: LevelArrays, n: int):
+    """(preds, pred_bytes, pred_data) with each slot's real predecessors
+    moved to the front in table order, and the table cut to the most real
+    predecessors of any slot; the rest of a row is the sentinel ``n``."""
+    real = la.pred_data == 0                                 # (L, W, P)
+    p_real = max(int(real.sum(axis=2).max(initial=0)), 1)
+    idx = np.argsort(~real, axis=2, kind="stable")[..., :p_real]
+    keep = np.take_along_axis(real, idx, axis=2)
+    preds = np.where(keep, np.take_along_axis(la.preds, idx, axis=2), n)
+    pbytes = np.where(keep, np.take_along_axis(la.pred_bytes, idx, axis=2),
+                      0.0)
+    return (preds.astype(np.int32), pbytes.astype(np.float32),
+            (~keep).astype(np.float32))
 
 
 def level_tensors(la: LevelArrays, device) -> LevelTensors:
+    """Put ``la``'s tables on ``device``, repacked for the kernel (see
+    :class:`LevelTensors`).  Once per graph, never per call."""
+    n = int(la.order.shape[0])
+    preds, pbytes, pdata = _real_preds_first(la, n)
+    L, W, P = preds.shape
+    D = la.dur.shape[2]
+    real = la.nodes != n                  # pads trail each level's row
+    S = int(real.sum())
+    off_nodes, off_upre, off_preds, off_dur, words = level_record_offsets(
+        L, S, P, D)
+    upre = np.full((S, PRE), n, np.int32)
+    upre[:, :min(P, PRE)] = preds[real][:, :PRE]
+    records = np.zeros(words, np.int32)
+    records[:L + 1] = np.concatenate([[0], np.cumsum(real.sum(axis=1))])
+    records[off_nodes:off_nodes + S] = la.nodes[real]
+    records[off_upre:off_upre + S * PRE] = upre.ravel()
+    records[off_preds:off_preds + 2 * S * P] = np.stack(
+        [preds[real], pbytes[real].view(np.int32)], axis=-1).ravel()
+    records[off_dur:off_dur + S * D] = np.ascontiguousarray(
+        la.dur[real], np.float32).view(np.int32).ravel()
+
     def put(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=device)
-    return LevelTensors(put(la.nodes), put(la.preds), put(la.dur),
-                        put(la.pred_bytes), put(la.pred_data),
-                        np.asarray(la.nodes, np.int32))
+    return LevelTensors(put(la.nodes), put(preds), put(la.dur), put(pbytes),
+                        put(pdata), put(records),
+                        np.asarray(la.nodes, np.int32), n, S)
+
+
+class LevelPlan(NamedTuple):
+    """One launch of ``csrc/levelsim.cu``.
+
+    ``group`` lanes score one placement (a power of two ≥ W, at most 32),
+    so a warp scores up to ``per_warp`` placements; a block scores
+    ``per_block`` of them with ``warps`` warps (those past its placements
+    only help fill shared memory), ``blocks`` in the grid; ``smem`` bytes of
+    dynamic shared memory a block; ``queues`` where a placement's D·Q queue
+    state lives (``registers`` or ``shared``).
+    """
+
+    route: str
+    group: int
+    per_warp: int
+    per_block: int
+    warps: int
+    blocks: int
+    smem: int
+    queues: str
+
+
+def level_smem(route: str, per_block: int, V: int, D: int, Q: int, S: int,
+               table_words: int) -> int:
+    """Dynamic shared memory of a block of ``per_block`` placements, in the
+    order the kernel carves it: on ``staged`` the records, the finish
+    vectors (V+1 floats each), the block's device rows (V ints each, plus up
+    to three words that keep their 16-byte copies aligned) and each
+    placement's precomputed half of its S slots (``STATIC_WORDS`` each);
+    then inv_bw, lat and queue_init; then, where queues live in shared
+    memory, D·Q floats a placement."""
+    nbytes = 4 * _words16(2 * D * D + D * Q)
+    if route == "staged":
+        nbytes += 4 * (table_words + _words16(per_block * (V + 1))
+                       + _words16(per_block * V + 4)
+                       + per_block * S * STATIC_WORDS)
+    if route == "general" or D * Q > REG_QUEUES:
+        nbytes += 4 * per_block * D * Q
+    return nbytes
+
+
+@functools.lru_cache(maxsize=256)
+def level_launch_plan(B: int, L: int, W: int, P: int, V: int, D: int,
+                      Q: int, S: int) -> LevelPlan:
+    """The launch ``level_makespan`` makes for B placements of a graph of V
+    nodes whose (compacted) tables are L × W slots, S of them real, of P
+    preds, on D devices of at most Q queues.
+
+    - ``staged`` wherever it fits: the tables, each placement's finish
+      vector, device row and precomputed slot halves live in shared memory,
+      filled once per block.  The queue state is in registers when D·Q ≤
+      ``REG_QUEUES``.
+    - ``general`` otherwise (tables or finish vectors too large for shared
+      memory): tables, finish vectors and device rows stay in device
+      memory; only the constants and the queues are in shared memory.
+
+    A block takes as few placements as spread the batch over the ``SMS``
+    SMs (at most ``MAX_WARPS`` warps of them), fewer where shared memory
+    runs out, and always ``MAX_WARPS`` warps: all of them fill its shared
+    memory, those with placements then walk the levels.  Raises where not
+    even the general route fits.
+    """
+    if min(B, L, W, P, V, D, Q, S) < 1:
+        raise ValueError(f"level_launch_plan: every count must be positive; "
+                         f"got B={B} L={L} W={W} P={P} V={V} D={D} Q={Q} "
+                         f"S={S}")
+    group = min(32, 1 << (W - 1).bit_length())
+    per_warp = 32 // group
+    want = min(MAX_WARPS * per_warp, _cdiv(B, SMS))
+    words = level_record_offsets(L, S, P, D)[-1]
+    for route in ROUTES:
+        for per_block in range(want, 0, -1):
+            smem = level_smem(route, per_block, V, D, Q, S, words)
+            if smem <= SMEM_LIMIT:
+                queues = ("registers" if route == "staged"
+                          and D * Q <= REG_QUEUES else "shared")
+                return LevelPlan(route, group, per_warp, per_block,
+                                 MAX_WARPS, _cdiv(B, per_block), smem,
+                                 queues)
+    raise ValueError(f"level_launch_plan: D={D} x Q={Q} queues do not fit "
+                     f"in shared memory")
 
 
 def level_makespan_ref(lt: LevelTensors, placements: torch.Tensor,
@@ -181,15 +420,32 @@ def level_makespan_ref(lt: LevelTensors, placements: torch.Tensor,
     return fin, tr
 
 
+@functools.cache
 def _lib():
     from ._build import library
-    lib = library("levelsim")
-    fn = lib.level_makespan_f32
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 \
-            + [ctypes.c_void_p]
+    fn = library("levelsim").level_makespan_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p]
     return fn
+
+
+def _launch(lt: LevelTensors, B: int, Q: int):
+    """(plan, its ``params`` array, the array's address) of a launch for B
+    placements and Q queues on ``lt``'s tables; made once, kept in ``lt``."""
+    hit = lt.launches.get((B, Q))
+    if hit is None:
+        L, W, P, D = lt.shape
+        V, S = lt.num_nodes, lt.slots
+        plan = level_launch_plan(B, L, W, P, V, D, Q, S)
+        off_nodes, off_upre, off_preds, off_dur, words = lt.offsets
+        values = dict(table_words=words, off_nodes=off_nodes,
+                      off_upre=off_upre, off_preds=off_preds,
+                      off_dur=off_dur, L=L, W=W, P=P, V=V, D=D, Q=Q, S=S,
+                      route=ROUTES.index(plan.route), group=plan.group,
+                      per_block=plan.per_block, warps=plan.warps)
+        params = (ctypes.c_int * len(PARAMS))(*(values[k] for k in PARAMS))
+        hit = lt.launches[(B, Q)] = (plan, params, ctypes.addressof(params))
+    return hit
 
 
 def level_makespan(lt: LevelTensors, placements: torch.Tensor,
@@ -200,48 +456,55 @@ def level_makespan(lt: LevelTensors, placements: torch.Tensor,
     ``placements``: (B, V) device ids in [0, D); ``queue_init``: (D, Q) with
     +inf at masked queue slots; ``inv_bw``/``lat``: (D, D) link constants.
     Finish times of data ops (and the V sentinel slot) are 0.  CUDA tensors
-    launch ``csrc/levelsim.cu``; CPU tensors take ``level_makespan_ref``.
-    The caller validates device ids (the kernel indexes with them).
+    launch ``csrc/levelsim.cu`` on the route ``level_launch_plan`` gives;
+    CPU tensors take ``level_makespan_ref``.  The tables were checked when
+    ``lt`` was built, so only the placements and the platform's tensors are
+    checked here.  The caller validates device ids (the kernel indexes with
+    them).
     """
-    if placements.device.type == "cpu":
+    if placements.is_cpu:
         return level_makespan_ref(lt, placements, queue_init, inv_bw, lat)
-    if placements.device.type != "cuda":
+    if not placements.is_cuda:
         raise ValueError(f"level_makespan takes CPU or CUDA tensors; got "
                          f"{placements.device}")
-    B, n = placements.shape
-    L, W = lt.nodes.shape
-    P = lt.preds.shape[2]
-    D, Q = queue_init.shape
-    ins = dict(nodes=(lt.nodes, torch.int32, (L, W)),
-               preds=(lt.preds, torch.int32, (L, W, P)),
-               dur=(lt.dur, torch.float32, (L, W, D)),
-               pred_bytes=(lt.pred_bytes, torch.float32, (L, W, P)),
-               pred_data=(lt.pred_data, torch.float32, (L, W, P)),
-               placements=(placements, torch.int32, (B, n)),
-               inv_bw=(inv_bw, torch.float32, (D, D)),
-               lat=(lat, torch.float32, (D, D)),
-               queue_init=(queue_init, torch.float32, (D, Q)))
-    for name, (t, dtype, shape) in ins.items():
-        if t.device != placements.device or t.dtype != dtype \
-                or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(
-                f"level_makespan: {name} must be a contiguous {dtype} tensor "
-                f"of shape {shape} on {placements.device}; got {t.dtype} "
-                f"{tuple(t.shape)} on {t.device}")
-    finish = torch.empty(B, n + 1, dtype=torch.float32,
+    V = lt.num_nodes
+    D = lt.shape[3]
+    dev = placements.get_device()
+    if placements.dtype != torch.int32 or placements.ndim != 2 \
+            or placements.shape[1] != V or not placements.is_contiguous() \
+            or lt.nodes.get_device() != dev:
+        raise ValueError(f"level_makespan: placements must be a contiguous "
+                         f"int32 (B, {V}) tensor on the tables' device "
+                         f"{lt.device}; got {placements.dtype} "
+                         f"{tuple(placements.shape)} on {placements.device}")
+    Q = queue_init.shape[-1]
+    for name, t, shape in (("queue_init", queue_init, (D, Q)),
+                           ("inv_bw", inv_bw, (D, D)), ("lat", lat, (D, D))):
+        if t.get_device() != dev or t.dtype != torch.float32 \
+                or t.shape != shape or not t.is_contiguous():
+            raise ValueError(f"level_makespan: {name} must be a contiguous "
+                             f"float32 tensor of shape {shape} on "
+                             f"{placements.device}; got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    B = placements.shape[0]
+    finish = torch.empty(B, V + 1, dtype=torch.float32,
                          device=placements.device)
     transfer = torch.empty(B, dtype=torch.float32, device=placements.device)
     if B == 0:
         return finish, transfer
-    err = _lib()(*(t.data_ptr() for t, _, _ in ins.values()),
-                 finish.data_ptr(), transfer.data_ptr(),
-                 B, L, W, P, n, D, Q,
-                 torch.cuda.current_stream(placements.device).cuda_stream)
+    plan, _, params = _launch(lt, B, Q)
+    err = _lib()(lt.records.data_ptr(), params, placements.data_ptr(),
+                 inv_bw.data_ptr(), lat.data_ptr(), queue_init.data_ptr(),
+                 finish.data_ptr(), transfer.data_ptr(), B,
+                 torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
-        raise RuntimeError(f"level_makespan kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"level_makespan kernel launch failed "
+                           f"({plan.route}): CUDA error {err}")
     level_makespan.launches += 1
+    level_makespan.route_launches[plan.route] += 1
     return finish, transfer
 
 
 level_makespan.launches = 0
+#: launches per route of ``level_launch_plan``
+level_makespan.route_launches = dict.fromkeys(ROUTES, 0)

@@ -23,7 +23,7 @@ from repro_torch.core.sim import LevelBackend, get_backend  # noqa: E402
 from repro_torch.kernels import (build_level_arrays, level_makespan,  # noqa: E402
                                  level_tensors)
 
-from conftest import make_diamond, random_dag  # noqa: E402
+from conftest import CompGraph, make_diamond, random_dag  # noqa: E402
 
 RTOL = 1e-5     # the reference's own cross-backend tolerance (f32 vs f64)
 
@@ -66,6 +66,73 @@ def test_level_makespan_ref_matches_pallas_kernel(name):
         lt, torch.as_tensor(placements), torch.as_tensor(sa.queue_init),
         torch.as_tensor(sa.inv_bw), torch.as_tensor(sa.lat))
     assert level_makespan.launches == launches   # CPU tensors: plain version
+    np.testing.assert_allclose(got_f.numpy(), np.asarray(want_f), rtol=RTOL,
+                               atol=0)
+    np.testing.assert_allclose(got_t.numpy(), np.asarray(want_t), rtol=RTOL,
+                               atol=0)
+
+
+def _wide_dag(graph_cls, seed=1, layers=5, width=40, fan_in=9, params=2):
+    """A layered DAG wider than a warp: ``layers`` levels of ``width`` ops,
+    each op after the first level fed by ``fan_in`` distinct earlier ops (one
+    of them in the level before) and ``params`` weight ops, its inputs in
+    random order, so data predecessors sit between real ones."""
+    rng = np.random.default_rng(seed)
+    types = ["MatMul", "ReLU", "Concat", "Convolution", "Add"]
+    g = graph_cls(f"wide{layers}x{width}")
+    ids = []
+    for k in range(layers):
+        ids.append([g.add_op(f"n{k}_{i}", types[int(rng.integers(5))],
+                             output_shape=(1, 8),
+                             flops=float(rng.integers(1, 10 ** 6)),
+                             bytes_out=float(rng.integers(4, 4096)))
+                    for i in range(width)])
+    for k in range(1, layers):
+        earlier = np.concatenate(ids[:k])
+        for v in ids[k]:
+            srcs = {int(rng.choice(ids[k - 1]))}
+            while len(srcs) < min(fan_in, len(earlier)):
+                srcs.add(int(rng.choice(earlier)))
+            srcs = list(srcs) + [
+                g.add_op(f"w{v}_{i}", "Parameter", output_shape=(1, 8),
+                         bytes_out=float(rng.integers(4, 4096)))
+                for i in range(params)]
+            rng.shuffle(srcs)
+            for u in srcs:
+                g.add_edge(int(u), v)
+    return g
+
+
+@pytest.mark.parametrize("name,devices", [("wide", 2), ("wide", 4),
+                                          ("random30", 4)])
+def test_level_makespan_ref_matches_pallas_kernel_wide_and_four_devices(
+        name, devices):
+    """Shapes the paper graphs never reach: a level wider than a warp (W=40)
+    with 9 real predecessors a node, and the four-device platform, whose
+    D·Q = 12 queues exceed the kernel's registers."""
+    g = _wide_dag(CompGraph) if name == "wide" else _graph(name)
+    if devices == 2:
+        plat, ref_plat = paper_platform(), ref_paper()
+    else:
+        plat = _four_devices(DeviceSpec, Platform)
+        ref_plat = _four_devices(RefDeviceSpec, RefPlatform)
+    ref_sa = ref_sim_arrays(g, ref_plat, schedule="level")
+    ref_la = ref_levels(ref_sa)
+    if name == "wide":
+        assert ref_la.max_width > 32
+        assert int((ref_la.pred_data == 0).sum(axis=2).max()) >= 8
+    placements = np.random.default_rng(devices).integers(
+        0, devices, (8, g.num_nodes)).astype(np.int32)
+    want_f, want_t = ref_level_makespan(
+        ref_la, placements, ref_sa.queue_init, ref_sa.inv_bw, ref_sa.lat,
+        interpret=True)
+
+    sa = sim_arrays(g, plat, schedule="level")
+    assert sa.queue_init.shape == ((2, 4) if devices == 2 else (4, 3))
+    lt = level_tensors(build_level_arrays(sa), "cpu")
+    got_f, got_t = level_makespan(
+        lt, torch.as_tensor(placements), torch.as_tensor(sa.queue_init),
+        torch.as_tensor(sa.inv_bw), torch.as_tensor(sa.lat))
     np.testing.assert_allclose(got_f.numpy(), np.asarray(want_f), rtol=RTOL,
                                atol=0)
     np.testing.assert_allclose(got_t.numpy(), np.asarray(want_t), rtol=RTOL,
