@@ -10,15 +10,19 @@ and an f32 SIMT one), holds each kernel against its plain PyTorch version on
 the card at the main paths' shapes and on every route a kernel has
 (level_makespan's staged and general routes, bitwise, on the three paper
 graphs at B = 1, 7, 320 and 4096, a DAG wider than a warp and the
-four-device platform; rmsnorm's warp, block and general routes over rows x
-widths x dtypes; gcn_aggregate's float4 and scalar routes on the three paper
-graphs, forward and backward) and times both, then drives the two main paths
-through the user entry points:
+four-device platform, on the level backend's tables and on the scan
+backend's chain tables of one node a row, ``node_scan``, whose backend is
+also held against the host scheduler; rmsnorm's warp, block and general
+routes over rows x widths x dtypes; gcn_aggregate's float4 and scalar routes
+on the three paper graphs, forward and backward) and times both, then drives
+the two main paths through the user entry points:
 
-1. the placement search: ``HSDAG.search(..., engine="level")`` on
-   Inception-v3 at the Table-6 widths (hidden 128, 2+2+2 layers, T=20) with
-   16 chains for 3 episodes, followed by the greedy ``place()``
-   (``level_makespan``, ``gcn_aggregate``);
+1. the placement search: ``HSDAG(HSDAGConfig(batch_chains=16)).search``
+   with the default engine (the ``scan`` reward: ``level_makespan`` on
+   chain tables) on Inception-v3 at the Table-6 widths (hidden 128, 2+2+2
+   layers, T=20) for 3 episodes, followed by the greedy ``place()``
+   (``level_makespan``, ``gcn_aggregate``); then one episode with
+   ``engine="level"``;
 2. LM serving: ``repro_torch.launch.serve`` at full width in bf16 with
    random weights, h2o-danube-1.8b (batch 4, prompt 4608 > its 4096 window,
    32 steps: ``rmsnorm``, ``flash_attention``) and mamba2-130m (batch 4,
@@ -211,37 +215,25 @@ def level_build_report():
             print(f"[build] level_makespan {name[key]}: {line.strip()}")
 
 
-def level_checks(torch, graphs, plat):
-    """level_makespan against level_makespan_ref, bitwise (max abs err 0),
-    on the three paper graphs at B = 1, 7 (a ragged last warp), 320 (the
-    search's window) and 4096 (a full card), on a DAG wider than a warp with
-    9 real predecessors a node, on the four-device platform (queues in
-    shared memory), and on a DAG whose tables do not fit shared memory (the
-    general route); each case prints its plan and checks that it took the
-    plan's route with the shared memory the kernel computes.  Then device
-    and host time per launch at B=320 on the three paper graphs, and at
-    B=4096 on Inception-v3."""
+def makespan_checks(torch, label, backend, cases, timed, required):
+    """level_makespan against level_makespan_ref on ``backend``'s tables
+    (the level tables, or the scan backend's chain tables), bitwise (max
+    abs err 0), for each (graph, platform, B) of ``cases``; each case prints
+    its plan and checks that it took the plan's route with the shared
+    memory the kernel computes.  Every route of ``required`` must have run.
+    Then device and host time per launch for each (graph, platform, B) of
+    ``timed``, the first of which is the one reported; → (worst max abs
+    err, (ms, plain ms, bound ms, bound by) of the reported case)."""
     import ctypes
-    from repro_torch.core.sim import LevelBackend
     from repro_torch.kernels import level_makespan, level_makespan_ref
     from repro_torch.kernels._build import library
     from repro_torch.kernels.levelsim import ROUTES, level_launch_plan
     smem_of = library("levelsim").level_makespan_smem
     smem_of.restype = ctypes.c_longlong
     smem_of.argtypes = [ctypes.c_int] * 7
-    backend = LevelBackend(device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    four = four_devices()
-    wide = wide_dag(1, 5, 40, 9, 2)
-    big = wide_dag(2, 60, 64, 8, 0)
-    cases = [(g, plat, B) for g in graphs.values() for B in (1, 7, 320, 4096)]
-    cases += [(wide, plat, 7), (wide, plat, 320), (wide, four, 7),
-              (wide, four, 320), (graphs["inception_v3"], four, 7),
-              (graphs["inception_v3"], four, 320), (big, plat, 7)]
-    worst = 0.0
-    timing = None
-    per_route = dict.fromkeys(ROUTES, 0)
-    for g, pf, B in cases:
+
+    def setup(g, pf, B):
         prep = backend.prepare(g, pf)
         sim, lt = prep.sim, prep.tables
         L, W, P, D = lt.shape
@@ -249,65 +241,134 @@ def level_checks(torch, graphs, plat):
         place = torch.randint(0, D, (B, V), generator=gen, device="cuda",
                               dtype=torch.int32)
         args = (lt, place, sim["queue_init"], sim["inv_bw"], sim["lat"])
-        plan = level_launch_plan(B, L, W, P, V, D, Q, lt.slots)
+        return lt, args, level_launch_plan(B, L, W, P, V, D, Q, lt.slots)
+
+    worst = 0.0
+    per_route = dict.fromkeys(ROUTES, 0)
+    for g, pf, B in cases:
+        lt, args, plan = setup(g, pf, B)
+        L, W, P, D = lt.shape
+        V, Q = lt.num_nodes, args[2].shape[1]
         check(smem_of(ROUTES.index(plan.route), plan.per_block, V, D, Q,
                       lt.slots, lt.offsets[-1]) == plan.smem,
               f"level_launch_plan's shared memory {plan.smem} B is not the "
-              f"kernel's for {g.name} B={B}")
+              f"kernel's for {label} {g.name} B={B}")
         before = level_makespan.route_launches[plan.route]
         fk, tk = level_makespan(*args)
         check(level_makespan.route_launches[plan.route] == before + 1,
-              f"level_makespan {g.name} B={B} did not take {plan.route}")
+              f"{label} {g.name} B={B} did not take {plan.route}")
         per_route[plan.route] += 1
         fr, tr = level_makespan_ref(*args)
         torch.cuda.synchronize()
         abs_err = float(max((fk - fr).abs().max(), (tk - tr).abs().max()))
         worst = max(worst, abs_err)
-        print(f"[kernels] level_makespan[{plan.route}] {g.name} D={D} Q={Q}: "
+        print(f"[kernels] {label}[{plan.route}] {g.name} D={D} Q={Q}: "
               f"B={B} V={V} L={L} W={W} P={P} S={lt.slots}; {plan.group} "
               f"lanes a placement, {plan.per_block} placements and "
               f"{plan.warps} warps a block, {plan.blocks} blocks, "
               f"{plan.smem} B shared, queues in {plan.queues}; max abs err "
               f"{abs_err:.3e}")
         check(abs_err == 0.0 and torch.equal(fk, fr) and torch.equal(tk, tr),
-              f"level_makespan is not bitwise its plain version on {g.name} "
-              f"B={B} D={D}")
-        del place, fk, tk, fr, tr
-    print(f"[kernels] level_makespan cases per route: {per_route}")
-    check(all(per_route.values()),
-          f"the level_makespan checks left a route unrun: {per_route}")
-    for name, B in [(name, 320) for name in graphs] + [("inception_v3",
-                                                         4096)]:
-        prep = backend.prepare(graphs[name], plat)
-        sim, lt = prep.sim, prep.tables
+              f"{label} is not bitwise its plain version on {g.name} B={B} "
+              f"D={D}")
+        del args, fk, tk, fr, tr
+    print(f"[kernels] {label} cases per route: {per_route}")
+    check(all(per_route[r] for r in required),
+          f"the {label} checks left a route unrun: {per_route}")
+    timing = None
+    for g, pf, B in timed:
+        lt, args, plan = setup(g, pf, B)
         L, W, P, D = lt.shape
-        V, Q = lt.num_nodes, sim["queue_init"].shape[1]
-        place = torch.randint(0, D, (B, V), generator=gen, device="cuda",
-                              dtype=torch.int32)
-        args = (lt, place, sim["queue_init"], sim["inv_bw"], sim["lat"])
-        plan = level_launch_plan(B, L, W, P, V, D, Q, lt.slots)
+        V, Q = lt.num_nodes, args[2].shape[1]
         ms, host = cuda_ms(torch, lambda: level_makespan(*args), 200)
         n_preds = int((lt.pred_data == 0).sum())
         nbytes = 4 * (lt.offsets[-1] + B * V + 2 * D * D + D * Q
                       + B * (V + 1) + B)
         ops = B * (5 * n_preds + lt.slots * (Q + 2))
         bound, by = bound_ms(nbytes, ops)
-        print(f"[kernels] level_makespan timing {name} B={B} ({plan.route}, "
+        print(f"[kernels] {label} timing {g.name} B={B} ({plan.route}, "
               f"{plan.group} lanes a placement, {plan.per_block} placements "
-              f"and {plan.warps} warps a block, {plan.blocks} blocks): "
-              f"kernel {ms:.5f} ms on the card ({host:.5f} ms of host time "
-              f"to launch), {B / ms * 1e3:.6g} placements/s; chain {L} "
-              f"levels, {lt.slots} real slots; bound {bound:.6f} ms ({by}: "
-              f"{nbytes} B, {ops} ops)")
-        if (name, B) == ("inception_v3", 320):
+              f"and {plan.warps} warps a block, {plan.blocks} blocks, "
+              f"{plan.smem} B shared): kernel {ms:.5f} ms on the card "
+              f"({host:.5f} ms of host time to launch), "
+              f"{B / ms * 1e3:.6g} placements/s; chain {L} rows of {W}, "
+              f"{lt.slots} real slots, {ms / L * 1e3:.4f} us a row; bound "
+              f"{bound:.6f} ms ({by}: {nbytes} B, {ops} ops)")
+        if timing is None:
             plain, _ = cuda_ms(torch, lambda: level_makespan_ref(*args), 2, 1)
-            timing = (ms, plain, bound, by)
-            print(f"[kernels] level_makespan inception_v3 B=320: plain "
-                  f"{plain:.3f} ms; design goals: device <= {LEVEL_GOAL_MS} "
-                  f"ms {'met' if ms <= LEVEL_GOAL_MS else 'not met'}, host "
-                  f"<= {LEVEL_HOST_GOAL_MS} ms "
-                  f"{'met' if host <= LEVEL_HOST_GOAL_MS else 'not met'}")
+            timing = (ms, plain, bound, by, host)
+            print(f"[kernels] {label} {g.name} B={B}: plain {plain:.3f} ms")
+        del args
     return worst, timing
+
+
+def level_checks(torch, graphs, plat):
+    """The level backend's tables: the three paper graphs at B = 1, 7 (a
+    ragged last warp), 320 (the search's window) and 4096 (a full card), a
+    DAG wider than a warp with 9 real predecessors a node, the four-device
+    platform (queues in shared memory), and a DAG whose tables do not fit
+    shared memory (the general route); timed at B=320 on the three paper
+    graphs and at B=4096 on Inception-v3."""
+    from repro_torch.core.sim import LevelBackend
+    from repro_torch.kernels.levelsim import ROUTES
+    four = four_devices()
+    wide = wide_dag(1, 5, 40, 9, 2)
+    big = wide_dag(2, 60, 64, 8, 0)
+    cases = [(g, plat, B) for g in graphs.values() for B in (1, 7, 320, 4096)]
+    cases += [(wide, plat, 7), (wide, plat, 320), (wide, four, 7),
+              (wide, four, 320), (graphs["inception_v3"], four, 7),
+              (graphs["inception_v3"], four, 320), (big, plat, 7)]
+    timed = [(graphs["inception_v3"], plat, 320)]
+    timed += [(graphs[n], plat, 320) for n in ("resnet50", "bert_base")]
+    timed += [(graphs["inception_v3"], plat, 4096)]
+    worst, timing = makespan_checks(torch, "level_makespan",
+                                    LevelBackend(device="cuda"), cases,
+                                    timed, required=ROUTES)
+    ms, host = timing[0], timing[4]
+    print(f"[kernels] level_makespan inception_v3 B=320: design goals: "
+          f"device <= {LEVEL_GOAL_MS} ms "
+          f"{'met' if ms <= LEVEL_GOAL_MS else 'not met'}, host <= "
+          f"{LEVEL_HOST_GOAL_MS} ms "
+          f"{'met' if host <= LEVEL_HOST_GOAL_MS else 'not met'}")
+    return worst, timing[:4]
+
+
+def scan_checks(torch, graphs, plat):
+    """The scan backend: level_makespan on chain tables (one non-data node
+    a row, heap-Kahn order; every case on the staged route, one lane a
+    placement) bitwise against its plain version on the three paper graphs
+    at B = 1, 7, 320 and 4096, on the four-device platform and on the W=40
+    DAG; the backend against the host scheduler in its default (topo) order
+    at 1e-5; then device and host time at B=320 on the three paper graphs
+    and at B=4096 on Inception-v3."""
+    import numpy as np
+    from repro_torch.core import simulate
+    from repro_torch.core.sim import ScanBackend
+    backend = ScanBackend(device="cuda")
+    four = four_devices()
+    wide = wide_dag(1, 5, 40, 9, 2)
+    cases = [(g, plat, B) for g in graphs.values() for B in (1, 7, 320, 4096)]
+    cases += [(wide, plat, 7), (wide, plat, 320), (wide, four, 7),
+              (wide, four, 320), (graphs["inception_v3"], four, 7),
+              (graphs["inception_v3"], four, 320)]
+    timed = [(graphs["inception_v3"], plat, 320)]
+    timed += [(graphs[n], plat, 320) for n in ("resnet50", "bert_base")]
+    timed += [(graphs["inception_v3"], plat, 4096)]
+    worst, timing = makespan_checks(torch, "node_scan", backend, cases,
+                                    timed, required=("staged",))
+    rng = np.random.default_rng(0)
+    for g, pf in [(g, plat) for g in graphs.values()] + [
+            (wide, four), (graphs["inception_v3"], four)]:
+        placements = rng.integers(0, pf.num_devices, (8, g.num_nodes))
+        res = backend.simulate_batch(backend.prepare(g, pf), placements)
+        host = np.array([simulate(g, p, pf).latency for p in placements])
+        err = float(np.max(np.abs(res.latency - host) / host))
+        print(f"[kernels] node_scan backend {g.name} D={pf.num_devices}: 8 "
+              f"placements, latency rel err vs the host scheduler (topo "
+              f"order) {err:.3e}")
+        check(err <= TOL, f"the scan backend disagrees with the host "
+                          f"scheduler on {g.name}")
+    return worst, timing[:4]
 
 
 def gcn_checks(torch, graphs):
@@ -791,6 +852,56 @@ def decode_consistency(torch, arch, prompt, n, batch=2):
     del params, caches
 
 
+def search_phase(torch, g, arrays, plat, cfg):
+    """``HSDAG(cfg).search(g, arrays, platform=plat)`` then ``place()``, the
+    kernels' counts zeroed just before and read just after; → (result,
+    greedy placement, launches).  Checks that every level_makespan launch
+    took the staged route and every gcn_aggregate launch the vec4 route."""
+    from repro_torch import HSDAG, simulate
+    from repro_torch.kernels import gcn_aggregate, level_makespan
+    agent = HSDAG(cfg)
+    for k in (level_makespan, gcn_aggregate):
+        k.launches = 0
+        for route in k.route_launches:
+            k.route_launches[route] = 0
+    t0 = time.perf_counter()
+    res = agent.search(g, arrays, platform=plat)
+    placement = agent.place(arrays)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"level_makespan": level_makespan.launches,
+                "level_makespan_routes": dict(level_makespan.route_launches),
+                "gcn_aggregate": gcn_aggregate.launches,
+                "gcn_aggregate_routes": dict(gcn_aggregate.route_launches)}
+    label = f"[search engine={cfg.engine}]"
+    for h in res.history:
+        print(f"{label} episode {h['episode']}: wall {h['wall_s']:.3f} s, "
+              f"mean reward {h['mean_reward']:.4f}, best "
+              f"{h['best_latency'] * 1e3:.6f} ms, mean groups "
+              f"{h['mean_groups']:.1f}")
+    cpu_lat = simulate(g, [0] * g.num_nodes, plat).latency
+    gpu_lat = simulate(g, [1] * g.num_nodes, plat).latency
+    print(f"{label} {g.name} B={cfg.batch_chains} T={cfg.update_timestep} "
+          f"hidden={cfg.hidden_channel}: {res.num_evaluations} evaluations "
+          f"in {res.wall_time_s:.3f} s ({res.evals_per_sec:.1f} evals/s); "
+          f"best {res.best_latency * 1e3:.6f} ms; cpu_only "
+          f"{cpu_lat * 1e3:.6f} ms, gpu_only {gpu_lat * 1e3:.6f} ms (host "
+          f"simulate)")
+    print(f"{label} launches over search + place(): {launches} (search + "
+          f"place took {wall:.3f} s)")
+    check(launches["level_makespan_routes"]["staged"]
+          == launches["level_makespan"],
+          f"the {cfg.engine} search's level_makespan launches did not all "
+          f"take the staged route")
+    check(launches["gcn_aggregate"] > 0,
+          "the encoder never launched the gcn kernel")
+    check(launches["gcn_aggregate_routes"]["vec4"]
+          == launches["gcn_aggregate"],
+          "the encoder's gcn launches (hidden 128) did not all take the "
+          "vec4 route")
+    return res, placement, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -802,10 +913,9 @@ def main() -> int:
               f"from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, SRC)
-    from repro_torch import (HSDAG, HSDAGConfig, PAPER_BENCHMARKS,
-                             extract_features, paper_platform, simulate)
+    from repro_torch import (HSDAGConfig, PAPER_BENCHMARKS, extract_features,
+                             paper_platform, simulate)
     from repro_torch.core.sim import LevelBackend
-    from repro_torch.kernels import gcn_aggregate, level_makespan
     from repro_torch.kernels._build import build_all, build_dir
     from repro_torch.kernels.rmsnorm import rmsnorm_launch_plan
 
@@ -832,62 +942,23 @@ def main() -> int:
     plat = paper_platform()
     graphs = {name: build() for name, build in PAPER_BENCHMARKS.items()}
     lvl_err, lvl_t = level_checks(torch, graphs, plat)
+    scan_err, scan_t = scan_checks(torch, graphs, plat)
     gcn_err, gcn_t = gcn_checks(torch, graphs)
 
-    # ---- the main path: search (engine="level") then greedy place() ----
+    # ---- the main path: search with the default engine (the scan
+    # reward), then greedy place(); then the level engine's path ----
+    t_phase = time.perf_counter()
     g = graphs["inception_v3"]
     arrays = extract_features(g)
-    cfg = HSDAGConfig(batch_chains=16, engine="level", max_episodes=3)
-    agent = HSDAG(cfg)
-    t_phase = time.perf_counter()
-    level_makespan.launches = 0
-    for route in level_makespan.route_launches:
-        level_makespan.route_launches[route] = 0
-    gcn_aggregate.launches = 0
-    for route in gcn_aggregate.route_launches:
-        gcn_aggregate.route_launches[route] = 0
-    t0 = time.perf_counter()
-    res = agent.search(g, arrays, platform=plat)
-    placement = agent.place(arrays)
-    torch.cuda.synchronize()
-    main_s = time.perf_counter() - t0
-    launches = {"level_makespan": level_makespan.launches,
-                "level_makespan_routes": dict(level_makespan.route_launches),
-                "gcn_aggregate": gcn_aggregate.launches,
-                "gcn_aggregate_routes": dict(gcn_aggregate.route_launches)}
-    for h in res.history:
-        print(f"[search] episode {h['episode']}: wall {h['wall_s']:.3f} s, "
-              f"mean reward {h['mean_reward']:.4f}, best "
-              f"{h['best_latency'] * 1e3:.6f} ms, mean groups "
-              f"{h['mean_groups']:.1f}")
-    cpu_lat = simulate(g, [0] * g.num_nodes, plat).latency
-    gpu_lat = simulate(g, [1] * g.num_nodes, plat).latency
-    print(f"[search] inception_v3 B=16 T=20 hidden=128: "
-          f"{res.num_evaluations} evaluations in {res.wall_time_s:.3f} s "
-          f"({res.evals_per_sec:.1f} evals/s); best {res.best_latency * 1e3:.6f}"
-          f" ms; cpu_only {cpu_lat * 1e3:.6f} ms, gpu_only "
-          f"{gpu_lat * 1e3:.6f} ms (host simulate)")
-    print(f"[search] launches over search + place(): {launches} "
-          f"(search + place took {main_s:.3f} s)")
-    check(launches["level_makespan"] >= cfg.max_episodes,
+    res, placement, launches = search_phase(
+        torch, g, arrays, plat, HSDAGConfig(batch_chains=16, max_episodes=3))
+    check(launches["level_makespan"] >= 3,
           "the search scored no window through the level kernel")
-    check(launches["level_makespan_routes"]["staged"]
-          == launches["level_makespan"],
-          "the search's level launches did not all take the staged route")
-    check(launches["gcn_aggregate"] > 0,
-          "the encoder never launched the gcn kernel")
-    check(launches["gcn_aggregate_routes"]["vec4"]
-          == launches["gcn_aggregate"],
-          "the encoder's gcn launches (hidden 128) did not all take the "
-          "vec4 route")
-
-    order = LevelBackend(device="cuda").prepare(g, plat).arrays.order
-    host = simulate(g, res.best_placement, plat, order=order).latency
-    print(f"[search] best placement on the host scheduler (level order): "
+    host = simulate(g, res.best_placement, plat).latency
+    print(f"[search] best placement on the host scheduler (default order): "
           f"{host * 1e3:.6f} ms vs kernel {res.best_latency * 1e3:.6f} ms")
     check(abs(res.best_latency - host) <= TOL * host,
           "best latency disagrees with the host scheduler")
-
     check(placement.shape == (g.num_nodes,)
           and placement.min() >= 0 and placement.max() < plat.num_devices,
           "place() returned an invalid placement")
@@ -895,8 +966,24 @@ def main() -> int:
     print(f"[place] greedy placement: {int((placement == 1).sum())} of "
           f"{g.num_nodes} nodes on GPU, latency {greedy * 1e3:.6f} ms")
     check(greedy == greedy and greedy > 0, "greedy latency is not finite")
-
     print(f"[phase] search + place: {time.perf_counter() - t_phase:.2f} s")
+
+    t_phase = time.perf_counter()
+    lres, _, level_launches = search_phase(
+        torch, g, arrays, plat,
+        HSDAGConfig(batch_chains=16, engine="level", max_episodes=1))
+    check(level_launches["level_makespan"] >= 1,
+          "the level search scored no window through the level kernel")
+    order = LevelBackend(device="cuda").prepare(g, plat).arrays.order
+    host = simulate(g, lres.best_placement, plat, order=order).latency
+    print(f"[search] level engine: best placement on the host scheduler "
+          f"(level order): {host * 1e3:.6f} ms vs kernel "
+          f"{lres.best_latency * 1e3:.6f} ms")
+    check(abs(lres.best_latency - host) <= TOL * host,
+          "the level search's best latency disagrees with the host "
+          "scheduler")
+    print(f"[phase] search, engine='level': "
+          f"{time.perf_counter() - t_phase:.2f} s")
 
     # ---- the LM kernels against their plain versions ----
     t_phase = time.perf_counter()
@@ -945,9 +1032,16 @@ def main() -> int:
         {"name": "level_makespan", "route": "cuda",
          "source": "src/repro_torch/csrc/levelsim.cu",
          "replaces": "src/repro/kernels/levelsim.py:131",
-         "launches": launches["level_makespan"], "max_abs_err": lvl_err,
-         "ms": lvl_t[0], "plain_ms": lvl_t[1], "bound_ms": lvl_t[2],
-         "bound_by": lvl_t[3], "library_ms": None},
+         "launches": level_launches["level_makespan"],
+         "max_abs_err": lvl_err, "ms": lvl_t[0], "plain_ms": lvl_t[1],
+         "bound_ms": lvl_t[2], "bound_by": lvl_t[3], "library_ms": None},
+        {"name": "node_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/levelsim.cu",
+         "replaces": "src/repro/core/costmodel.py:498 (simulate_jax, a "
+                     "lax.scan; no Pallas source)",
+         "launches": launches["level_makespan"], "max_abs_err": scan_err,
+         "ms": scan_t[0], "plain_ms": scan_t[1], "bound_ms": scan_t[2],
+         "bound_by": scan_t[3], "library_ms": None},
         {"name": "gcn_aggregate", "route": "cuda",
          "source": "src/repro_torch/csrc/gcn_spmm.cu",
          "replaces": "src/repro/kernels/gcn_spmm.py:31",

@@ -1,27 +1,28 @@
 """HSDAG — the paper's framework end to end (§2, Fig. 1, Alg. 1), PyTorch.
 
-Port of ``repro/core/hsdag.py`` for the batched search with the ``level``
-reward backend and the greedy decode::
+Port of ``repro/core/hsdag.py`` for the batched search and the greedy
+decode::
 
     graph  = inception_v3()
     arrays = extract_features(graph)
-    agent  = HSDAG(HSDAGConfig(batch_chains=16, engine="level"))
+    agent  = HSDAG(HSDAGConfig(batch_chains=16))
     result = agent.search(graph, arrays, platform=paper_platform())
     placement = agent.place(arrays)
 
 Each episode samples one window of ``update_timestep`` steps for
 ``batch_chains`` parallel REINFORCE chains (encode → parse → place → state
-update), scores every placement of the window in one launch of the level
-kernel, and updates the policy with the exact Eq.-14 gradient of a replay of
-the same window.  Everything runs on ``device`` (the card unless the caller
-passes ``device="cpu"``).
+update), scores every placement of the window (in one launch of the level
+kernel for the ``scan`` and ``level`` backends, on the host for the
+``reference`` backend or a ``reward_fn``), and updates the policy with the
+exact Eq.-14 gradient of a replay of the same window.  Everything runs on
+``device`` (the card unless the caller passes ``device="cpu"``).
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import time
-from typing import Dict, List, NamedTuple, Optional, Union
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -37,26 +38,33 @@ from .gpn import GPN, ParseResult, gpn_apply
 from .graph import CompGraph
 from .policy import DensePolicy, PolicyOutput, policy_apply
 from .reinforce import RunningBaseline, step_weights
+from .sim import backend_names
 from .sim.pipeline import RewardPipeline
 from .sim.rollout import ChainStreams, RolloutEngine
 
 __all__ = ["HSDAGConfig", "HSDAG", "HSDAGPolicy", "SearchResult",
            "StepOutput"]
 
-#: every engine name the reference accepts; the port runs "level" and names
-#: the ROADMAP.md item that ports each of the others.
-_ENGINES = ("auto", "scalar", "batched", "reference", "scan", "level")
-_NOT_PORTED = {
-    "auto": "ROADMAP.md 'Modules to port' item 2 (the node-scan simulator, "
-            "the default reward of engine='auto'/'batched')",
-    "batched": "ROADMAP.md 'Modules to port' item 2 (the node-scan "
-               "simulator, the default reward of engine='auto'/'batched')",
-    "scan": "ROADMAP.md 'Modules to port' item 2 (the node-scan simulator)",
-    "reference": "ROADMAP.md 'Modules to port' item 3 (the host reference "
-                 "backend)",
-    "scalar": "ROADMAP.md 'Modules to port' item 5 (the scalar reference "
-              "loop)",
-}
+#: rollout loops; every other engine names a registered simulator backend,
+#: which runs the batched loop with that reward.
+_LOOP_ENGINES = ("auto", "scalar", "batched")
+#: the ROADMAP.md item that ports the scalar loop
+_SCALAR_ITEM = ("ROADMAP.md 'Modules to port' item 5 (the scalar reference "
+                "loop)")
+
+
+def reward_backend(engine: str) -> str:
+    """The simulator backend that scores ``engine``'s search given a
+    platform: the engine itself when it names one, else ``"scan"``."""
+    return engine if engine not in _LOOP_ENGINES else "scan"
+
+
+def _validate_engine(engine: str) -> str:
+    if engine in _LOOP_ENGINES or engine in backend_names():
+        return engine
+    raise ValueError(
+        f"unknown engine {engine!r}; rollout loops: {_LOOP_ENGINES}; "
+        f"registered simulator backends: {backend_names()}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,9 +98,7 @@ class HSDAGConfig:
     head: str = "dense"
 
     def __post_init__(self):
-        if self.engine not in _ENGINES:
-            raise ValueError(f"unknown engine {self.engine!r}; expected one "
-                             f"of {_ENGINES}")
+        _validate_engine(self.engine)
         if self.head not in ("dense", "device"):
             raise ValueError(f"unknown head {self.head!r}; "
                              f"expected 'dense' or 'device'")
@@ -118,11 +124,7 @@ class HSDAGConfig:
         return cls(**data)
 
 
-def _check_ported(cfg: HSDAGConfig, engine: str) -> None:
-    if engine in _NOT_PORTED:
-        raise NotImplementedError(
-            f"engine={engine!r} is not ported to PyTorch yet; "
-            f"{_NOT_PORTED[engine]} ports it. Use engine='level'.")
+def _check_ported(cfg: HSDAGConfig) -> None:
     if cfg.head != "dense":
         raise NotImplementedError(
             "head='device' is not ported yet; ROADMAP.md 'Modules to port' "
@@ -248,30 +250,67 @@ class HSDAG:
 
     # ---------------------------------------------------------------- search
     def search(self, graph: CompGraph, arrays: GraphArrays, *,
-               platform: Platform, engine: Optional[str] = None,
+               platform: Optional[Platform] = None,
+               reward_fn: Optional[Callable[[np.ndarray],
+                                            Tuple[float, float]]] = None,
+               engine: Optional[str] = None,
                verbose: bool = False) -> SearchResult:
         """Run the RL search (Alg. 1) and return the best sampled placement.
 
-        ``engine`` overrides ``cfg.engine``; the port runs ``"level"``.
+        Reward source: ``platform`` (a registered simulator backend — the
+        ``scan`` backend by default) or ``reward_fn`` (a host callable
+        ``fn(placement) -> (reward, latency)``, called per placement).
+        ``engine`` overrides ``cfg.engine``: ``"auto"`` and ``"batched"``
+        run the batched loop (``"auto"`` with ``batch_chains == 1`` and a
+        ``reward_fn`` is the reference's scalar loop, not ported, like
+        ``"scalar"``); a backend name (``"scan"``, ``"level"``,
+        ``"reference"``) runs the batched loop with that reward backend.
         """
         cfg = self.cfg
-        engine = engine if engine is not None else cfg.engine
-        if engine not in _ENGINES:
-            raise ValueError(f"unknown engine {engine!r}; expected one of "
-                             f"{_ENGINES}")
-        _check_ported(cfg, engine)
-        if cfg.num_devices > platform.num_devices:
+        engine = _validate_engine(engine if engine is not None
+                                  else cfg.engine)
+        _check_ported(cfg)
+        if platform is None and reward_fn is None:
+            raise ValueError("search() needs a reward source: platform= or "
+                             "reward_fn")
+        if platform is not None and reward_fn is not None:
+            raise ValueError(
+                "search() got both platform= and reward_fn — ambiguous "
+                "reward source; pass exactly one")
+        if platform is not None and cfg.num_devices > platform.num_devices:
             # Device ids ≥ platform.num_devices would index past the
             # simulator's tables; fail up front.
             raise ValueError(
                 f"cfg.num_devices={cfg.num_devices} exceeds the platform's "
                 f"{platform.num_devices} devices")
+        if engine not in _LOOP_ENGINES and reward_fn is not None:
+            raise ValueError(
+                f"engine={engine!r} names a simulator backend but a host "
+                f"reward_fn was also given — pass exactly one reward source")
+        if engine == "scalar" or (engine == "auto" and cfg.batch_chains == 1
+                                  and platform is None):
+            # Where the reference runs its scalar loop.
+            raise NotImplementedError(
+                f"engine={engine!r} with batch_chains={cfg.batch_chains} and "
+                f"{'a platform' if platform is not None else 'a reward_fn'} "
+                f"runs the scalar loop, which is not ported to PyTorch yet; "
+                f"{_SCALAR_ITEM} ports it")
+        if reward_fn is not None:
+            pipeline = RewardPipeline.from_reward_fn(
+                reward_fn, num_nodes=graph.num_nodes)
+        else:
+            pipeline = RewardPipeline.from_platform(
+                graph, platform, reward_backend(engine), device=self.device)
+        return self._search_batched(arrays, pipeline, verbose)
+
+    def _search_batched(self, arrays: GraphArrays, pipeline: RewardPipeline,
+                        verbose: bool) -> SearchResult:
+        """B parallel chains, each window scored by ``pipeline``."""
+        cfg = self.cfg
         nchains = max(1, cfg.batch_chains)
         t_start = time.perf_counter()
         if self.policy is None:
             self.init(arrays)
-        pipeline = RewardPipeline.from_platform(graph, platform, "level",
-                                                device=self.device)
         rollout = self.rollout_engine(arrays)
         streams = ChainStreams(cfg.seed, nchains, self.device)
         baseline = RunningBaseline() if cfg.use_baseline else None

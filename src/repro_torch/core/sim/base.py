@@ -1,9 +1,9 @@
 """Simulator-backend protocol and registry.
 
-Port of ``repro/core/sim/base.py``, as much of it as the ``level`` backend
-needs.  A :class:`SimulatorBackend` turns a (graph, platform) pair into a
-prepared, placement-independent handle (``prepare``) and scores placements
-against it (``simulate`` / ``simulate_batch``).  Backends register under a
+Port of ``repro/core/sim/base.py`` for single graphs.  A
+:class:`SimulatorBackend` turns a (graph, platform) pair into a prepared,
+placement-independent handle (``prepare``) and scores placements against it
+(``simulate`` / ``simulate_batch``).  Backends register under a
 name; ``get_backend(name, device=...)`` builds one on a device, so each
 backend's prepared tensors live where its scorer runs.
 """
@@ -22,6 +22,10 @@ def single_from_batch(batch, i: int = 0):
                      float(batch.transfer_time[i]), bool(batch.oom[i]))
 
 
+_MULTI = ("multi-graph scoring is not ported yet; ROADMAP.md 'Modules to "
+          "port' item 6 (multi-graph and corpus) ports it")
+
+
 class SimulatorBackend:
     """Interface every simulation engine implements."""
 
@@ -38,6 +42,14 @@ class SimulatorBackend:
     def simulate_batch(self, prep, placements):
         """(B, V) placements → host ``BatchSimResult``."""
         raise NotImplementedError
+
+    def prepare_batch(self, graphs, platform, **kw):
+        """Padded multi-graph handle (the reference's ``from_graphs`` path)."""
+        raise NotImplementedError(_MULTI)
+
+    def simulate_multi(self, prep, placements):
+        """(G, B, V_max) placements of a padded multi-graph batch."""
+        raise NotImplementedError(_MULTI)
 
     def schedule_order(self, prep):
         """The list-schedule retire order this backend simulates.

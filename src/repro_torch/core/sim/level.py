@@ -9,6 +9,9 @@ Order contract: simulates the **level-major** list schedule (see
 model than the node-scan order once device queues contend.  Parity is
 asserted against the reference scheduler *on the same order*
 (``simulate(..., order=prep.arrays.order)``).
+
+``TableBackend`` holds what the ``level`` and ``scan`` backends share: the
+cached tables and the scorer around the kernel; they differ in the tables.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ from ..costmodel import (BatchSimResult, SimArrays, SimResult, _cache_key,
                          sim_arrays)
 from .base import SimulatorBackend, register_backend, single_from_batch
 
-__all__ = ["LevelBackend", "LevelSim"]
+__all__ = ["LevelBackend", "LevelSim", "TableBackend"]
 
 
 class LevelSim(NamedTuple):
@@ -39,9 +42,10 @@ class LevelSim(NamedTuple):
     sim: Dict[str, torch.Tensor]      # the SimArrays fields the scorer reads
 
 
-def _simulate_level(prep: LevelSim, placements: torch.Tensor):
+def _simulate_tables(prep, placements: torch.Tensor):
     """(B, V) int32 device ids → (latency, reward, oom, busy, transfer)
-    tensors on the placements' device."""
+    tensors on the placements' device, scored by ``level_makespan`` on
+    ``prep.tables``."""
     sim = prep.sim
     B, n = placements.shape
     idx = placements.long()
@@ -64,29 +68,33 @@ def _simulate_level(prep: LevelSim, placements: torch.Tensor):
     return latency, reward, oom, busy, transfer
 
 
-class LevelBackend(SimulatorBackend):
-    name = "level"
+class TableBackend(SimulatorBackend):
+    """A backend that scores with ``level_makespan`` on tables built once
+    per (graph, platform, schedule): the ``level`` and ``scan`` backends,
+    which differ only in the tables."""
 
     def __init__(self, device="cuda"):
         self.device = resolve_device(device)
-        # graph → {costmodel cache key: LevelSim}
+        # graph → {(costmodel cache key, schedule): prepared handle}
         self._cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
-    def prepare(self, graph, platform) -> LevelSim:
+    def _prepare(self, graph, platform, schedule: str, build, handle):
+        """The cached ``handle`` (a :class:`LevelSim`-shaped tuple) of
+        ``build(sim_arrays(graph, platform, schedule=schedule))``."""
         per_graph = self._cache.setdefault(graph, {})
-        key = _cache_key(graph, platform)
+        key = _cache_key(graph, platform) + (schedule,)
         prep = per_graph.get(key)
         if prep is None:
-            sa = sim_arrays(graph, platform, schedule="level")
-            tables = level_tensors(build_level_arrays(sa), self.device)
+            sa = sim_arrays(graph, platform, schedule=schedule)
+            tables = level_tensors(build(sa), self.device)
             sim = {f: torch.as_tensor(np.ascontiguousarray(getattr(sa, f)),
                                       device=self.device)
                    for f in ("op_time", "bytes_out", "mem_capacity",
                              "queue_init", "inv_bw", "lat")}
-            prep = per_graph[key] = LevelSim(graph, platform, sa, tables, sim)
+            prep = per_graph[key] = handle(graph, platform, sa, tables, sim)
         return prep
 
-    def _score(self, prep: LevelSim, placements) -> BatchSimResult:
+    def _score(self, prep, placements) -> BatchSimResult:
         p = torch.as_tensor(placements, device=self.device)
         n = prep.arrays.num_nodes
         ndev = prep.arrays.num_devices
@@ -100,20 +108,28 @@ class LevelBackend(SimulatorBackend):
             if lo < 0 or hi >= ndev:
                 raise ValueError(f"placement device ids must be in [0, "
                                  f"{ndev}); got [{lo}, {hi}]")
-        res = _simulate_level(prep, p.to(torch.int32).contiguous())
+        res = _simulate_tables(prep, p.to(torch.int32).contiguous())
         latency, reward, oom, busy, transfer = (t.cpu().numpy() for t in res)
         return BatchSimResult(latency=latency, reward=reward, oom=oom,
                               per_device_busy=busy, transfer_time=transfer)
 
-    def simulate(self, prep: LevelSim, placement) -> SimResult:
+    def simulate(self, prep, placement) -> SimResult:
         p = torch.as_tensor(placement, device=self.device)
         return single_from_batch(self._score(prep, p[None]))
 
-    def simulate_batch(self, prep: LevelSim, placements) -> BatchSimResult:
+    def simulate_batch(self, prep, placements) -> BatchSimResult:
         return self._score(prep, placements)
 
-    def schedule_order(self, prep: LevelSim) -> np.ndarray:
+    def schedule_order(self, prep) -> np.ndarray:
         return np.asarray(prep.arrays.order, np.int64)
+
+
+class LevelBackend(TableBackend):
+    name = "level"
+
+    def prepare(self, graph, platform) -> LevelSim:
+        return self._prepare(graph, platform, "level", build_level_arrays,
+                             LevelSim)
 
 
 register_backend(LevelBackend)

@@ -86,18 +86,19 @@ class GCNGraph:
 def gcn_graph(edges, num_nodes: int, device) -> GCNGraph:
     """Build the CSR of ``edges`` ((E, 2) src→dst) for ``num_nodes`` nodes.
 
-    The dense reference adjacency is binary, so a repeated (src, dst) row
-    would count twice here and once there: such rows, self loops and
-    out-of-range ids raise.
+    The dense reference adjacency is binary, so it counts a repeated
+    (src, dst) row once: the graph keeps each edge's first row, in the order
+    of first occurrence (a graph without repeats keeps its edge ids), and has
+    one keep-mask column per unique edge.  Self loops and out-of-range ids
+    raise.
     """
     e = np.asarray(edges, np.int64).reshape(-1, 2)
     if e.size and (e.min() < 0 or e.max() >= num_nodes):
         raise ValueError(f"edge ids must be in [0, {num_nodes})")
     if np.any(e[:, 0] == e[:, 1]):
         raise ValueError("self loops are not edges of a computation graph")
-    if len(np.unique(e, axis=0)) != len(e):
-        raise ValueError("repeated (src, dst) edge rows: the dense adjacency "
-                         "counts an edge once")
+    _, first = np.unique(e, axis=0, return_index=True)
+    e = e[np.sort(first)]
     n_e = e.shape[0]
     ends = np.concatenate([e[:, 0], e[:, 1]])          # row of each entry
     nbrs = np.concatenate([e[:, 1], e[:, 0]])

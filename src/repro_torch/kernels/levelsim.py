@@ -1,4 +1,5 @@
-"""Level-parallel makespan kernel — the ``level`` simulator backend's scorer.
+"""Level-parallel makespan kernel — the ``level`` and ``scan`` simulator
+backends' scorer.
 
 Port of ``repro/kernels/levelsim.py``.  One call scores B placements of one
 graph under the **level-major** list schedule: nodes retire level by level
@@ -7,6 +8,10 @@ finish times plus the cross-device transfer cost, then takes the
 earliest-free queue of its device (first minimum).  Build the tables from
 ``sim_arrays(g, platform, schedule="level")`` and compare against
 ``simulate(g, p, platform, order=sa.order)``.
+
+The same kernel on ``build_chain_arrays``' tables (one node a row) walks the
+node-scan schedule of the reference's ``costmodel.simulate_jax`` instead:
+the ``scan`` backend's reward.
 
 "data"-class ops (weights/inputs resident on the consumer device) never
 enter the tables: they cost nothing, their finish time stays 0, and their
@@ -28,8 +33,9 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-__all__ = ["LevelArrays", "build_level_arrays", "LevelTensors",
-           "level_tensors", "level_makespan_ref", "level_makespan",
+__all__ = ["LevelArrays", "build_level_arrays", "build_chain_arrays",
+           "LevelTensors", "level_tensors", "level_makespan_ref",
+           "level_makespan",
            "LevelPlan", "level_launch_plan", "level_record_offsets",
            "level_smem", "ROUTES", "PRE", "STATIC_WORDS", "PARAMS"]
 
@@ -70,6 +76,32 @@ def build_level_arrays(sa) -> LevelArrays:
     order = np.asarray(sa.order, np.int64)
     levels = np.asarray(sa.levels, np.int64)
     is_data = np.asarray(sa.is_data)
+    lvl_order = order[np.argsort(levels[order], kind="stable")]
+    by_level: dict = {}
+    for v in lvl_order:
+        if not is_data[v]:
+            by_level.setdefault(int(levels[v]), []).append(int(v))
+    return _tables(sa, [by_level[k] for k in sorted(by_level)], lvl_order)
+
+
+def build_chain_arrays(sa) -> LevelArrays:
+    """One row per non-data node, in ``sa.order``'s order, each of width 1.
+
+    With one slot a row, every predecessor of a row has retired before the
+    row's readiness is taken, so ``level_makespan`` on these tables walks
+    the node-scan list schedule of ``sa.order`` (the reference's
+    ``simulate_jax``): pass ``sim_arrays(g, platform, schedule="topo")``
+    for the heap-Kahn order.  The returned ``order`` is ``sa.order``.
+    """
+    order = np.asarray(sa.order, np.int64)
+    is_data = np.asarray(sa.is_data)
+    return _tables(sa, [[int(v)] for v in order if not is_data[v]], order)
+
+
+def _tables(sa, rows, order) -> LevelArrays:
+    """Tables of ``rows`` (lists of non-data node ids, retired row by row and
+    in list order within a row), gathered per node from ``sa``; no row gives
+    one row of sentinels."""
     n = order.shape[0]
     p_max = sa.preds.shape[1]
     ndev = sa.op_time.shape[0]
@@ -78,22 +110,16 @@ def build_level_arrays(sa) -> LevelArrays:
     # of padded arrays may carry the *unpadded* sentinel — every sentinel
     # points at some data slot, so they are interchangeable here.
     pred_by_node = np.full((n + 1, p_max), n, dtype=np.int64)
-    pred_by_node[order] = np.asarray(sa.preds, np.int64)
+    pred_by_node[np.asarray(sa.order, np.int64)] = np.asarray(sa.preds,
+                                                              np.int64)
 
-    lvl_order = order[np.argsort(levels[order], kind="stable")]
-    sched = [int(v) for v in lvl_order if not is_data[v]]
-    by_level: dict = {}
-    for v in sched:
-        by_level.setdefault(int(levels[v]), []).append(v)
-    rows = [by_level[k] for k in sorted(by_level)]
-
-    L = len(rows)
+    L = max(len(rows), 1)
     W = max((len(r) for r in rows), default=1) or 1
-    nodes = np.full((max(L, 1), W), n, dtype=np.int32)
-    preds = np.full((max(L, 1), W, p_max), n, dtype=np.int32)
-    dur = np.zeros((max(L, 1), W, ndev), dtype=np.float32)
-    pbytes = np.zeros((max(L, 1), W, p_max), dtype=np.float32)
-    pdata = np.ones((max(L, 1), W, p_max), dtype=np.float32)
+    nodes = np.full((L, W), n, dtype=np.int32)
+    preds = np.full((L, W, p_max), n, dtype=np.int32)
+    dur = np.zeros((L, W, ndev), dtype=np.float32)
+    pbytes = np.zeros((L, W, p_max), dtype=np.float32)
+    pdata = np.ones((L, W, p_max), dtype=np.float32)
     bytes_out = np.asarray(sa.bytes_out, np.float32)
     data_vec = np.asarray(sa.is_data, np.float32)
     op_time = np.asarray(sa.op_time, np.float32)
@@ -107,7 +133,7 @@ def build_level_arrays(sa) -> LevelArrays:
         pdata[l, :w] = data_vec[pv]
     return LevelArrays(nodes=nodes, preds=preds, dur=dur,
                        pred_bytes=pbytes, pred_data=pdata,
-                       order=lvl_order.astype(np.int32))
+                       order=order.astype(np.int32))
 
 
 #: routes of ``csrc/levelsim.cu``, in the order of its ``Route`` enum

@@ -1,5 +1,5 @@
 """Port parity, the slice as a whole: rollout windows, rewards from the level
-backend, the Eq.-14 replay gradient, the Adam update, and the greedy decode
+and scan backends, the search's engine dispatch, the Eq.-14 replay gradient, the Adam update, and the greedy decode
 from a reference checkpoint — at a small size, with the same initial weights
 and the reference's own random draws fed to the port."""
 import numpy as np
@@ -86,12 +86,14 @@ def _at(tree, path):
     return tree
 
 
-def test_two_windows_and_updates_match_the_reference(setup):
-    g, arrays, ref, agent = (setup[k] for k in ("g", "arrays", "ref",
-                                                "agent"))
-    ref_pipe = RefPipeline.from_platform(g, ref_paper(), "level")
+def _windows_match_the_reference(g, arrays, ref, agent, backend, windows):
+    """``windows`` rollout windows of both engines from the same weights,
+    the reference's draws fed to the port, each scored by ``backend`` on
+    both sides: placements, groups, rewards and states, then the Eq.-14
+    gradients and the Adam update, window by window."""
+    ref_pipe = RefPipeline.from_platform(g, ref_paper(), backend)
     ref_engine = ref._engine_single(arrays, ref_pipe)
-    pipe = RewardPipeline.from_platform(g, paper_platform(), "level",
+    pipe = RewardPipeline.from_platform(g, paper_platform(), backend,
                                         device="cpu")
     engine = agent.rollout_engine(arrays)
 
@@ -101,12 +103,17 @@ def test_two_windows_and_updates_match_the_reference(setup):
     x0 = jnp.asarray(arrays.x)
     ref_z = jnp.broadcast_to(x0, (1, B) + x0.shape)
     z = engine.x0.expand(B, *engine.x0.shape)
-    for window in range(2):
+    for window in range(windows):
         first = window == 0
-        (ref_z1, rngs, keys, ref_fines, ref_ng, _, _) = \
+        (ref_z1, rngs, keys, ref_fines, ref_ng, ref_rew, ref_lat) = \
             ref_engine.rollout_window(ref.params, ref_z, rngs, num_steps=T,
                                       start_first=first)
-        ref_rew, ref_lat = ref_pipe.score_window(np.asarray(ref_fines)[:, 0])
+        if ref_pipe.fused:       # scored inside the reference's rollout
+            ref_rew = np.asarray(ref_rew, np.float64)[:, 0]
+            ref_lat = np.asarray(ref_lat, np.float64)[:, 0]
+        else:
+            ref_rew, ref_lat = ref_pipe.score_window(
+                np.asarray(ref_fines)[:, 0])
 
         noise = _noise(np.asarray(keys)[:, 0], arrays, 2)
         z1, record, fines, ngroups = engine.rollout_window(
@@ -140,6 +147,22 @@ def test_two_windows_and_updates_match_the_reference(setup):
         for a, b in zip(jax.tree.leaves(mine), jax.tree.leaves(want)):
             np.testing.assert_allclose(a, b, rtol=0, atol=TOL)
         ref_z, z = ref_z1, z1
+
+
+def test_two_windows_and_updates_match_the_reference(setup):
+    _windows_match_the_reference(
+        *(setup[k] for k in ("g", "arrays", "ref", "agent")), "level", 2)
+
+
+def test_a_window_scored_by_the_scan_backend_matches_the_reference(setup):
+    """The default reward: the reference's in-rollout ``simulate_jax`` and
+    the port's scan backend on the same window, from fresh weights."""
+    g, arrays = setup["g"], setup["arrays"]
+    ref = RefHSDAG(_ref_cfg())
+    params = ref.init(jax.random.PRNGKey(0), arrays)
+    agent = HSDAG(HSDAGConfig.from_json(ref.cfg.to_json()), device="cpu")
+    agent.load_params(jax.tree.map(np.asarray, params))
+    _windows_match_the_reference(g, arrays, ref, agent, "scan", 1)
 
 
 def test_place_from_a_reference_checkpoint(setup, tmp_path):
@@ -193,13 +216,86 @@ def test_search_runs_the_level_engine_end_to_end(setup):
     assert p.shape == (g.num_nodes,) and set(np.unique(p)) <= {0, 1}
 
 
-@pytest.mark.parametrize("engine", ["auto", "scan", "scalar", "reference",
-                                    "batched"])
-def test_unported_engines_name_their_roadmap_item(setup, engine):
-    agent = HSDAG(HSDAGConfig(hidden_channel=HIDDEN, engine=engine),
+@pytest.mark.parametrize("engine,backend", [
+    ("auto", "scan"), ("batched", "scan"), ("scan", "scan"),
+    ("reference", "reference")])
+def test_search_runs_each_engine(setup, engine, backend):
+    """Every engine the reference takes with a platform runs the batched
+    loop; its best latency is the host scheduler's in the order of the
+    backend that scored it (``"auto"`` and ``"batched"``: the scan
+    backend, heap-Kahn order)."""
+    g, arrays = setup["g"], setup["arrays"]
+    agent = HSDAG(HSDAGConfig(hidden_channel=HIDDEN, batch_chains=2,
+                              update_timestep=3, max_episodes=2,
+                              engine=engine), device="cpu")
+    res = agent.search(g, arrays, platform=paper_platform())
+    assert len(res.history) == 2 and res.num_evaluations == 2 * 3 * 2
+    b = get_backend(backend, device="cpu")
+    order = b.schedule_order(b.prepare(g, paper_platform()))
+    host = simulate(g, res.best_placement, paper_platform(), order=order)
+    np.testing.assert_allclose(res.best_latency, host.latency, rtol=TOL)
+    if engine != "reference":
+        default = simulate(g, res.best_placement, paper_platform())
+        np.testing.assert_allclose(res.best_latency, default.latency,
+                                   rtol=TOL)
+
+
+def test_search_engine_reference_matches_host_reward_fn(setup):
+    """engine="reference" is the host scheduler behind the pipeline: its
+    search is the one a reward_fn wrapping simulate() drives."""
+    g, arrays = setup["g"], setup["arrays"]
+    plat = paper_platform()
+    seen = []
+
+    def reward_fn(p):
+        seen.append(p.shape)
+        r = simulate(g, p, plat)
+        return r.reward, r.latency
+
+    def cfg(engine):
+        return HSDAGConfig(hidden_channel=HIDDEN, batch_chains=2,
+                           update_timestep=3, max_episodes=2, engine=engine)
+    ra = HSDAG(cfg("batched"), device="cpu").search(g, arrays,
+                                                    reward_fn=reward_fn)
+    rb = HSDAG(cfg("reference"), device="cpu").search(g, arrays,
+                                                      platform=plat)
+    assert seen == [(g.num_nodes,)] * (2 * 3 * 2)
+    assert [h["best_latency"] for h in ra.history] == \
+        [h["best_latency"] for h in rb.history]
+    assert [h["mean_reward"] for h in ra.history] == \
+        [h["mean_reward"] for h in rb.history]
+    np.testing.assert_array_equal(ra.best_placement, rb.best_placement)
+
+
+def test_search_rejects_ambiguous_or_missing_reward_sources(setup):
+    g, arrays = setup["g"], setup["arrays"]
+    agent = HSDAG(HSDAGConfig(hidden_channel=HIDDEN, batch_chains=2),
                   device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        agent.search(setup["g"], setup["arrays"], platform=paper_platform())
+    with pytest.raises(ValueError, match="needs a reward source"):
+        agent.search(g, arrays)
+    with pytest.raises(ValueError, match="ambiguous"):
+        agent.search(g, arrays, platform=paper_platform(),
+                     reward_fn=lambda p: (1.0, 1.0))
+    with pytest.raises(ValueError, match="names a simulator backend"):
+        agent.search(g, arrays, reward_fn=lambda p: (1.0, 1.0),
+                     engine="level")
+    with pytest.raises(ValueError, match="exceeds the platform"):
+        HSDAG(HSDAGConfig(hidden_channel=HIDDEN, num_devices=3),
+              device="cpu").search(g, arrays, platform=paper_platform())
+    with pytest.raises(ValueError, match="unknown engine"):
+        agent.search(g, arrays, platform=paper_platform(), engine="nope")
+
+
+@pytest.mark.parametrize("engine", ["auto", "scalar"])
+def test_unported_engines_name_their_roadmap_item(setup, engine):
+    """The reference's scalar loop: ``engine="scalar"``, and ``"auto"`` with
+    one chain and a host reward_fn."""
+    agent = HSDAG(HSDAGConfig(hidden_channel=HIDDEN, engine=engine,
+                              batch_chains=1), device="cpu")
+    source = ({"reward_fn": lambda p: (1.0, 1.0)} if engine == "auto"
+              else {"platform": paper_platform()})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 5"):
+        agent.search(setup["g"], setup["arrays"], **source)
 
 
 def test_config_json_round_trips_with_the_reference():

@@ -24,7 +24,8 @@ from repro_torch import PAPER_BENCHMARKS, paper_platform  # noqa: E402
 from repro_torch.core import DeviceSpec, Platform  # noqa: E402
 from repro_torch.core.costmodel import sim_arrays  # noqa: E402
 from repro_torch.core.graph import CompGraph  # noqa: E402
-from repro_torch.kernels import (build_level_arrays, level_makespan,  # noqa: E402
+from repro_torch.kernels import (build_chain_arrays,  # noqa: E402
+                                 build_level_arrays, level_makespan,
                                  level_makespan_ref, level_tensors)
 from repro_torch.kernels.levelsim import (  # noqa: E402
     MAX_WARPS, PARAMS, PRE, REG_QUEUES, ROUTES, SMEM_LIMIT, SMS,
@@ -122,6 +123,29 @@ def test_level_plan_stages_the_paper_graphs(name, B):
         "inception_v3": 18, "resnet50": 32, "bert_base": 11}[name])
     assert plan.blocks * plan.per_block >= B
     assert plan.smem <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("name", ["inception_v3", "resnet50", "bert_base"])
+@pytest.mark.parametrize("B", [7, 320])
+def test_level_plan_stages_the_chain_tables(name, B):
+    """The scan backend's chain tables (one non-data node a row, in topo
+    order): the staged route, one lane a placement, every (placement, row)
+    taken once; the records hold one slot a row, in the topo order."""
+    g = PAPER_BENCHMARKS[name]()
+    sa = sim_arrays(g, paper_platform())
+    lt = level_tensors(build_chain_arrays(sa), "cpu")
+    L, W, P, D = lt.shape
+    real = [int(v) for v in sa.order if not sa.is_data[v]]
+    assert W == 1 and L == lt.slots == len(real) == {
+        "inception_v3": 221, "resnet50": 124, "bert_base": 375}[name]
+    rec = lt.records.numpy()
+    off_nodes = lt.offsets[0]
+    np.testing.assert_array_equal(rec[:L + 1], np.arange(L + 1))
+    np.testing.assert_array_equal(rec[off_nodes:off_nodes + L], real)
+    plan = _check_plan(lt, B, sa.queue_init.shape[1])
+    assert (plan.route, plan.group, plan.per_warp, plan.queues) == (
+        "staged", 1, 32, "registers")
+    assert plan.per_block == -(-B // SMS)
 
 
 @pytest.mark.parametrize("name,devices,B", [

@@ -196,7 +196,7 @@ def test_level_backend_rejects_bad_placements():
     with pytest.raises(ValueError, match="placements"):
         backend.simulate_batch(prep, np.zeros((2, g.num_nodes + 1), int))
     with pytest.raises(ValueError, match="unknown simulator backend"):
-        get_backend("scan", device="cpu")
+        get_backend("no-such-backend", device="cpu")
 
 
 def test_entry_points_need_the_card_unless_cpu_is_asked():

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where one search episode of the PyTorch port spends its time, on one GPU.
 
-    python3 tools/profile_torch_search.py [--graph inception_v3]
+    python3 tools/profile_torch_search.py [--graph inception_v3] [--engine E]
 
-Runs the main path's episode (``HSDAG.search`` with ``engine="level"``:
-window rollout → window scoring → Eq.-14 replay and Adam update) at the
+Runs the main path's episode (``HSDAG.search``'s loop with the reward of
+``--engine``, by default the config's default, ``"auto"``: the ``scan``
+backend; ``--engine level`` for the level backend; window rollout → window
+scoring → Eq.-14 replay and Adam update) at the
 Table-6 widths with 16 chains, phase by phase with the host clock around
 synchronised work, median of 3 episodes after one warm-up.  Then profiles
 one more episode with ``torch.profiler`` and prints the device time by kernel, the number of
@@ -14,6 +16,7 @@ Needs a CUDA device; imports nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import statistics
 import subprocess
@@ -28,6 +31,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--graph", default="inception_v3",
                     choices=["inception_v3", "resnet50", "bert_base"])
+    ap.add_argument("--engine", default=None,
+                    help="an engine of HSDAGConfig with a platform reward "
+                         "(default: the config's default)")
     args = ap.parse_args()
     episodes = 3
 
@@ -38,6 +44,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import (HSDAG, HSDAGConfig, PAPER_BENCHMARKS,
                              extract_features, paper_platform)
+    from repro_torch.core.hsdag import reward_backend
     from repro_torch.core.reinforce import step_weights
     from repro_torch.core.sim import ChainStreams, RewardPipeline
 
@@ -48,10 +55,13 @@ def main() -> int:
         timeout=60, check=True).stdout.strip()
     g = PAPER_BENCHMARKS[args.graph]()
     arrays = extract_features(g)
-    cfg = HSDAGConfig(batch_chains=16, engine="level")
+    cfg = HSDAGConfig(batch_chains=16)
+    if args.engine is not None:
+        cfg = dataclasses.replace(cfg, engine=args.engine)
+    backend = reward_backend(cfg.engine)
     agent = HSDAG(cfg)
     agent.init(arrays)
-    pipe = RewardPipeline.from_platform(g, paper_platform(), "level")
+    pipe = RewardPipeline.from_platform(g, paper_platform(), backend)
     engine = agent.rollout_engine(arrays)
     streams = ChainStreams(cfg.seed, cfg.batch_chains, agent.device)
     state = {"z": engine.x0.expand(cfg.batch_chains, *engine.x0.shape),
@@ -81,7 +91,8 @@ def main() -> int:
     episode()                                   # warm-up
     runs = [episode() for _ in range(episodes)]
     print(f"card: {card}")
-    print(f"{args.graph} V={g.num_nodes} B={cfg.batch_chains} "
+    print(f"{args.graph} V={g.num_nodes} B={cfg.batch_chains} engine "
+          f"{cfg.engine} (reward: the {backend} backend) "
           f"T={cfg.update_timestep} hidden={cfg.hidden_channel}; host clock, "
           f"median of {episodes} episodes after one warm-up:")
     for phase in runs[0]:
