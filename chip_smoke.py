@@ -14,15 +14,25 @@ four-device platform, on the level backend's tables and on the scan
 backend's chain tables of one node a row, ``node_scan``, whose backend is
 also held against the host scheduler; rmsnorm's warp, block and general
 routes over rows x widths x dtypes; gcn_aggregate's float4 and scalar routes
-on the three paper graphs, forward and backward) and times both, then drives
-the two main paths through the user entry points:
+and the SAGE mean aggregation ``sage_aggregate`` on the three paper graphs,
+forward and backward) and times both, then drives the main paths through the
+user entry points:
 
 1. the placement search: ``HSDAG(HSDAGConfig(batch_chains=16)).search``
    with the default engine (the ``scan`` reward: ``level_makespan`` on
    chain tables) on Inception-v3 at the Table-6 widths (hidden 128, 2+2+2
    layers, T=20) for 3 episodes, followed by the greedy ``place()``
    (``level_makespan``, ``gcn_aggregate``); then one episode with
-   ``engine="level"``;
+   ``engine="level"``; then the search's other paths on Inception-v3: a
+   4-episode population search (a cull every window, a greedy restart every
+   second), 3 episodes of ``k_epochs=2`` with ``dropout_parsing=0.1``, a
+   sampled ``place(greedy=False)``, 3 episodes with ``gnn_model="sage"``
+   (``sage_aggregate``) and its ``place()``, and one episode of the scalar
+   loop (B=1, a host ``reward_fn``); then the quality contract: the port's
+   best latency over seeds 0-11 on each paper graph with the default and the
+   level engine (``HSDAGConfig(batch_chains=16, max_episodes=3)``) held
+   against the reference's (``tools/reference_search_spread.json``) by a
+   one-sided Mann-Whitney test, failing at p < 1e-3;
 2. LM serving: ``repro_torch.launch.serve`` at full width in bf16 with
    random weights, h2o-danube-1.8b (batch 4, prompt 4608 > its 4096 window,
    32 steps: ``rmsnorm``, ``flash_attention``) and mamba2-130m (batch 4,
@@ -48,6 +58,8 @@ import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
@@ -81,6 +93,13 @@ RMS_EXCESS_GOAL_MS, RMS_HOST_BEFORE_MS = 10.0, 0.0199
 LM_TOL = {"torch.float32": 1e-5, "torch.bfloat16": 2e-2}
 # prefill + decode against forward at full width in float32
 CONSISTENCY_TOL = 1e-4
+# the search-quality contract: the reference's best latencies over seeds
+# (tools/reference_search_spread.py), the config both sides search with,
+# and the one-sided Mann-Whitney p-value below which the port's search is
+# worse than the reference's
+SPREAD_JSON = os.path.join(ROOT, "tools", "reference_search_spread.json")
+SPREAD_CONFIG = {"batch_chains": 16, "max_episodes": 3}
+CONTRACT_P = 1e-3
 # the main path's serves: (arch, batch, prompt, steps)
 SERVES = (("h2o-danube-1.8b", 4, 4608, 32), ("mamba2-130m", 4, 4096, 32))
 
@@ -450,6 +469,84 @@ def gcn_checks(torch, graphs):
                   f"{'met' if ms <= GCN_GOAL_MS else 'not met'}, host <= "
                   f"{GCN_HOST_GOAL_MS} ms "
                   f"{'met' if host <= GCN_HOST_GOAL_MS else 'not met'}")
+    return worst, timing
+
+
+def sage_checks(torch, graphs):
+    """sage_aggregate forward and backward (``SageAggregate``: the
+    transpose, each neighbour's term over its degree) against its plain
+    version, the reference's dense formula per chain, on the three paper
+    graphs at F = 37, 128, 200 and B = 1, 16; then its time at the SAGE
+    search's shape (Inception-v3, B=16, F=128) beside the plain version and
+    one ``torch.bmm`` on the dense per-chain operator D⁻¹S."""
+    from repro_torch.kernels import (SageAggregate, gcn_graph,
+                                     sage_aggregate, sage_aggregate_ref)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst = 0.0
+    timing = None
+    for name, g in graphs.items():
+        V, E = g.num_nodes, g.num_edges
+        graph = gcn_graph(g.edges, V, "cuda")
+        for B in (1, 16):
+            keep = (torch.rand(B, E, generator=gen, device="cuda")
+                    < 0.8).float()
+            for F in (37, 128, 200):
+                h = torch.randn(B, V, F, generator=gen, device="cuda")
+                gout = torch.randn(B, V, F, generator=gen, device="cuda")
+                before = sage_aggregate.launches
+                out_k = sage_aggregate(graph, keep, h)
+                out_r = sage_aggregate_ref(graph, keep, h)
+                hk = h.clone().requires_grad_(True)
+                (gk,) = torch.autograd.grad(
+                    SageAggregate.apply(graph, keep, hk), hk, gout)
+                hr = h.clone().requires_grad_(True)
+                (gr,) = torch.autograd.grad(
+                    sage_aggregate_ref(graph, keep, hr), hr, gout)
+                torch.cuda.synchronize()
+                check(sage_aggregate.launches == before + 3,
+                      f"sage_aggregate {name} F={F} did not launch its "
+                      f"kernel forward and backward")
+                e_f, e_b = rel_err(torch, out_k, out_r), rel_err(torch, gk,
+                                                                 gr)
+                abs_err = float(max((out_k - out_r).abs().max(),
+                                    (gk - gr).abs().max()))
+                worst = max(worst, abs_err)
+                print(f"[kernels] sage_aggregate {name}: B={B} V={V} E={E} "
+                      f"F={F} forward rel err {e_f:.3e}, backward rel err "
+                      f"{e_b:.3e}, max abs err {abs_err:.3e}")
+                check(e_f <= TOL and e_b <= TOL,
+                      f"sage_aggregate disagrees with its plain version on "
+                      f"{name} B={B} F={F}")
+        if name == "inception_v3":
+            B, F = 16, 128
+            keep = (torch.rand(B, E, generator=gen, device="cuda")
+                    < 0.8).float()
+            h = torch.randn(B, V, F, generator=gen, device="cuda")
+            out_r = sage_aggregate_ref(graph, keep, h)
+            adj = torch.zeros(B, V, V, device="cuda")
+            bidx = torch.arange(B, device="cuda")[:, None]
+            adj[bidx, graph.src[None], graph.dst[None]] = keep
+            deg = torch.clamp(adj.sum(1) + adj.sum(2), min=1.0)
+            op = (adj + adj.transpose(1, 2)) / deg[..., None]
+            lib_err = rel_err(torch, torch.bmm(op, h), out_r)
+            ms, host = cuda_ms(torch, lambda: sage_aggregate(graph, keep, h),
+                               100)
+            plain, _ = cuda_ms(torch,
+                               lambda: sage_aggregate_ref(graph, keep, h), 50)
+            lib, _ = cuda_ms(torch, lambda: torch.bmm(op, h), 100)
+            # h read once, out written once, the keep mask, rowptr and the
+            # 2E CSR records (16 B) with their edge ids
+            nbytes = 4 * (2 * B * V * F + B * E + (V + 1) + 2 * E * 5)
+            # a multiply and an add per entry and feature, the degree sums,
+            # a divide per output
+            ops = B * F * 2 * (2 * E) + B * 2 * E + B * V * F
+            timing = (ms, plain, *bound_ms(nbytes, ops), lib)
+            print(f"[kernels] sage_aggregate timing at inception_v3, B={B}, "
+                  f"F={F}: kernel {ms:.5f} ms on the card ({host:.5f} ms of "
+                  f"host time to launch), plain (dense formula) "
+                  f"{plain:.4f} ms, torch.bmm(dense D^-1 S, H) {lib:.4f} ms "
+                  f"(rel err vs plain {lib_err:.2e}), bound "
+                  f"{timing[2]:.6f} ms ({timing[3]}: {nbytes} B, {ops} ops)")
     return worst, timing
 
 
@@ -902,6 +999,196 @@ def search_phase(torch, g, arrays, plat, cfg):
     return res, placement, launches
 
 
+def counted(torch, fn):
+    """``fn()`` with the search kernels' launch counts zeroed just before it
+    and read just after it → (its result, {kernel: launches})."""
+    from repro_torch.kernels import (gcn_aggregate, level_makespan,
+                                     sage_aggregate)
+    kernels = {"level_makespan": level_makespan,
+               "gcn_aggregate": gcn_aggregate,
+               "sage_aggregate": sage_aggregate}
+    for k in kernels.values():
+        k.launches = 0
+        for route in getattr(k, "route_launches", {}):
+            k.route_launches[route] = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: k.launches for name, k in kernels.items()}
+
+
+def best_is_host(g, plat, res, label):
+    """The search's best latency against the host scheduler (default
+    order) on its best placement."""
+    from repro_torch import simulate
+    host = simulate(g, res.best_placement, plat).latency
+    print(f"{label} best {res.best_latency * 1e3:.6f} ms, host scheduler "
+          f"{host * 1e3:.6f} ms; {res.num_evaluations} evaluations in "
+          f"{res.wall_time_s:.3f} s ({res.evals_per_sec:.1f} evals/s)")
+    check(abs(res.best_latency - host) <= TOL * host,
+          f"{label} best latency disagrees with the host scheduler")
+
+
+def slice_phases(torch, g, arrays, plat):
+    """The search's other paths at full width on ``g``: population search,
+    the K-epoch replay with parse dropout, the SAGE encoder (search and
+    ``place()``), the scalar loop and a sampled ``place()``; each with the
+    kernels' counts zeroed just before it and read just after it.
+    → the SAGE path's launches."""
+    from repro_torch import HSDAG, HSDAGConfig, simulate
+    from repro_torch.core.train import PopulationConfig
+    T = HSDAGConfig().update_timestep
+    layers = HSDAGConfig().layer_gnn
+
+    t_phase = time.perf_counter()
+    res, n = counted(torch, lambda: HSDAG(HSDAGConfig(
+        batch_chains=16, max_episodes=4)).search(
+            g, arrays, platform=plat, population=PopulationConfig(
+                cull_every=1, greedy_restart_every=2)))
+    for h in res.history:
+        print(f"[population] episode {h['episode']}: wall "
+              f"{h['wall_s']:.3f} s, culled {h['culled']}, population best "
+              f"{h['pop_best_latency'] * 1e3:.6f} ms, mean temperature "
+              f"{h['temp_mean']:.4f}, best {h['best_latency'] * 1e3:.6f} ms")
+    print(f"[population] launches: {n}")
+    pop = [h["pop_best_latency"] for h in res.history]
+    check(all(b <= a for a, b in zip(pop, pop[1:])),
+          "the population's best latency rose between episodes")
+    check(all(h["culled"] for h in res.history),
+          "a population episode did not cull")
+    best_is_host(g, plat, res, "[population]")
+    check(n["level_makespan"] == 4 and n["gcn_aggregate"] > 0,
+          "the population search did not score through level_makespan and "
+          "encode through gcn_aggregate")
+    print(f"[phase] population search: {time.perf_counter() - t_phase:.2f} s")
+
+    t_phase = time.perf_counter()
+    kcfg = HSDAGConfig(batch_chains=16, max_episodes=3, k_epochs=2,
+                       dropout_parsing=0.1)
+    kagent = HSDAG(kcfg)
+    res, n = counted(torch, lambda: kagent.search(g, arrays, platform=plat))
+    for h in res.history:
+        print(f"[k_epochs] episode {h['episode']}: wall {h['wall_s']:.3f} "
+              f"s, mean reward {h['mean_reward']:.4f}, best "
+              f"{h['best_latency'] * 1e3:.6f} ms, mean groups "
+              f"{h['mean_groups']:.1f}")
+    print(f"[k_epochs] launches: {n}")
+    best = [h["best_latency"] for h in res.history]
+    check(all(b <= a for a, b in zip(best, best[1:])),
+          "the K-epoch search's best latency rose between episodes")
+    best_is_host(g, plat, res, "[k_epochs]")
+    # per episode: the rollout's T steps, then k_epochs replays, each a
+    # forward and a backward, of every layer
+    want = kcfg.max_episodes * layers * T * (1 + 2 * kcfg.k_epochs)
+    check(n["gcn_aggregate"] == want and n["level_makespan"] == 3,
+          f"the K-epoch search launched gcn_aggregate {n['gcn_aggregate']} "
+          f"times (want {want}) and level_makespan "
+          f"{n['level_makespan']} times (want 3)")
+    print(f"[phase] k_epochs=2 + dropout_parsing=0.1 search: "
+          f"{time.perf_counter() - t_phase:.2f} s")
+
+    t_phase = time.perf_counter()
+    placement, n = counted(torch, lambda: kagent.place(
+        arrays, torch.Generator(device="cuda").manual_seed(0),
+        greedy=False))
+    lat = simulate(g, placement, plat).latency
+    print(f"[place] sampled placement (greedy=False): "
+          f"{int((placement == 1).sum())} of {g.num_nodes} nodes on GPU, "
+          f"latency {lat * 1e3:.6f} ms; launches {n}")
+    check(placement.shape == (g.num_nodes,) and placement.min() >= 0
+          and placement.max() < plat.num_devices and lat == lat and lat > 0,
+          "place(greedy=False) returned an invalid placement")
+    check(n["gcn_aggregate"] == layers, "the sampled place() did not encode "
+          "through gcn_aggregate")
+    print(f"[phase] sampled place: {time.perf_counter() - t_phase:.2f} s")
+
+    t_phase = time.perf_counter()
+    scfg = HSDAGConfig(batch_chains=16, max_episodes=3, gnn_model="sage")
+    sagent = HSDAG(scfg)
+
+    def sage_run():
+        return sagent.search(g, arrays, platform=plat), sagent.place(arrays)
+    (res, placement), sage_n = counted(torch, sage_run)
+    for h in res.history:
+        print(f"[sage] episode {h['episode']}: wall {h['wall_s']:.3f} s, "
+              f"best {h['best_latency'] * 1e3:.6f} ms, mean groups "
+              f"{h['mean_groups']:.1f}")
+    print(f"[sage] launches over search + place(): {sage_n}")
+    best_is_host(g, plat, res, "[sage]")
+    # the rollout's forwards and the replay's forwards and backwards of
+    # every layer, less one backward a window after the first (the first
+    # layer of its first step aggregates the sampled state, which takes no
+    # gradient), and place()'s forwards
+    want = scfg.max_episodes * (layers * T * 3 - 1) + 1 + layers
+    check(sage_n["sage_aggregate"] == want and sage_n["gcn_aggregate"] == 0,
+          f"the SAGE encoder launched sage_aggregate "
+          f"{sage_n['sage_aggregate']} times (want {want}) and "
+          f"gcn_aggregate {sage_n['gcn_aggregate']} times (want 0)")
+    check(placement.shape == (g.num_nodes,), "SAGE place() failed")
+    print(f"[phase] sage search + place: {time.perf_counter() - t_phase:.2f} "
+          f"s")
+
+    t_phase = time.perf_counter()
+    calls = []
+
+    def reward_fn(p):
+        calls.append(1)
+        r = simulate(g, p, plat)
+        return r.reward, r.latency
+    res, n = counted(torch, lambda: HSDAG(HSDAGConfig(
+        batch_chains=1, max_episodes=1)).search(
+            g, arrays, reward_fn=reward_fn))
+    print(f"[scalar] launches: {n}; reward_fn called {len(calls)} times")
+    best_is_host(g, plat, res, "[scalar]")
+    check(len(calls) == T and n["gcn_aggregate"] == 3 * layers * T
+          and n["level_makespan"] == 0,
+          "the scalar loop did not score each placement on the host")
+    print(f"[phase] scalar loop: {time.perf_counter() - t_phase:.2f} s")
+    return sage_n
+
+
+def contract_phase(graphs, plat):
+    """The port's search quality against the reference's: for each paper
+    graph and engine, the port's best latency over seeds 0-11 beside the
+    reference's (``tools/reference_search_spread.json``), and the one-sided
+    Mann-Whitney p-value that the port's are larger.  Fails below
+    ``CONTRACT_P``.  → the smallest p-value."""
+    from scipy.stats import mannwhitneyu
+    from repro_torch import HSDAG, HSDAGConfig, extract_features
+    with open(SPREAD_JSON) as f:
+        doc = json.load(f)
+    check(doc["config"] == SPREAD_CONFIG,
+          f"{SPREAD_JSON} holds config {doc['config']}, not "
+          f"{SPREAD_CONFIG}")
+    worst = 1.0
+    for name in ("inception_v3", "resnet50", "bert_base"):
+        g = graphs[name]
+        arrays = extract_features(g)
+        for engine in ("auto", "level"):
+            seeds = doc["seeds"]
+            ref = np.array([doc["results"][name][engine][str(s)]
+                            for s in seeds])
+            t0 = time.perf_counter()
+            port = np.array([
+                HSDAG(HSDAGConfig(seed=s, **SPREAD_CONFIG)).search(
+                    g, arrays, platform=plat, engine=engine).best_latency
+                for s in seeds])
+            p = float(mannwhitneyu(port, ref, alternative="greater").pvalue)
+            worst = min(worst, p)
+            print(f"[contract] {name} engine={engine}: port median "
+                  f"{np.median(port) * 1e3:.6f} ms (range "
+                  f"{port.min() * 1e3:.6f}-{port.max() * 1e3:.6f}), "
+                  f"reference median {np.median(ref) * 1e3:.6f} ms (range "
+                  f"{ref.min() * 1e3:.6f}-{ref.max() * 1e3:.6f}), "
+                  f"Mann-Whitney p(port worse) = {p:.4g}; {len(seeds)} "
+                  f"port searches in {time.perf_counter() - t0:.2f} s")
+            print(f"[contract] {name} engine={engine} port ms: "
+                  f"{[round(float(x) * 1e3, 6) for x in port]}")
+            check(p >= CONTRACT_P,
+                  f"the port's search on {name} (engine={engine}) is worse "
+                  f"than the reference's: p = {p:.3g} < {CONTRACT_P}")
+    return worst
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -944,6 +1231,7 @@ def main() -> int:
     lvl_err, lvl_t = level_checks(torch, graphs, plat)
     scan_err, scan_t = scan_checks(torch, graphs, plat)
     gcn_err, gcn_t = gcn_checks(torch, graphs)
+    sage_err, sage_t = sage_checks(torch, graphs)
 
     # ---- the main path: search with the default engine (the scan
     # reward), then greedy place(); then the level engine's path ----
@@ -984,6 +1272,13 @@ def main() -> int:
           "scheduler")
     print(f"[phase] search, engine='level': "
           f"{time.perf_counter() - t_phase:.2f} s")
+
+    # ---- the search's other paths, then the quality contract ----
+    sage_launches = slice_phases(torch, g, arrays, plat)
+    t_phase = time.perf_counter()
+    contract_p = contract_phase(graphs, plat)
+    print(f"[phase] contract (72 port searches): "
+          f"{time.perf_counter() - t_phase:.2f} s; smallest p {contract_p:.4g}")
 
     # ---- the LM kernels against their plain versions ----
     t_phase = time.perf_counter()
@@ -1048,6 +1343,14 @@ def main() -> int:
          "launches": launches["gcn_aggregate"], "max_abs_err": gcn_err,
          "ms": gcn_t[0], "plain_ms": gcn_t[1], "bound_ms": gcn_t[2],
          "bound_by": gcn_t[3], "library_ms": gcn_t[4]},
+        {"name": "sage_aggregate", "route": "cuda",
+         "source": "src/repro_torch/csrc/gcn_spmm.cu",
+         "replaces": "src/repro/core/gnn.py:121 (the SAGE neighbour mean, "
+                     "a dense product; no Pallas source)",
+         "launches": sage_launches["sage_aggregate"],
+         "max_abs_err": sage_err, "ms": sage_t[0], "plain_ms": sage_t[1],
+         "bound_ms": sage_t[2], "bound_by": sage_t[3],
+         "library_ms": sage_t[4]},
         {"name": "rmsnorm", "route": "cuda",
          "source": "src/repro_torch/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm.py:24",

@@ -1,9 +1,10 @@
 """Device selection shared by the port's entry points."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "seeded_generator"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -21,3 +22,12 @@ def resolve_device(device="cuda") -> torch.device:
         raise ValueError(f"unsupported device {device!r}; expected 'cuda' "
                          f"or 'cpu'")
     return dev
+
+
+def seeded_generator(words, device) -> torch.Generator:
+    """A generator on ``device`` seeded from the integers ``words``: two
+    lists differing anywhere give unrelated streams."""
+    state = np.random.SeedSequence(list(words)).generate_state(2)
+    g = torch.Generator(device=device)
+    g.manual_seed(int(state[0]) << 32 | int(state[1]))
+    return g

@@ -2,7 +2,8 @@
 
 The reference keeps its parameters as a nested tree of arrays,
 ``{"enc": {"trans": [{"w", "b"}, ...], "gnn": [{"w"}, ...]},
-"gpn": {"phi": [...]}, "pol": {"mlp": [...]}}``, with every ``w`` stored
+"gpn": {"phi": [...]}, "pol": {"mlp": [...]}}`` (a GraphSAGE encoder's
+``gnn`` layers hold ``{"w_self", "w_nbr"}``), with every weight stored
 (in, out) and applied as ``x @ w``.  ``nn.Linear`` stores the transpose.
 This module maps between the two and reads the reference's ``save_policy``
 checkpoints (``step_<n>/state.npz`` + ``manifest.json``) with numpy alone.
@@ -26,11 +27,12 @@ __all__ = ["params_from_numpy", "params_to_numpy", "tree_from_tensors",
 
 
 def _ref_path(name: str) -> Tuple[Tuple, bool]:
-    """``enc.trans.0.weight`` → ((``enc``, ``trans``, 0, ``w``), transposed)."""
+    """``enc.trans.0.weight`` → ((``enc``, ``trans``, 0, ``w``), transposed);
+    ``enc.gnn.0.w_self`` → ((``enc``, ``gnn``, 0, ``w_self``), transposed)."""
     parts = name.split(".")
-    leaf = {"weight": "w", "bias": "b"}[parts[-1]]
+    leaf = {"weight": "w", "bias": "b"}.get(parts[-1], parts[-1])
     path = tuple(int(p) if p.isdigit() else p for p in parts[:-1]) + (leaf,)
-    return path, leaf == "w"
+    return path, leaf != "b"
 
 
 def _get(tree, path):
@@ -73,10 +75,8 @@ def params_from_numpy(tree: Dict) -> HSDAGPolicy:
     """A CPU ``HSDAGPolicy`` holding the reference tree's values; sizes are
     read off the tree."""
     enc, gpn, pol = tree["enc"], tree["gpn"], tree["pol"]
-    if enc["gnn"] and "w" not in enc["gnn"][0]:
-        raise NotImplementedError(
-            "only gnn_model='gcn' is ported; ROADMAP.md 'Modules to port' "
-            "item 4 ports 'sage'")
+    # The layer keys name the model, as the reference's encoder reads them.
+    sage = bool(enc["gnn"]) and "w" not in enc["gnn"][0]
     if "dev" in pol:
         raise NotImplementedError(
             "only head='dense' is ported; ROADMAP.md 'Modules to port' item "
@@ -85,6 +85,7 @@ def params_from_numpy(tree: Dict) -> HSDAGPolicy:
     policy = HSDAGPolicy(
         d_in, hidden, np.shape(pol["mlp"][-1]["w"])[1],
         layer_trans=len(enc["trans"]), layer_gnn=len(enc["gnn"]),
+        gnn_model="sage" if sage else "gcn",
         layer_parsingnet=len(gpn["phi"]), policy_layers=len(pol["mlp"]))
     with torch.no_grad():
         for name, p in policy.named_parameters():

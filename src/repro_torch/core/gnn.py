@@ -1,12 +1,13 @@
 """Graph/node encoder (paper §2.4, Eq. 6) — PyTorch.
 
-Port of ``repro/core/gnn.py`` for ``gnn_model="gcn"``.  The encoder is
-``layer_trans`` MLP layers mapping X^(0) into the hidden width, followed by
-``layer_gnn`` graph-convolution layers over the symmetric-normalised,
-self-looped adjacency (Eq. 6).  The reference multiplies by the dense
-normalised matrix; here every chain has its own edge-dropout mask, so the
-aggregation runs over the edge list in the ``gcn_aggregate`` kernel and the
-(V, V) operator is never formed.
+Port of ``repro/core/gnn.py``.  The encoder is ``layer_trans`` MLP layers
+mapping X^(0) into the hidden width, followed by ``layer_gnn`` graph layers:
+``gnn_model="gcn"`` convolves over the symmetric-normalised, self-looped
+adjacency (Eq. 6); ``"sage"`` (GraphSAGE) adds a linear map of each node to
+one of the mean of its in- and out-neighbours.  The reference multiplies by
+dense (V, V) matrices; here every chain has its own edge-dropout mask, so
+the aggregations run over the edge list in the ``gcn_aggregate`` and
+``sage_aggregate`` kernels and the operators are never formed.
 
 Every tensor carries a leading chain axis B: x (B, V, d), keep (B, E).
 Linear weights follow ``nn.Linear`` ((out, in)); the reference stores the
@@ -18,11 +19,12 @@ import math
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.gcn_spmm import GCNAggregate, GCNGraph
+from ..kernels.gcn_spmm import GCNAggregate, GCNGraph, SageAggregate
 
-__all__ = ["glorot_", "MLP", "normalize_adjacency", "Encoder"]
+__all__ = ["glorot_", "MLP", "normalize_adjacency", "SageLayer", "Encoder"]
 
 
 def glorot_(weight: torch.Tensor, generator: torch.Generator) -> None:
@@ -69,19 +71,45 @@ def normalize_adjacency(adj: torch.Tensor) -> torch.Tensor:
     return inv_sqrt[..., :, None] * sym * inv_sqrt[..., None, :]
 
 
+class SageLayer(nn.Module):
+    """One GraphSAGE layer, ``z @ w_self + mean_nbr(z) @ w_nbr``; both
+    weights stored (out, in) like ``nn.Linear``'s."""
+
+    def __init__(self, hidden: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.w_self = nn.Parameter(torch.empty(hidden, hidden))
+        self.w_nbr = nn.Parameter(torch.empty(hidden, hidden))
+        if generator is not None:          # the reference's order
+            glorot_(self.w_self, generator)
+            glorot_(self.w_nbr, generator)
+
+    def forward(self, z: torch.Tensor, graph: GCNGraph,
+                keep: torch.Tensor) -> torch.Tensor:
+        nbr = SageAggregate.apply(graph, keep, z.contiguous())
+        return F.linear(z, self.w_self) + F.linear(nbr, self.w_nbr)
+
+
 class Encoder(nn.Module):
     """X^(0) → Z (Eq. 6) for a batch of chains."""
 
     def __init__(self, d_in: int, hidden: int, *, layer_trans: int = 2,
-                 layer_gnn: int = 2,
+                 layer_gnn: int = 2, gnn_model: str = "gcn",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if gnn_model not in ("gcn", "sage"):
+            raise ValueError(f"unknown gnn_model {gnn_model!r}")
+        self.gnn_model = gnn_model
         self.trans = MLP([d_in] + [hidden] * layer_trans, generator)
-        self.gnn = nn.ModuleList(nn.Linear(hidden, hidden, bias=False)
-                                 for _ in range(layer_gnn))
-        if generator is not None:
-            for layer in self.gnn:
-                glorot_(layer.weight, generator)
+        if gnn_model == "sage":
+            self.gnn = nn.ModuleList(SageLayer(hidden, generator)
+                                     for _ in range(layer_gnn))
+        else:
+            self.gnn = nn.ModuleList(nn.Linear(hidden, hidden, bias=False)
+                                     for _ in range(layer_gnn))
+            if generator is not None:
+                for layer in self.gnn:
+                    glorot_(layer.weight, generator)
 
     def forward(self, x: torch.Tensor, graph: GCNGraph, keep: torch.Tensor,
                 *, transform: bool = True) -> torch.Tensor:
@@ -93,7 +121,10 @@ class Encoder(nn.Module):
         """
         z = self.trans(x, act_final=True) if transform else x
         for i, layer in enumerate(self.gnn):
-            z = GCNAggregate.apply(graph, keep, layer(z).contiguous())
+            if self.gnn_model == "sage":
+                z = layer(z, graph, keep)
+            else:
+                z = GCNAggregate.apply(graph, keep, layer(z).contiguous())
             if i < len(self.gnn) - 1:
                 z = torch.relu(z)
         return z

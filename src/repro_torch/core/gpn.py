@@ -47,9 +47,15 @@ class GPN(nn.Module):
 
 
 def edge_scores(gpn: GPN, z: torch.Tensor, src: torch.Tensor,
-                dst: torch.Tensor) -> torch.Tensor:
-    """Eq. 7 per existing edge: σ(φ(z_src ⊙ z_dst)) → (B, E)."""
-    return torch.sigmoid(gpn.phi(z[:, src] * z[:, dst])[..., 0])
+                dst: torch.Tensor, *,
+                parse_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Eq. 7 per existing edge: σ(φ(z_src ⊙ z_dst)) → (B, E).
+
+    ``parse_keep`` (B, E) 0/1 is the parse dropout (``dropout_parsing``):
+    a dropped edge scores 0.
+    """
+    s = torch.sigmoid(gpn.phi(z[:, src] * z[:, dst])[..., 0])
+    return s if parse_keep is None else s * parse_keep
 
 
 def _dominant_edges(scores: torch.Tensor, src: torch.Tensor,
@@ -142,7 +148,9 @@ def parse_graph(scores: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
 
 def gpn_apply(gpn: GPN, z: torch.Tensor, src: torch.Tensor,
               dst: torch.Tensor, *,
-              labels: Optional[torch.Tensor] = None) -> ParseResult:
+              labels: Optional[torch.Tensor] = None,
+              parse_keep: Optional[torch.Tensor] = None) -> ParseResult:
     """Full §2.4 grouping step: scores (Eq. 7) then parse (Eq. 9–11)."""
-    return parse_graph(edge_scores(gpn, z, src, dst), src, dst, z,
-                       labels=labels)
+    return parse_graph(
+        edge_scores(gpn, z, src, dst, parse_keep=parse_keep), src, dst, z,
+        labels=labels)

@@ -1,6 +1,6 @@
 """HSDAG — the paper's framework end to end (§2, Fig. 1, Alg. 1), PyTorch.
 
-Port of ``repro/core/hsdag.py`` for the batched search and the greedy
+Port of ``repro/core/hsdag.py`` for the single-graph search and the
 decode::
 
     graph  = inception_v3()
@@ -13,9 +13,13 @@ Each episode samples one window of ``update_timestep`` steps for
 ``batch_chains`` parallel REINFORCE chains (encode → parse → place → state
 update), scores every placement of the window (in one launch of the level
 kernel for the ``scan`` and ``level`` backends, on the host for the
-``reference`` backend or a ``reward_fn``), and updates the policy with the
-exact Eq.-14 gradient of a replay of the same window.  Everything runs on
-``device`` (the card unless the caller passes ``device="cpu"``).
+``reference`` backend or a ``reward_fn``), and updates the policy
+``k_epochs`` times with the Eq.-14 gradient of a replay of the same window.
+``population=`` turns the chains into a PBT population
+(``core/train/population.py``).  The reference's one-placement-at-a-time
+loop (``engine="scalar"``) is the batched loop at one chain with a host
+reward, which follows the same trajectory.  Everything runs on ``device`` (the card
+unless the caller passes ``device="cpu"``).
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ from torch import nn
 from .._device import resolve_device
 from ..kernels.gcn_spmm import GCNGraph, gcn_graph
 from ..optim.adamw import Adam
-from .costmodel import Platform
+from .costmodel import Platform, simulate
 from .features import GraphArrays
 from .gnn import Encoder
 from .gpn import GPN, ParseResult, gpn_apply
@@ -41,6 +45,8 @@ from .reinforce import RunningBaseline, step_weights
 from .sim import backend_names
 from .sim.pipeline import RewardPipeline
 from .sim.rollout import ChainStreams, RolloutEngine
+from .train.population import (PopulationConfig, PopulationController,
+                               population_generator)
 
 __all__ = ["HSDAGConfig", "HSDAG", "HSDAGPolicy", "SearchResult",
            "StepOutput"]
@@ -48,9 +54,6 @@ __all__ = ["HSDAGConfig", "HSDAG", "HSDAGPolicy", "SearchResult",
 #: rollout loops; every other engine names a registered simulator backend,
 #: which runs the batched loop with that reward.
 _LOOP_ENGINES = ("auto", "scalar", "batched")
-#: the ROADMAP.md item that ports the scalar loop
-_SCALAR_ITEM = ("ROADMAP.md 'Modules to port' item 5 (the scalar reference "
-                "loop)")
 
 
 def reward_backend(engine: str) -> str:
@@ -129,14 +132,17 @@ def _check_ported(cfg: HSDAGConfig) -> None:
         raise NotImplementedError(
             "head='device' is not ported yet; ROADMAP.md 'Modules to port' "
             "item 7 (platforms) ports it")
-    if cfg.gnn_model != "gcn":
-        raise NotImplementedError(
-            f"gnn_model={cfg.gnn_model!r} is not ported yet; ROADMAP.md "
-            f"'Modules to port' item 4 (model) ports it")
-    if cfg.dropout_parsing != 0.0 or cfg.k_epochs != 1:
-        raise NotImplementedError(
-            "dropout_parsing > 0 and k_epochs > 1 are not ported yet; "
-            "ROADMAP.md 'Modules to port' item 5 (search) ports them")
+
+
+def _as_population(population) -> PopulationConfig:
+    """Accept a :class:`PopulationConfig` or its JSON (dict/str) form."""
+    if isinstance(population, PopulationConfig):
+        return population
+    if isinstance(population, (dict, str)):
+        return PopulationConfig.from_json(population)
+    raise TypeError(
+        f"population must be a PopulationConfig or its JSON form, "
+        f"got {type(population).__name__}")
 
 
 class StepOutput(NamedTuple):
@@ -158,10 +164,12 @@ class HSDAGPolicy(nn.Module):
     def __init__(self, d_in: int, hidden: int, num_devices: int, *,
                  layer_trans: int = 2, layer_gnn: int = 2,
                  layer_parsingnet: int = 2, policy_layers: int = 2,
+                 gnn_model: str = "gcn",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.enc = Encoder(d_in, hidden, layer_trans=layer_trans,
-                           layer_gnn=layer_gnn, generator=generator)
+                           layer_gnn=layer_gnn, gnn_model=gnn_model,
+                           generator=generator)
         self.gpn = GPN(hidden, layer_parsingnet=layer_parsingnet,
                        generator=generator)
         self.pol = DensePolicy(hidden, num_devices, layers=policy_layers,
@@ -171,17 +179,21 @@ class HSDAGPolicy(nn.Module):
              keep: torch.Tensor, *, first: bool, state_norm: bool = True,
              greedy: bool = False, gumbel: Optional[torch.Tensor] = None,
              labels: Optional[torch.Tensor] = None,
-             actions: Optional[torch.Tensor] = None) -> StepOutput:
+             actions: Optional[torch.Tensor] = None,
+             parse_keep: Optional[torch.Tensor] = None,
+             temperature: Optional[torch.Tensor] = None) -> StepOutput:
         """One Alg.-1 iteration for B chains: encode → parse → place → state
         update.  ``keep`` (B, E) is the edge-dropout mask (all ones when not
-        exploring); ``greedy``/``gumbel``/``actions`` pick the placement
-        (see ``policy_apply``); ``labels`` replays a recorded parse."""
+        exploring) and ``parse_keep`` (B, E) the parse dropout (none by
+        default); ``greedy``/``gumbel``/``actions`` pick the placement at
+        the per-chain ``temperature`` (see ``policy_apply``); ``labels``
+        replays a recorded parse."""
         z_enc = self.enc(x0 if first else z, graph, keep, transform=first)
         parse = gpn_apply(self.gpn, z_enc, graph.src, graph.dst,
-                          labels=labels)
+                          labels=labels, parse_keep=parse_keep)
         pol = policy_apply(self.pol, parse.pooled_z, parse.active,
                            parse.labels, greedy=greedy, gumbel=gumbel,
-                           actions=actions)
+                           actions=actions, temperature=temperature)
         # Alg. 1 line 10: Z_v ← Z_v + Z_{v'}.
         z_next = z_enc + torch.gather(
             parse.pooled_z, 1, parse.labels[..., None].expand_as(z_enc))
@@ -220,7 +232,8 @@ class HSDAG:
         self._set_policy(HSDAGPolicy(
             arrays.x.shape[1], cfg.hidden_channel, cfg.num_devices,
             layer_trans=cfg.layer_trans, layer_gnn=cfg.layer_gnn,
-            layer_parsingnet=cfg.layer_parsingnet, generator=gen))
+            layer_parsingnet=cfg.layer_parsingnet, gnn_model=cfg.gnn_model,
+            generator=gen))
         return self.policy
 
     def load_params(self, tree: Dict) -> HSDAGPolicy:
@@ -242,11 +255,14 @@ class HSDAG:
     def _graph(self, arrays: GraphArrays) -> GCNGraph:
         return gcn_graph(arrays.edges, arrays.num_nodes, self.device)
 
-    def rollout_engine(self, arrays: GraphArrays) -> RolloutEngine:
+    def rollout_engine(self, arrays: GraphArrays,
+                       population: Optional[PopulationConfig] = None
+                       ) -> RolloutEngine:
         """The window rollout/replay engine for one graph."""
         x0 = torch.as_tensor(arrays.x, device=self.device)
         return RolloutEngine(self.policy, self.cfg, x0=x0,
-                             graph=self._graph(arrays))
+                             graph=self._graph(arrays),
+                             population=population)
 
     # ---------------------------------------------------------------- search
     def search(self, graph: CompGraph, arrays: GraphArrays, *,
@@ -254,6 +270,7 @@ class HSDAG:
                reward_fn: Optional[Callable[[np.ndarray],
                                             Tuple[float, float]]] = None,
                engine: Optional[str] = None,
+               population=None,
                verbose: bool = False) -> SearchResult:
         """Run the RL search (Alg. 1) and return the best sampled placement.
 
@@ -261,10 +278,18 @@ class HSDAG:
         ``scan`` backend by default) or ``reward_fn`` (a host callable
         ``fn(placement) -> (reward, latency)``, called per placement).
         ``engine`` overrides ``cfg.engine``: ``"auto"`` and ``"batched"``
-        run the batched loop (``"auto"`` with ``batch_chains == 1`` and a
-        ``reward_fn`` is the reference's scalar loop, not ported, like
-        ``"scalar"``); a backend name (``"scan"``, ``"level"``,
-        ``"reference"``) runs the batched loop with that reward backend.
+        run the batched loop; ``"scalar"``, and ``"auto"`` with
+        ``batch_chains == 1`` and a ``reward_fn``, run the reference's
+        scalar loop, which is the batched loop at one chain scoring each
+        placement on the host (with ``simulate`` given a platform); a backend
+        name (``"scan"``, ``"level"``, ``"reference"``) runs the batched
+        loop with that reward backend.
+
+        ``population`` (a ``PopulationConfig`` or its JSON form) makes the
+        B chains a PBT population: each chain samples at its own
+        temperature, and every ``cull_every`` windows the worst chains are
+        re-seeded from the elites.  ``None`` leaves the batched loop as it
+        is without one, draw for draw.
         """
         cfg = self.cfg
         engine = _validate_engine(engine if engine is not None
@@ -287,33 +312,58 @@ class HSDAG:
             raise ValueError(
                 f"engine={engine!r} names a simulator backend but a host "
                 f"reward_fn was also given — pass exactly one reward source")
-        if engine == "scalar" or (engine == "auto" and cfg.batch_chains == 1
-                                  and platform is None):
-            # Where the reference runs its scalar loop.
-            raise NotImplementedError(
-                f"engine={engine!r} with batch_chains={cfg.batch_chains} and "
-                f"{'a platform' if platform is not None else 'a reward_fn'} "
-                f"runs the scalar loop, which is not ported to PyTorch yet; "
-                f"{_SCALAR_ITEM} ports it")
+        scalar = engine == "scalar" or (engine == "auto"
+                                        and cfg.batch_chains == 1
+                                        and platform is None)
+        if population is not None:
+            population = _as_population(population)
+            if scalar:
+                raise ValueError(
+                    "population search needs the batched multi-chain loop; "
+                    "engine='scalar' (and the batch_chains==1 auto-scalar "
+                    "path) has no chain population")
+        if scalar:
+            if cfg.batch_chains != 1:
+                raise ValueError("engine='scalar' requires batch_chains == 1")
+            if reward_fn is None:
+                def reward_fn(p, _g=graph, _plat=platform):
+                    r = simulate(_g, p, _plat)
+                    return r.reward, r.latency
         if reward_fn is not None:
             pipeline = RewardPipeline.from_reward_fn(
                 reward_fn, num_nodes=graph.num_nodes)
         else:
             pipeline = RewardPipeline.from_platform(
                 graph, platform, reward_backend(engine), device=self.device)
-        return self._search_batched(arrays, pipeline, verbose)
+        return self._search_batched(arrays, pipeline, verbose, population)
 
+    # ------------------------------------------------ batched multi-chain loop
     def _search_batched(self, arrays: GraphArrays, pipeline: RewardPipeline,
-                        verbose: bool) -> SearchResult:
-        """B parallel chains, each window scored by ``pipeline``."""
+                        verbose: bool,
+                        population: Optional[PopulationConfig] = None
+                        ) -> SearchResult:
+        """B parallel chains, each window scored by ``pipeline``; the order
+        of an episode is the reference's: roll out, score, fold the chain
+        bests, update ``k_epochs`` times at the temperatures the window
+        sampled at, then the PBT round, whose states start the next
+        window."""
         cfg = self.cfg
         nchains = max(1, cfg.batch_chains)
         t_start = time.perf_counter()
         if self.policy is None:
             self.init(arrays)
-        rollout = self.rollout_engine(arrays)
+        rollout = self.rollout_engine(arrays, population)
         streams = ChainStreams(cfg.seed, nchains, self.device)
         baseline = RunningBaseline() if cfg.use_baseline else None
+        # The population draws from its own generator, so the chain
+        # streams — and a search without one — are untouched.
+        controller = pop = None
+        if population is not None:
+            controller = PopulationController(population,
+                                              num_chains=nchains)
+            pop = rollout.init_population(
+                population_generator(cfg.seed, self.device),
+                num_chains=nchains)
 
         best_latency = float("inf")
         best_placement = np.zeros(arrays.num_nodes, dtype=np.int64)
@@ -327,9 +377,12 @@ class HSDAG:
             t_ep = time.perf_counter()
             z, record, fines, ngroups = rollout.rollout_window(
                 z0_window, num_steps=tsteps, start_first=first_of_window,
-                streams=streams)
+                streams=streams,
+                temperature=pop.temperature if pop is not None else None)
             rewards, latencies = pipeline.score_window(fines)
             fines_np = fines.cpu().numpy()
+            if pop is not None:
+                pop = rollout.update_population(pop, fines, latencies)
 
             # Bookkeeping in (t, b) order — the reference's order (EMA
             # baseline order and strict-< best tie-breaks matter).
@@ -348,16 +401,34 @@ class HSDAG:
                 baseline=(baseline.value if baseline is not None else None),
                 normalize=cfg.normalize_weights)
             weights = torch.as_tensor(weights_bt.T.copy(), device=self.device)
-            self.apply_grads(rollout.window_grads(
-                z0_window, record, weights, start_first=first_of_window))
+            for epoch in range(max(1, cfg.k_epochs)):
+                # Epochs ≥ 2 replay the window's draws under the updated
+                # weights, as the reference replays its keys.
+                self.apply_grads(rollout.window_grads(
+                    z0_window, record, weights, start_first=first_of_window,
+                    rederive=epoch > 0))
+            pop_stats: Dict = {}
+            if controller is not None:
+                # After the update (the replay must see the temperatures
+                # this window sampled at); new states and temperatures
+                # take effect next window.
+                due, use_greedy = controller.note_window()
+                if due:
+                    pop, z = rollout.pbt_step(pop, z, use_greedy=use_greedy)
+                pop_stats = {
+                    "culled": bool(due),
+                    "pop_best_latency": float(pop.best_latency.min()),
+                    "temp_mean": float(pop.temperature.mean()),
+                }
             z0_window = z
             first_of_window = False
             history.append({
                 "episode": episode,
                 "mean_reward": float(np.mean(rewards)),
                 "best_latency": best_latency,
-                "mean_groups": float(ngroups.float().mean()),
+                "mean_groups": float(ngroups.double().mean()),
                 "wall_s": time.perf_counter() - t_ep,
+                **pop_stats,
             })
             if verbose:
                 h = history[-1]
@@ -372,15 +443,25 @@ class HSDAG:
                             n_evals / max(wall, 1e-9), chain_best)
 
     # ------------------------------------------------------------- inference
-    def place(self, arrays: GraphArrays) -> np.ndarray:
-        """One greedy forward placement with the current policy → (V,)."""
+    def place(self, arrays: GraphArrays,
+              generator: Optional[torch.Generator] = None,
+              greedy: bool = True) -> np.ndarray:
+        """One forward placement with the current policy → (V,).
+
+        ``greedy`` decodes the most likely placement without dropout;
+        ``greedy=False`` samples one, its edge and parse dropout and Gumbel
+        noise drawn from ``generator`` (default: a generator on the agent's
+        device seeded 0).
+        """
         if self.policy is None:
             raise RuntimeError("call init(), load_params() or search() first")
-        x0 = torch.as_tensor(arrays.x, device=self.device)[None]
-        graph = self._graph(arrays)
-        keep = torch.ones(1, graph.num_edges, device=self.device)
-        with torch.no_grad():
-            out = self.policy.step(x0, x0, graph, keep, first=True,
-                                   state_norm=self.cfg.state_norm,
-                                   greedy=True)
-        return out.policy.fine_placement[0].cpu().numpy()
+        rollout = self.rollout_engine(arrays)
+        streams = None
+        if not greedy:
+            if generator is None:
+                generator = torch.Generator(device=self.device).manual_seed(0)
+            streams = ChainStreams.of([generator])
+        _, _, fines, _ = rollout.rollout_window(
+            rollout.x0[None], num_steps=1, start_first=True,
+            streams=streams, greedy=greedy)
+        return fines[0, 0].cpu().numpy()

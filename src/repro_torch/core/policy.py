@@ -6,9 +6,10 @@ maps back to the original graph through the cluster labels.  Batched over a
 leading chain axis B.
 
 Sampling draws nothing itself: a categorical sample is
-``argmax(logits + gumbel)``, and the caller passes the Gumbel noise, so a
-test can feed the reference's draws and a replay can pass the actions it
-sampled.
+``argmax(logits / T + gumbel)``, and the caller passes the Gumbel noise, so
+a test can feed the reference's draws and a replay can pass the actions it
+sampled.  ``T`` is the per-chain temperature population search threads in
+(none by default).
 """
 from __future__ import annotations
 
@@ -43,15 +44,25 @@ def policy_apply(policy: DensePolicy, pooled_z: torch.Tensor,
                  active: torch.Tensor, labels: torch.Tensor, *,
                  greedy: bool = False,
                  gumbel: Optional[torch.Tensor] = None,
-                 actions: Optional[torch.Tensor] = None) -> PolicyOutput:
+                 actions: Optional[torch.Tensor] = None,
+                 temperature: Optional[torch.Tensor] = None) -> PolicyOutput:
     """Place every active cluster slot and map the slots to nodes.
 
     Exactly one of ``greedy``, ``gumbel`` (B, V, |D|) noise to sample with,
     or ``actions`` (B, V) coarse placements to score (the Eq.-14 replay)
-    picks the coarse placement.
+    picks the coarse placement.  ``temperature`` (B,) divides the logits
+    first, so ``logp`` and ``entropy`` follow the tempered distribution.
+
+    The log-probabilities come from ``log_softmax``, which shifts by the
+    row's maximum: ``logits - logsumexp(logits)`` would differentiate
+    through ``exp(logits - lse)``, whose rounding at the logits' magnitude
+    swamps ``1 - p`` of a slot that is nearly certain of its device, and
+    with it the slot's gradient.
     """
     logits = policy.mlp(pooled_z)
-    logp_full = logits - torch.logsumexp(logits, dim=-1, keepdim=True)
+    if temperature is not None:
+        logits = logits / temperature[:, None, None]
+    logp_full = torch.log_softmax(logits, dim=-1)
     if actions is not None:
         coarse = actions
     elif greedy:

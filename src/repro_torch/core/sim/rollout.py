@@ -1,14 +1,21 @@
 """Window rollout and its Eq.-14 replay for B chains on one graph.
 
-Port of ``repro/core/sim/rollout.py::RolloutEngine.rollout_window`` /
-``window_grads`` at G=1.  The reference samples with per-step PRNG keys and
-replays the window differentiably from the same keys.  Here the sampling
-pass runs under ``torch.no_grad()`` and records what the replay needs to
-retrace the identical window: each step's edge keep-masks, its cluster
-labels and its sampled coarse actions.  The replay re-runs the T steps with
-autograd on exactly those draws; with the same parameters it computes the
-same labels and scores the same actions, so the gradient is the reference's
-Eq. 14 including the GPN's straight-through gates.
+Port of ``repro/core/sim/rollout.py::RolloutEngine`` at G=1: the window
+rollout (sampled or greedy) and replay, and the population methods.  The reference samples with per-step PRNG keys and replays the
+window differentiably from the same keys.  Here the sampling pass runs under
+``torch.no_grad()`` and records what the replay needs to retrace the
+identical window: each step's edge keep-masks, parse-dropout keeps, Gumbel
+noise and temperatures, and the cluster labels and coarse actions it
+decided.
+
+The first replay of a window (``rederive=False``) re-runs the T steps with
+autograd on the recorded labels and actions; with the sampling parameters it
+computes the same labels and scores the same actions, so the gradient is the
+reference's Eq. 14 including the GPN's straight-through gates.  A later
+epoch of a ``k_epochs > 1`` update (``rederive=True``) replays the recorded
+draws under the updated weights and derives the labels and actions anew,
+as the reference does when it replays the same keys with new parameters: the
+actions it scores may differ from the ones that were rewarded.
 
 Random draws come from :class:`ChainStreams` (one ``torch.Generator`` per
 chain) or are injected whole as a :class:`WindowNoise` — the tests feed the
@@ -16,12 +23,14 @@ reference's own masks and Gumbel noise that way.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..._device import seeded_generator
 from ...kernels.gcn_spmm import GCNGraph
+from ..train import population as popmod
 
 __all__ = ["ChainStreams", "WindowNoise", "WindowRecord", "RolloutEngine"]
 
@@ -31,6 +40,7 @@ class WindowNoise(NamedTuple):
 
     keep: torch.Tensor     # (T, B, E) 0/1 — edge dropout keep-mask
     gumbel: torch.Tensor   # (T, B, V, D) — Gumbel noise of the action sample
+    parse_keep: Optional[torch.Tensor] = None   # (T, B, E) 0/1 parse dropout
 
 
 class WindowRecord(NamedTuple):
@@ -39,6 +49,9 @@ class WindowRecord(NamedTuple):
     keep: torch.Tensor     # (T, B, E) f32
     labels: torch.Tensor   # (T, B, V) i64
     actions: torch.Tensor  # (T, B, V) i64 — coarse placement per slot
+    gumbel: torch.Tensor   # (T, B, V, D) f32
+    parse_keep: Optional[torch.Tensor] = None    # (T, B, E) f32
+    temperature: Optional[torch.Tensor] = None   # (B,) f32, the window's
 
 
 class ChainStreams:
@@ -49,13 +62,17 @@ class ChainStreams:
     """
 
     def __init__(self, seed: int, num_chains: int, device):
-        self.generators = []
-        for b in range(num_chains):
-            state = np.random.SeedSequence([seed, b]).generate_state(2)
-            g = torch.Generator(device=device)
-            g.manual_seed(int(state[0]) << 32 | int(state[1]))
-            self.generators.append(g)
+        self.generators = [seeded_generator([seed, b], device)
+                           for b in range(num_chains)]
         self.device = torch.device(device)
+
+    @classmethod
+    def of(cls, generators: Sequence[torch.Generator]) -> "ChainStreams":
+        """Streams over given generators, one a chain (all on one device)."""
+        self = cls.__new__(cls)
+        self.generators = list(generators)
+        self.device = self.generators[0].device
+        return self
 
     def draw(self, num_edges: int, num_nodes: int, num_devices: int,
              edge_dropout: float):
@@ -72,75 +89,125 @@ class ChainStreams:
             gumbel.append(-torch.log(-torch.log(ug)))
         return torch.stack(keep), torch.stack(gumbel)
 
+    def draw_parse_keep(self, num_edges: int,
+                        parse_dropout: float) -> torch.Tensor:
+        """→ the parse-dropout keep (B, E) f32 0/1, P(keep) = 1 −
+        parse_dropout.  A step draws it after :meth:`draw`, and only when
+        ``dropout_parsing > 0``, so the default config's streams are what
+        they were without it."""
+        return torch.stack([
+            (torch.rand(num_edges, generator=g, device=self.device)
+             < 1.0 - parse_dropout).float() for g in self.generators])
+
+    def step(self, cfg, num_edges: int, num_nodes: int):
+        """One step's draws for ``cfg`` → (keep, gumbel, parse_keep or
+        None)."""
+        keep, gumbel = self.draw(num_edges, num_nodes, cfg.num_devices,
+                                 cfg.dropout_network)
+        parse_keep = (self.draw_parse_keep(num_edges, cfg.dropout_parsing)
+                      if cfg.dropout_parsing > 0 else None)
+        return keep, gumbel, parse_keep
+
 
 class RolloutEngine:
     """Samples and replays rollout windows of one graph for B chains.
 
     ``policy`` is the port's ``HSDAGPolicy``; its ``step`` is one Alg.-1
     iteration.  ``x0`` (V, d) holds the graph's initial features.
+    ``population`` (a ``PopulationConfig``) enables the population methods.
     """
 
-    def __init__(self, policy, cfg, *, x0: torch.Tensor, graph: GCNGraph):
+    def __init__(self, policy, cfg, *, x0: torch.Tensor, graph: GCNGraph,
+                 population=None):
         self.policy = policy
         self.cfg = cfg
         self.x0 = x0
         self.graph = graph
+        self.population = population
 
     def _x0(self, num_chains: int) -> torch.Tensor:
         return self.x0.expand(num_chains, *self.x0.shape)
 
+    def _draws(self, t: int, num_chains: int,
+               streams: Optional[ChainStreams],
+               noise: Optional[WindowNoise]):
+        """Step t's (keep, gumbel, parse_keep): all-ones keep and no noise
+        for a greedy decode (neither source given), else from ``noise`` or
+        ``streams``."""
+        V, E = self.graph.num_nodes, self.graph.num_edges
+        if noise is not None:
+            return (noise.keep[t].float(), noise.gumbel[t],
+                    None if noise.parse_keep is None
+                    else noise.parse_keep[t].float())
+        if streams is not None:
+            return streams.step(self.cfg, E, V)
+        return torch.ones(num_chains, E, device=self.x0.device), None, None
+
     def rollout_window(self, z: torch.Tensor, *, num_steps: int,
                        start_first: bool,
                        streams: Optional[ChainStreams] = None,
-                       noise: Optional[WindowNoise] = None):
-        """Sample ``num_steps`` steps of every chain from state z (B, V, ·).
+                       noise: Optional[WindowNoise] = None,
+                       temperature: Optional[torch.Tensor] = None,
+                       greedy: bool = False):
+        """Sample ``num_steps`` steps of every chain from state z (B, V, ·),
+        at the per-chain ``temperature`` (B,) when given; ``greedy`` decodes
+        without dropout or noise instead.  The draws come from ``streams``
+        or are injected whole as ``noise``.
 
         → (z_final, record, fines (T, B, V) i64, ngroups (T, B) i64).
         """
-        if (streams is None) == (noise is None):
-            raise ValueError("pass exactly one of streams= or noise=")
+        if (streams is not None) + (noise is not None) != (not greedy):
+            raise ValueError("pass exactly one of streams= or noise=, or "
+                             "neither with greedy=True")
         B = z.shape[0]
-        V, E = self.graph.num_nodes, self.graph.num_edges
         x0 = self._x0(B)
-        keeps, labels, actions, fines, ngroups = [], [], [], [], []
+        rows = []
+        fines, ngroups = [], []
         with torch.no_grad():
             for t in range(num_steps):
-                if noise is not None:
-                    keep, gumbel = noise.keep[t].float(), noise.gumbel[t]
-                else:
-                    keep, gumbel = streams.draw(
-                        E, V, self.cfg.num_devices, self.cfg.dropout_network)
+                keep, gumbel, parse_keep = self._draws(t, B, streams, noise)
                 out = self.policy.step(z, x0, self.graph, keep,
                                        first=start_first and t == 0,
                                        state_norm=self.cfg.state_norm,
-                                       gumbel=gumbel)
-                keeps.append(keep)
-                labels.append(out.parse.labels)
-                actions.append(out.policy.coarse_placement)
+                                       greedy=greedy, gumbel=gumbel,
+                                       parse_keep=parse_keep,
+                                       temperature=temperature)
+                rows.append((keep, out.parse.labels,
+                             out.policy.coarse_placement, gumbel,
+                             parse_keep))
                 fines.append(out.policy.fine_placement)
                 ngroups.append(out.parse.num_groups)
                 z = out.z_next
-        record = WindowRecord(torch.stack(keeps), torch.stack(labels),
-                              torch.stack(actions))
+        cols = [None if col[0] is None else torch.stack(col)
+                for col in zip(*rows)]
+        record = WindowRecord(*cols, temperature=temperature)
         return z, record, torch.stack(fines), torch.stack(ngroups)
 
     def window_grads(self, z0: torch.Tensor, record: WindowRecord,
-                     weights: torch.Tensor, *,
-                     start_first: bool) -> List[torch.Tensor]:
+                     weights: torch.Tensor, *, start_first: bool,
+                     rederive: bool = False) -> List[torch.Tensor]:
         """∇θ of the Eq.-14 loss over the recorded window, averaged over the
-        B chains; ``weights`` (T, B).  → one gradient per policy parameter,
-        in ``policy.parameters()`` order."""
+        B chains; ``weights`` (T, B).  ``rederive`` replays the recorded
+        draws and derives the labels and actions under the current weights
+        (epochs ≥ 2 of a ``k_epochs`` update) instead of scoring the
+        recorded ones.  → one gradient per policy parameter, in
+        ``policy.parameters()`` order."""
         B = z0.shape[0]
         x0 = self._x0(B)
         params = list(self.policy.parameters())
         total = torch.zeros((), device=z0.device)
         z = z0
         for t in range(record.keep.shape[0]):
-            out = self.policy.step(z, x0, self.graph, record.keep[t],
-                                   first=start_first and t == 0,
-                                   state_norm=self.cfg.state_norm,
-                                   labels=record.labels[t],
-                                   actions=record.actions[t])
+            chosen = ({"gumbel": record.gumbel[t]} if rederive else
+                      {"labels": record.labels[t],
+                       "actions": record.actions[t]})
+            out = self.policy.step(
+                z, x0, self.graph, record.keep[t],
+                first=start_first and t == 0,
+                state_norm=self.cfg.state_norm,
+                parse_keep=(None if record.parse_keep is None
+                            else record.parse_keep[t]),
+                temperature=record.temperature, **chosen)
             loss = -out.policy.logp * weights[t] \
                 - self.cfg.entropy_coef * out.policy.entropy
             total = total + loss.sum()
@@ -149,3 +216,62 @@ class RolloutEngine:
         # An edge-free graph leaves φ out of the loss: its gradient is 0.
         return [torch.zeros_like(p) if g is None else g
                 for p, g in zip(params, grads)]
+
+    # ------------------------------------------------------- population API
+    def init_population(self, generator: torch.Generator, *,
+                        num_chains: int,
+                        temperatures=None) -> popmod.ChainState:
+        """Fresh population state for ``num_chains`` chains; its draws
+        (initial temperatures, then every PBT round) come from
+        ``generator``."""
+        return popmod.init_chain_state(
+            self._population_cfg(), generator, num_chains=num_chains,
+            num_nodes=self.graph.num_nodes, temperatures=temperatures)
+
+    def update_population(self, pop: popmod.ChainState, fines: torch.Tensor,
+                          latencies) -> popmod.ChainState:
+        """Fold a window's (T, B, V) placements and (T, B) latencies into
+        the chain-best records."""
+        lat = torch.as_tensor(np.asarray(latencies), dtype=torch.float32,
+                              device=fines.device)
+        return popmod.update_chain_bests(pop, fines, lat)
+
+    def greedy_state(self) -> torch.Tensor:
+        """The state after one greedy decode of the graph → (V, d): what a
+        greedy restart re-seeds culled chains from."""
+        return self.rollout_window(self.x0[None], num_steps=1,
+                                   start_first=True, greedy=True)[0][0]
+
+    def pbt_step(self, pop: popmod.ChainState, z: torch.Tensor, *,
+                 use_greedy: bool = False,
+                 draws: Optional[popmod.PBTDraws] = None):
+        """One PBT round (cull + exchange [+ greedy restart]) → (pop, z).
+
+        Culled chains take the best chain's state ``z[jstar]`` (or the
+        greedy decode's) and new temperatures; culled and exchanged chains
+        inherit the best record.  ``draws`` (one row) replaces the draws
+        from ``pop.rng``.
+        """
+        cfg = self._population_cfg()
+        if draws is None:
+            draws = popmod.draw_pbt(cfg, pop.rng, 1, z.shape[0])
+        culled, inherit, new_temp, jstar = popmod.pbt_rows(
+            cfg, draws, pop.best_latency[None], pop.temperature[None])
+        culled, inherit, new_temp = culled[0], inherit[0], new_temp[0]
+        j = jstar[0]
+        z_src = self.greedy_state() if use_greedy else z[j]
+        new_z = torch.where(culled[:, None, None], z_src[None], z)
+        new_pop = pop._replace(
+            temperature=new_temp,
+            best_latency=torch.where(inherit, pop.best_latency[j],
+                                     pop.best_latency),
+            best_fine=torch.where(inherit[:, None], pop.best_fine[j][None],
+                                  pop.best_fine))
+        return new_pop, new_z
+
+    def _population_cfg(self):
+        if self.population is None:
+            raise ValueError(
+                "population path requested but the engine was built "
+                "without population= (pass a PopulationConfig)")
+        return self.population

@@ -40,6 +40,9 @@
 // normalised operator is symmetric, so the gradient with respect to h is
 // this same kernel applied to the output gradient.
 //
+// The same source holds the GraphSAGE mean aggregation (sage_aggregate_f32,
+// at the end of the file), which walks the same CSR with the same keep mask.
+//
 // Arithmetic is rounded like the plain PyTorch version (gcn_aggregate_ref):
 // no fused multiply-add, degrees and neighbours summed in CSR order (edges
 // where i is the source, then edges where i is the destination, each in edge
@@ -246,4 +249,109 @@ extern "C" int gcn_aggregate_f32(const void* rowptr, const void* csr,
                                  s)
               : launch<8, 8, 1>(rowptr, csr, eid, keep, h, out, B, V, E, F,
                                 s);
+}
+
+// ---------------------------------------------------------------------------
+// GraphSAGE mean aggregation over the same CSR and keep mask.
+//
+// Not a port of a Pallas kernel: the reference encoder computes it as a dense
+// product, ((A + Aᵀ) @ z) / deg with A the edge-dropped adjacency and
+// deg = max(in + out degree, 1) (src/repro/core/gnn.py:119-122).  Here every
+// chain has its own keep mask, so the operator would be a (B, V, V) batched
+// product of ~99.8% zeros; this walks the symmetrised neighbour lists:
+//
+//   deg[b,i] = max(Σ_{k ∈ row i} keep[b, eid[k]], 1)       (no self loop)
+//   post:  out[b,i,:] = (Σ_{k ∈ row i} keep[b,e_k] · h[b,j_k,:]) / deg[b,i]
+//   pre:   out[b,i,:] =  Σ_{k ∈ row i} (keep[b,e_k] / deg[b,j_k]) · h[b,j_k,:]
+//
+// "post" is the forward.  The operator D⁻¹S (S symmetric) is not, so its
+// transpose S D⁻¹ is "pre": the backward applies it to the output gradient.
+//
+// A simple kernel: one warp a row (chain b, node i), the lanes across the
+// features, four a lane per 128-feature pass; every lane walks the row's
+// entries (their loads are broadcasts).  Sums run in CSR order, products and
+// sums rounded separately (no fused multiply-add).
+namespace {
+
+constexpr int kSageWarpsPerBlock = 8;
+constexpr int kSagePerLane = 4;
+
+// max(Σ keep over the edges eid[lo..hi), 1)
+__device__ __forceinline__ float sage_degree(const int32_t* __restrict__ eid,
+                                             const float* __restrict__ kb,
+                                             int lo, int hi) {
+  float deg = 0.f;
+  for (int m = lo; m < hi; ++m) deg = __fadd_rn(deg, kb[eid[m]]);
+  return fmaxf(deg, 1.f);
+}
+
+__global__ void __launch_bounds__(kSageWarpsPerBlock * kWarp)
+sage_aggregate_kernel(const int32_t* __restrict__ rowptr,
+                      const int4* __restrict__ csr,     // (2E,) j, e, lo_j, hi_j
+                      const int32_t* __restrict__ eid,  // (2E,)
+                      const float* __restrict__ keep,   // (B, E)
+                      const float* __restrict__ h,      // (B, V, F)
+                      float* __restrict__ out,          // (B, V, F)
+                      int B, int V, int E, int F, int prescale) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * kSageWarpsPerBlock +
+      threadIdx.x / kWarp;
+  if (row >= static_cast<long long>(B) * V) return;   // whole warps
+  const int lane = threadIdx.x % kWarp;
+  const int b = static_cast<int>(row / V);
+  const int i = static_cast<int>(row - static_cast<long long>(b) * V);
+  const float* kb = keep + static_cast<size_t>(b) * E;
+  const size_t vf = static_cast<size_t>(V) * F;
+  const float* hb = h + b * vf;
+  float* orow = out + b * vf + static_cast<size_t>(i) * F;
+  const int lo = rowptr[i];
+  const int hi = rowptr[i + 1];
+  const float deg_i = prescale ? 1.f : sage_degree(eid, kb, lo, hi);
+
+  for (int f0 = 0; f0 < F; f0 += kWarp * kSagePerLane) {
+    float acc[kSagePerLane];
+#pragma unroll
+    for (int u = 0; u < kSagePerLane; ++u) acc[u] = 0.f;
+    for (int k = lo; k < hi; ++k) {
+      const int4 en = csr[k];
+      float c = kb[en.y];
+      if (prescale) c = __fdiv_rn(c, sage_degree(eid, kb, en.z, en.w));
+      const float* hj = hb + static_cast<size_t>(en.x) * F;
+#pragma unroll
+      for (int u = 0; u < kSagePerLane; ++u) {
+        const int f = f0 + u * kWarp + lane;
+        if (f < F) acc[u] = __fadd_rn(acc[u], __fmul_rn(c, hj[f]));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kSagePerLane; ++u) {
+      const int f = f0 + u * kWarp + lane;
+      if (f < F) orow[f] = prescale ? acc[u] : __fdiv_rn(acc[u], deg_i);
+    }
+  }
+}
+
+}  // namespace
+
+// One launch on `stream`: prescale = 0 is the forward (the sum over a row
+// divided by the row's degree), prescale = 1 its transpose (each neighbour's
+// term divided by the neighbour's degree).  B·V must fit an int.  Allocates
+// nothing; returns the launch's cudaError_t (0 on success).
+extern "C" int sage_aggregate_f32(const void* rowptr, const void* csr,
+                                  const void* eid, const void* keep,
+                                  const void* h, void* out, int B, int V,
+                                  int E, int F, int prescale, void* stream) {
+  if (reinterpret_cast<uintptr_t>(csr) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long rows = static_cast<long long>(B) * V;
+  const int blocks = static_cast<int>(
+      (rows + kSageWarpsPerBlock - 1) / kSageWarpsPerBlock);
+  sage_aggregate_kernel<<<blocks, kSageWarpsPerBlock * kWarp, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(rowptr), static_cast<const int4*>(csr),
+      static_cast<const int32_t*>(eid), static_cast<const float*>(keep),
+      static_cast<const float*>(h), static_cast<float*>(out), B, V, E, F,
+      prescale);
+  return static_cast<int>(cudaGetLastError());
 }

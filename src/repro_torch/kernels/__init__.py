@@ -5,8 +5,9 @@ first time a wrapper is called on CUDA tensors (see ``_build.py``).
 """
 from .flash_attention import (flash_attention, flash_attention_ref,
                               flash_pairs, flash_tile_plan)
-from .gcn_spmm import (GCNAggregate, GCNGraph, gcn_aggregate,
-                       gcn_aggregate_ref, gcn_graph)
+from .gcn_spmm import (GCNAggregate, GCNGraph, SageAggregate, gcn_aggregate,
+                       gcn_aggregate_ref, gcn_graph, sage_aggregate,
+                       sage_aggregate_ref)
 from .levelsim import (LevelArrays, LevelTensors, build_chain_arrays,
                        build_level_arrays, level_makespan, level_makespan_ref,
                        level_tensors)
@@ -14,7 +15,8 @@ from .rmsnorm import rmsnorm, rmsnorm_launch_plan, rmsnorm_ref
 from .ssd_scan import ssd_scan, ssd_scan_ref
 
 __all__ = ["GCNAggregate", "GCNGraph", "gcn_aggregate", "gcn_aggregate_ref",
-           "gcn_graph", "LevelArrays", "LevelTensors", "build_chain_arrays",
+           "gcn_graph", "SageAggregate", "sage_aggregate",
+           "sage_aggregate_ref", "LevelArrays", "LevelTensors", "build_chain_arrays",
            "build_level_arrays",
            "level_makespan", "level_makespan_ref", "level_tensors",
            "flash_attention", "flash_attention_ref", "flash_pairs",

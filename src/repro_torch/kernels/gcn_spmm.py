@@ -16,6 +16,15 @@ tensors and runs the plain PyTorch version ``gcn_aggregate_ref`` on CPU
 tensors.  ``GCNAggregate`` is its autograd function: the operator is
 symmetric, so the gradient with respect to ``h`` is the same kernel applied
 to the output gradient with the same keep mask.
+
+The same source holds the GraphSAGE encoder's mean aggregation,
+``sage_aggregate`` (``SageAggregate`` with its gradient):
+
+    out[b, i] = Σ_{e ∈ N(i)} keep_b(e) · h[b, j] / max(deg_b(i), 1),
+
+over in- and out-neighbours, with no self loop.  The reference computes it
+as the dense ``((A + Aᵀ) @ z) / deg`` outside any Pallas kernel; its plain
+version here, ``sage_aggregate_ref``, is that dense formula per chain.
 """
 from __future__ import annotations
 
@@ -27,7 +36,8 @@ import numpy as np
 import torch
 
 __all__ = ["GCNGraph", "gcn_graph", "gcn_aggregate_ref", "gcn_aggregate",
-           "GCNAggregate"]
+           "GCNAggregate", "sage_aggregate_ref", "sage_aggregate",
+           "SageAggregate"]
 
 
 @dataclass(frozen=True, eq=False)
@@ -135,13 +145,41 @@ def gcn_aggregate_ref(graph: GCNGraph, keep: torch.Tensor,
 
 
 @functools.cache
-def _lib():
+def _lib(entry: str = "gcn_aggregate_f32"):
     from ._build import library
-    fn = library("gcn_spmm").gcn_aggregate_f32
+    fn = getattr(library("gcn_spmm"), entry)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
     return fn
+
+
+def _check_cuda_operands(what: str, graph: GCNGraph, keep: torch.Tensor,
+                         h: torch.Tensor) -> None:
+    """A launch's own operands against the graph (whose tensors were checked
+    when it was built)."""
+    if not h.is_cuda:
+        raise ValueError(f"{what} takes CPU or CUDA tensors; got {h.device}")
+    if h.ndim != 3 or h.dtype != torch.float32 or not h.is_contiguous():
+        raise ValueError(f"{what}: h must be a contiguous (B, V, F) float32 "
+                         f"tensor; got {h.dtype} {tuple(h.shape)}")
+    B, V, F = h.shape
+    E = graph.num_edges
+    dev = h.get_device()
+    if V != graph.num_nodes or not graph.rowptr.is_cuda \
+            or graph.rowptr.get_device() != dev:
+        raise ValueError(f"{what}: h has {V} nodes on {h.device}, the graph "
+                         f"{graph.num_nodes} on {graph.device}")
+    if not keep.is_cuda or keep.get_device() != dev \
+            or keep.dtype != torch.float32 or keep.shape != (B, E) \
+            or not keep.is_contiguous():
+        raise ValueError(
+            f"{what}: keep must be a contiguous float32 tensor of shape "
+            f"{(B, E)} on {h.device}; got {keep.dtype} {tuple(keep.shape)} "
+            f"on {keep.device}")
+    if B * V >= 2 ** 31 or F >= 2 ** 31:
+        raise ValueError(f"{what}: B·V = {B * V} and F = {F} must each fit "
+                         f"the kernel's int32")
 
 
 def gcn_aggregate(graph: GCNGraph, keep: torch.Tensor,
@@ -155,29 +193,10 @@ def gcn_aggregate(graph: GCNGraph, keep: torch.Tensor,
     """
     if h.is_cpu:
         return gcn_aggregate_ref(graph, keep, h)
-    if not h.is_cuda:
-        raise ValueError(f"gcn_aggregate takes CPU or CUDA tensors; got "
-                         f"{h.device}")
-    if h.ndim != 3 or h.dtype != torch.float32 or not h.is_contiguous():
-        raise ValueError(f"gcn_aggregate: h must be a contiguous (B, V, F) "
-                         f"float32 tensor; got {h.dtype} {tuple(h.shape)}")
+    _check_cuda_operands("gcn_aggregate", graph, keep, h)
     B, V, F = h.shape
     E = graph.num_edges
     dev = h.get_device()
-    if V != graph.num_nodes or not graph.rowptr.is_cuda \
-            or graph.rowptr.get_device() != dev:
-        raise ValueError(f"gcn_aggregate: h has {V} nodes on {h.device}, "
-                         f"the graph {graph.num_nodes} on {graph.device}")
-    if not keep.is_cuda or keep.get_device() != dev \
-            or keep.dtype != torch.float32 or keep.shape != (B, E) \
-            or not keep.is_contiguous():
-        raise ValueError(
-            f"gcn_aggregate: keep must be a contiguous float32 tensor of "
-            f"shape {(B, E)} on {h.device}; got {keep.dtype} "
-            f"{tuple(keep.shape)} on {keep.device}")
-    if B * V >= 2 ** 31 or F >= 2 ** 31:
-        raise ValueError(f"gcn_aggregate: B·V = {B * V} and F = {F} must "
-                         f"each fit the kernel's int32")
     out = torch.empty_like(h)
     if out.numel() == 0:
         return out
@@ -221,3 +240,73 @@ class GCNAggregate(torch.autograd.Function):
         (keep,) = ctx.saved_tensors
         return None, None, gcn_aggregate(ctx.graph, keep,
                                          grad_out.contiguous())
+
+
+def sage_aggregate_ref(graph: GCNGraph, keep: torch.Tensor, h: torch.Tensor,
+                       *, prescale: bool = False) -> torch.Tensor:
+    """Plain PyTorch version, the reference's dense formula per chain:
+    S_b = A⊙keep_b + (A⊙keep_b)ᵀ, deg_b = max(S_b·1, 1), and
+    ``(S_b @ h_b) / deg_b`` — or, with ``prescale``, its transpose
+    ``S_b @ (h_b / deg_b)``.  keep (B, E), h (B, V, F) → (B, V, F)."""
+    B, V = h.shape[0], h.shape[1]
+    adj = torch.zeros(B, V, V, dtype=h.dtype, device=h.device)
+    bidx = torch.arange(B, device=h.device)[:, None]
+    adj[bidx, graph.src[None], graph.dst[None]] = keep.to(h.dtype)
+    deg = torch.clamp(adj.sum(1) + adj.sum(2), min=1.0)[..., None]
+    sym = adj + adj.transpose(1, 2)
+    if prescale:
+        return torch.bmm(sym, h / deg)
+    return torch.bmm(sym, h) / deg
+
+
+def sage_aggregate(graph: GCNGraph, keep: torch.Tensor, h: torch.Tensor, *,
+                   prescale: bool = False) -> torch.Tensor:
+    """keep (B, E) 0/1 f32, h (B, V, F) f32 → (B, V, F): the mean over each
+    node's kept in- and out-neighbours (``prescale``: the transpose).
+
+    CUDA tensors launch the ``sage_aggregate_f32`` entry of
+    ``csrc/gcn_spmm.cu``; CPU tensors take ``sage_aggregate_ref``.
+    """
+    if h.is_cpu:
+        return sage_aggregate_ref(graph, keep, h, prescale=prescale)
+    _check_cuda_operands("sage_aggregate", graph, keep, h)
+    B, V, F = h.shape
+    out = torch.empty_like(h)
+    if out.numel() == 0:
+        return out
+    err = _lib("sage_aggregate_f32")(
+        graph.rowptr.data_ptr(), graph.csr.data_ptr(), graph.eid.data_ptr(),
+        keep.data_ptr(), h.data_ptr(), out.data_ptr(), B, V,
+        graph.num_edges, F, int(prescale),
+        torch._C._cuda_getCurrentRawStream(h.get_device()))
+    if err != 0:
+        raise RuntimeError(f"sage_aggregate kernel launch failed: CUDA "
+                           f"error {err}")
+    sage_aggregate.launches += 1
+    return out
+
+
+sage_aggregate.launches = 0
+
+
+class SageAggregate(torch.autograd.Function):
+    """``sage_aggregate`` with its gradient with respect to ``h``.
+
+    The forward is D⁻¹S h with S symmetric; its transpose S D⁻¹ is the same
+    kernel with the degree applied to each neighbour's term instead of the
+    row's sum.  ``graph`` and ``keep`` take no gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, graph: GCNGraph, keep: torch.Tensor,
+                h: torch.Tensor) -> torch.Tensor:
+        ctx.graph = graph
+        ctx.save_for_backward(keep)
+        return sage_aggregate(graph, keep, h)
+
+    @staticmethod
+    def backward(ctx, grad_out: torch.Tensor):
+        (keep,) = ctx.saved_tensors
+        return None, None, sage_aggregate(ctx.graph, keep,
+                                          grad_out.contiguous(),
+                                          prescale=True)
