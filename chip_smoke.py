@@ -9,10 +9,11 @@ flash_attention has a bf16 tensor-core kernel, ``flash_attention_sm90.cu``,
 and an f32 SIMT one), holds each kernel against its plain PyTorch version on
 the card at the main paths' shapes and on every route a kernel has
 (level_makespan's staged and general routes, bitwise, on the three paper
-graphs at B = 1, 7, 320 and 4096, a DAG wider than a warp and the
-four-device platform, on the level backend's tables and on the scan
-backend's chain tables of one node a row, ``node_scan``, whose backend is
-also held against the host scheduler; rmsnorm's warp, block and general
+graphs at B = 1, 7, 320 and 4096, a DAG wider than a warp, the
+four-device platform and eight-GPU fleets of one and two queues a device,
+on the level backend's tables and on the scan backend's chain tables of one
+node a row, ``node_scan``, whose backend is also held against the host
+scheduler; rmsnorm's warp, block and general
 routes over rows x widths x dtypes; gcn_aggregate's float4 and scalar routes
 and the SAGE mean aggregation ``sage_aggregate`` on the three paper graphs,
 forward and backward) and times both, then drives the main paths through the
@@ -28,10 +29,21 @@ user entry points:
    second), 3 episodes of ``k_epochs=2`` with ``dropout_parsing=0.1``, a
    sampled ``place(greedy=False)``, 3 episodes with ``gnn_model="sage"``
    (``sage_aggregate``) and its ``place()``, and one episode of the scalar
-   loop (B=1, a host ``reward_fn``); then the quality contract: the port's
-   best latency over seeds 0-11 on each paper graph with the default and the
-   level engine (``HSDAGConfig(batch_chains=16, max_episodes=3)``) held
-   against the reference's (``tools/reference_search_spread.json``) by a
+   loop (B=1, a host ``reward_fn``); then the device head
+   (``head="device"``) on Inception-v3 over ``nvlink_island(2, 4)``: 3
+   episodes with the default engine and ``place()``, 1 with
+   ``engine="level"``, 2 of a population with a greedy restart every window;
+   then its capacity mask on a fleet whose second island cannot hold 8 of
+   the graph's nodes (every sampled placement must fit); then Table 13 on
+   the card (``series_parallel_dag(20)`` on four fleets: the exact DP bound,
+   the best single device, the dense and device heads' searches and the
+   hybrid refinement, held against the bound and against the reference's
+   bound in ``tools/reference_topology_spread.json``); then the quality
+   contract: the port's best latency over seeds 0-11 on each paper graph
+   with the default and the level engine (``HSDAGConfig(batch_chains=16,
+   max_episodes=3)``) held against the reference's
+   (``tools/reference_search_spread.json``), and the device head's on two
+   Table-13 fleets against ``tools/reference_topology_spread.json``, by a
    one-sided Mann-Whitney test, failing at p < 1e-3;
 2. LM serving: ``repro_torch.launch.serve`` at full width in bf16 with
    random weights, h2o-danube-1.8b (batch 4, prompt 4608 > its 4096 window,
@@ -100,6 +112,19 @@ CONSISTENCY_TOL = 1e-4
 SPREAD_JSON = os.path.join(ROOT, "tools", "reference_search_spread.json")
 SPREAD_CONFIG = {"batch_chains": 16, "max_episodes": 3}
 CONTRACT_P = 1e-3
+# Table 13 (benchmarks/table13_topology.py): the reference's DP bounds and
+# its device-head spread over seeds (tools/reference_topology_spread.py),
+# the config of every search there but the seed, and the fleets whose
+# spread the contract compares
+TOPO_JSON = os.path.join(ROOT, "tools", "reference_topology_spread.json")
+TOPO_CONFIG = {"num_devices": 4, "head": "device", "max_episodes": 12,
+               "update_timestep": 10, "batch_chains": 8}
+TOPO_CONTRACT = ("nvlink_island", "torus")
+# the device head's fleet: two NVLink islands of four GPUs; the capacity
+# phase gives the first island 128 MB a GPU and the second 0.04 of it
+# (5.12 MB), which 8 of Inception-v3's nodes exceed
+HEAD_FLEET = {"islands": 2, "gpus_per_island": 4}
+CAPACITY_FLEET = dict(HEAD_FLEET, mem_capacity=128e6, island_scale=0.04)
 # the main path's serves: (arch, batch, prompt, steps)
 SERVES = (("h2o-danube-1.8b", 4, 4608, 32), ("mamba2-130m", 4, 4096, 32))
 
@@ -221,6 +246,7 @@ def level_build_report():
     from repro_torch.kernels._build import _lib_path
     log = _lib_path("levelsim").with_suffix(".log").read_text()
     name = {"2,4,1": "staged, registers D=2 Q=4",
+            "8,1,1": "staged, registers D=8 Q=1",
             "0,0,1": "staged, shared queues",
             "0,0,0": "general"}
     key = None
@@ -321,25 +347,37 @@ def makespan_checks(torch, label, backend, cases, timed, required):
     return worst, timing
 
 
+def eight_gpus(queues=1):
+    """The device head's fleet, ``nvlink_island(2, 4)``: D=8, with
+    ``queues`` queues a device (D·Q = 8: queues in registers; 16: in
+    shared memory)."""
+    from repro_torch.platforms import nvlink_island
+    return nvlink_island(**HEAD_FLEET, parallel_queues=queues)
+
+
 def level_checks(torch, graphs, plat):
     """The level backend's tables: the three paper graphs at B = 1, 7 (a
     ragged last warp), 320 (the search's window) and 4096 (a full card), a
     DAG wider than a warp with 9 real predecessors a node, the four-device
-    platform (queues in shared memory), and a DAG whose tables do not fit
+    platform (queues in shared memory), Inception-v3 on the eight-GPU fleet
+    at B = 16 and 320 with one queue a device (queues in registers, D=8
+    Q=1) and two (in shared memory), and a DAG whose tables do not fit
     shared memory (the general route); timed at B=320 on the three paper
-    graphs and at B=4096 on Inception-v3."""
+    graphs, at B=4096 on Inception-v3 and at B=320 on the eight GPUs."""
     from repro_torch.core.sim import LevelBackend
     from repro_torch.kernels.levelsim import ROUTES
     four = four_devices()
     wide = wide_dag(1, 5, 40, 9, 2)
     big = wide_dag(2, 60, 64, 8, 0)
+    inc = graphs["inception_v3"]
     cases = [(g, plat, B) for g in graphs.values() for B in (1, 7, 320, 4096)]
     cases += [(wide, plat, 7), (wide, plat, 320), (wide, four, 7),
-              (wide, four, 320), (graphs["inception_v3"], four, 7),
-              (graphs["inception_v3"], four, 320), (big, plat, 7)]
-    timed = [(graphs["inception_v3"], plat, 320)]
+              (wide, four, 320), (inc, four, 7), (inc, four, 320),
+              (big, plat, 7)]
+    cases += [(inc, eight_gpus(q), B) for q in (1, 2) for B in (16, 320)]
+    timed = [(inc, plat, 320)]
     timed += [(graphs[n], plat, 320) for n in ("resnet50", "bert_base")]
-    timed += [(graphs["inception_v3"], plat, 4096)]
+    timed += [(inc, plat, 4096), (inc, eight_gpus(), 320)]
     worst, timing = makespan_checks(torch, "level_makespan",
                                     LevelBackend(device="cuda"), cases,
                                     timed, required=ROUTES)
@@ -356,8 +394,9 @@ def scan_checks(torch, graphs, plat):
     """The scan backend: level_makespan on chain tables (one non-data node
     a row, heap-Kahn order; every case on the staged route, one lane a
     placement) bitwise against its plain version on the three paper graphs
-    at B = 1, 7, 320 and 4096, on the four-device platform and on the W=40
-    DAG; the backend against the host scheduler in its default (topo) order
+    at B = 1, 7, 320 and 4096, on the four-device platform, on the
+    eight-GPU fleet and on the W=40 DAG; the backend against the host
+    scheduler in its default (topo) order
     at 1e-5; then device and host time at B=320 on the three paper graphs
     and at B=4096 on Inception-v3."""
     import numpy as np
@@ -369,7 +408,8 @@ def scan_checks(torch, graphs, plat):
     cases = [(g, plat, B) for g in graphs.values() for B in (1, 7, 320, 4096)]
     cases += [(wide, plat, 7), (wide, plat, 320), (wide, four, 7),
               (wide, four, 320), (graphs["inception_v3"], four, 7),
-              (graphs["inception_v3"], four, 320)]
+              (graphs["inception_v3"], four, 320),
+              (graphs["inception_v3"], eight_gpus(), 320)]
     timed = [(graphs["inception_v3"], plat, 320)]
     timed += [(graphs[n], plat, 320) for n in ("resnet50", "bert_base")]
     timed += [(graphs["inception_v3"], plat, 4096)]
@@ -377,7 +417,8 @@ def scan_checks(torch, graphs, plat):
                                     timed, required=("staged",))
     rng = np.random.default_rng(0)
     for g, pf in [(g, plat) for g in graphs.values()] + [
-            (wide, four), (graphs["inception_v3"], four)]:
+            (wide, four), (graphs["inception_v3"], four),
+            (graphs["inception_v3"], eight_gpus())]:
         placements = rng.integers(0, pf.num_devices, (8, g.num_nodes))
         res = backend.simulate_batch(backend.prepare(g, pf), placements)
         host = np.array([simulate(g, p, pf).latency for p in placements])
@@ -1145,14 +1186,209 @@ def slice_phases(torch, g, arrays, plat):
     print(f"[phase] scalar loop: {time.perf_counter() - t_phase:.2f} s")
     return sage_n
 
+def device_head_phase(torch, g, arrays):
+    """The device head (``head="device"``) on ``g`` over the eight-GPU
+    fleet at the Table-6 widths: 3 episodes with the default engine (the
+    scan reward, its capacity mask on) and ``place()``, 1 episode with
+    ``engine="level"``, then 2 episodes of a population with a greedy
+    restart every window; each with the kernels' counts zeroed just before
+    it and read just after it, each best latency held against the host
+    scheduler in its engine's order."""
+    from repro_torch import HSDAG, HSDAGConfig, simulate
+    from repro_torch.core.sim import LevelBackend
+    from repro_torch.core.train import PopulationConfig
+    fleet = eight_gpus()
+
+    def cfg(**kw):
+        return HSDAGConfig(batch_chains=16, head="device",
+                           num_devices=fleet.num_devices, **kw)
+
+    t_phase = time.perf_counter()
+    agent = HSDAG(cfg(max_episodes=3))
+
+    def run():
+        return agent.search(g, arrays, platform=fleet), agent.place(arrays)
+    (res, placement), n = counted(torch, run)
+    for h in res.history:
+        print(f"[device_head] episode {h['episode']}: wall "
+              f"{h['wall_s']:.3f} s, mean reward {h['mean_reward']:.4f}, "
+              f"best {h['best_latency'] * 1e3:.6f} ms, mean groups "
+              f"{h['mean_groups']:.1f}")
+    print(f"[device_head] launches over search + place(): {n}")
+    best_is_host(g, fleet, res, "[device_head]")
+    check(n["level_makespan"] == 3 and n["gcn_aggregate"] > 0,
+          "the device head's search did not score each window through "
+          "level_makespan and encode through gcn_aggregate")
+    greedy = simulate(g, placement, fleet).latency
+    print(f"[device_head] greedy place(): devices used "
+          f"{sorted(set(placement.tolist()))}, latency {greedy * 1e3:.6f} ms")
+    check(placement.shape == (g.num_nodes,) and placement.min() >= 0
+          and placement.max() < fleet.num_devices and greedy == greedy,
+          "the device head's place() returned an invalid placement")
+
+    lres, n = counted(torch, lambda: HSDAG(cfg(max_episodes=1)).search(
+        g, arrays, platform=fleet, engine="level"))
+    order = LevelBackend(device="cuda").prepare(g, fleet).arrays.order
+    host = simulate(g, lres.best_placement, fleet, order=order).latency
+    print(f"[device_head] engine='level': episode wall "
+          f"{lres.history[0]['wall_s']:.3f} s, best "
+          f"{lres.best_latency * 1e3:.6f} ms, host scheduler (level order) "
+          f"{host * 1e3:.6f} ms; launches {n}")
+    check(abs(lres.best_latency - host) <= TOL * host,
+          "the device head's level search disagrees with the host "
+          "scheduler")
+    check(n["level_makespan"] == 1, "the device head's level search did "
+          "not score its window through level_makespan")
+
+    pres, n = counted(torch, lambda: HSDAG(cfg(max_episodes=2)).search(
+        g, arrays, platform=fleet, population=PopulationConfig(
+            cull_every=1, greedy_restart_every=1)))
+    for h in pres.history:
+        print(f"[device_head] population episode {h['episode']}: wall "
+              f"{h['wall_s']:.3f} s, culled {h['culled']}, population best "
+              f"{h['pop_best_latency'] * 1e3:.6f} ms")
+    print(f"[device_head] population launches: {n}")
+    check(all(h["culled"] for h in pres.history),
+          "a device-head population episode did not cull")
+    best_is_host(g, fleet, pres, "[device_head population]")
+    check(n["level_makespan"] == 2, "the device head's population did not "
+          "score each window through level_makespan")
+    print(f"[phase] device head: {time.perf_counter() - t_phase:.2f} s")
+
+
+def capacity_phase(torch, g, arrays):
+    """The device head's capacity mask: one episode of 16 chains with the
+    default engine on a fleet whose second island holds 5.12 MB a GPU,
+    which 8 nodes of ``g`` exceed.  Every placement the window samples must
+    put each node on a device its bytes fit (``SimArrays.fit_ok``); the
+    window's placements are read where the search scores them."""
+    from repro_torch import HSDAG, HSDAGConfig
+    from repro_torch.core.costmodel import sim_arrays
+    from repro_torch.core.sim import RewardPipeline
+    from repro_torch.platforms import nvlink_island
+    t_phase = time.perf_counter()
+    fleet = nvlink_island(**CAPACITY_FLEET)
+    fit_ok = sim_arrays(g, fleet).fit_ok
+    blocked = (~fit_ok).sum(0).tolist()
+    print(f"[capacity] fleet capacities "
+          f"{[d.mem_capacity for d in fleet.devices]} B; nodes that do not "
+          f"fit, per device: {blocked}")
+    check(blocked == [0] * 4 + [8] * 4, "the capacity fleet's fit_ok is not "
+          "8 nodes short on each GPU of the second island")
+    seen = []
+    score = RewardPipeline.score_window
+
+    def spy(self, fines):
+        seen.append(fines.clone())
+        return score(self, fines)
+    RewardPipeline.score_window = spy
+    try:
+        res, n = counted(torch, lambda: HSDAG(HSDAGConfig(
+            batch_chains=16, head="device", num_devices=fleet.num_devices,
+            max_episodes=1)).search(g, arrays, platform=fleet))
+    finally:
+        RewardPipeline.score_window = score
+    fines = torch.cat(seen).reshape(-1, g.num_nodes).cpu().numpy()
+    fits = fit_ok[np.arange(g.num_nodes), fines]
+    on_second = int((fines >= 4).sum())
+    print(f"[capacity] {fines.shape[0]} sampled placements, "
+          f"{on_second} node placements on the second island, "
+          f"{int((~fits).sum())} on a device the node does not fit; "
+          f"launches {n}; episode wall {res.history[0]['wall_s']:.3f} s")
+    check(fines.shape[0] == 16 * HSDAGConfig().update_timestep,
+          "the capacity search did not score one window of 16 chains")
+    check(bool(fits.all()), "a sampled placement put a node on a device "
+                            "it does not fit: the capacity mask failed")
+    best_is_host(g, fleet, res, "[capacity]")
+    print(f"[phase] capacity mask: {time.perf_counter() - t_phase:.2f} s")
+
+
+def load_topology():
+    """The Table-13 record of ``tools/reference_topology_spread.py``, its
+    workload featurized as there, and its fleets built with the port's
+    builders → (doc, graph, arrays, {fleet: platform})."""
+    from repro_torch import FeatureConfig, extract_features, platforms
+    from repro_torch.graphs.synthetic import SYNTHETIC_FAMILIES
+    with open(TOPO_JSON) as f:
+        doc = json.load(f)
+    check(doc["config"] == TOPO_CONFIG,
+          f"{TOPO_JSON} holds config {doc['config']}, not {TOPO_CONFIG}")
+    spec = dict(doc["graph"])
+    g = SYNTHETIC_FAMILIES[spec.pop("family")](**spec)
+    arrays = extract_features(g, FeatureConfig(**doc["features"]))
+    fleets = {name: getattr(platforms, f["builder"])(**f["args"])
+              for name, f in doc["fleets"].items()}
+    return doc, g, arrays, fleets
+
+
+def topology_phase(torch):
+    """Table 13 on the card (``benchmarks/table13_topology.py``): on each
+    fleet, the exact DP bound (the reference's, to 1e-12), the best single
+    device, the dense and the device head's searches (seed 0) and the
+    hybrid refinement of the device head's placement, each with its gap to
+    the bound.  No search may beat the bound and the hybrid may not be
+    worse than the placement it refines."""
+    from repro_torch import HSDAG, HSDAGConfig, platforms, simulate
+    from repro_torch.core.baselines import hybrid_placement
+    t_phase = time.perf_counter()
+    doc, g, arrays, fleets = load_topology()
+
+    def table():
+        for name, fleet in fleets.items():
+            bound = platforms.dp_optimal(g, fleet).bound
+            want = doc["dp_bound"][name]
+            print(f"[topology] {name} D={fleet.num_devices} V={g.num_nodes}: "
+                  f"dp_bound {bound * 1e6:.6f} us (reference "
+                  f"{want * 1e6:.6f} us)")
+            check(abs(bound - want) <= 1e-12 * want,
+                  f"the DP bound on {name} is not the reference's")
+
+            def row(method, lat):
+                print(f"[topology] {name} {method}: {lat * 1e6:.6f} us, "
+                      f"gap to bound {100 * (lat / bound - 1):.2f} %")
+            single = min(simulate(g, np.full(g.num_nodes, d), fleet).latency
+                         for d in range(fleet.num_devices))
+            row("single_device", single)
+            placed = {}
+            for head in ("dense", "device"):
+                res = HSDAG(HSDAGConfig(**dict(TOPO_CONFIG, head=head))
+                            ).search(g, arrays, platform=fleet)
+                row(f"rl_{head}", res.best_latency)
+                check(res.best_latency >= bound * (1 - 1e-6),
+                      f"rl_{head} on {name} is below the DP bound")
+                placed[head] = res.best_placement
+            base = simulate(g, placed["device"], fleet).latency
+            _, hyb = hybrid_placement(g, placed["device"], fleet)
+            row("hybrid", hyb)
+            check(hyb <= base, f"the hybrid refinement on {name} is worse "
+                               f"than the placement it refines")
+    _, n = counted(torch, table)
+    print(f"[topology] launches: {n}")
+    check(n["level_makespan"] > 0 and n["gcn_aggregate"] > 0,
+          "the Table-13 searches did not run the search's kernels")
+    print(f"[phase] topology (Table 13): "
+          f"{time.perf_counter() - t_phase:.2f} s")
+
+
+def one_sided_p(port, ref) -> float:
+    """One-sided Mann-Whitney p that the port's latencies are larger than
+    the reference's; 1.0 when both samples hold one value and nothing else
+    (no evidence either way, where the test's variance is 0)."""
+    from scipy.stats import mannwhitneyu
+    if np.unique(np.concatenate([port, ref])).size == 1:
+        return 1.0
+    return float(mannwhitneyu(port, ref, alternative="greater").pvalue)
+
 
 def contract_phase(graphs, plat):
     """The port's search quality against the reference's: for each paper
     graph and engine, the port's best latency over seeds 0-11 beside the
-    reference's (``tools/reference_search_spread.json``), and the one-sided
-    Mann-Whitney p-value that the port's are larger.  Fails below
-    ``CONTRACT_P``.  → the smallest p-value."""
-    from scipy.stats import mannwhitneyu
+    reference's (``tools/reference_search_spread.json``), and for the
+    device head on two Table-13 fleets the host scheduler's latency of each
+    seed's best placement beside the reference's
+    (``tools/reference_topology_spread.json``); the one-sided Mann-Whitney
+    p-value that the port's are larger.  Fails below ``CONTRACT_P``.  →
+    the smallest p-value."""
     from repro_torch import HSDAG, HSDAGConfig, extract_features
     with open(SPREAD_JSON) as f:
         doc = json.load(f)
@@ -1172,7 +1408,7 @@ def contract_phase(graphs, plat):
                 HSDAG(HSDAGConfig(seed=s, **SPREAD_CONFIG)).search(
                     g, arrays, platform=plat, engine=engine).best_latency
                 for s in seeds])
-            p = float(mannwhitneyu(port, ref, alternative="greater").pvalue)
+            p = one_sided_p(port, ref)
             worst = min(worst, p)
             print(f"[contract] {name} engine={engine}: port median "
                   f"{np.median(port) * 1e3:.6f} ms (range "
@@ -1186,6 +1422,39 @@ def contract_phase(graphs, plat):
             check(p >= CONTRACT_P,
                   f"the port's search on {name} (engine={engine}) is worse "
                   f"than the reference's: p = {p:.3g} < {CONTRACT_P}")
+    return min(worst, device_contract())
+
+
+def device_contract():
+    """The contract's device-head pairs: on each fleet of
+    ``TOPO_CONTRACT``, the host scheduler's latency of the best placement
+    of the port's search for seeds 0-11 beside the reference's; the same
+    test and limit as the paper graphs'.  → the smaller p-value."""
+    from repro_torch import HSDAG, HSDAGConfig, simulate
+    worst = 1.0
+    topo, g, arrays, fleets = load_topology()
+    for name in TOPO_CONTRACT:
+        seeds = topo["seeds"]
+        ref = np.array([topo["host_latency"][name][str(s)] for s in seeds])
+        t0 = time.perf_counter()
+        port = np.array([simulate(g, HSDAG(HSDAGConfig(
+            seed=s, **TOPO_CONFIG)).search(
+                g, arrays, platform=fleets[name]).best_placement,
+            fleets[name]).latency for s in seeds])
+        p = one_sided_p(port, ref)
+        worst = min(worst, p)
+        print(f"[contract] rl_device {name}: port median "
+              f"{np.median(port) * 1e6:.6f} us (range "
+              f"{port.min() * 1e6:.6f}-{port.max() * 1e6:.6f}), reference "
+              f"median {np.median(ref) * 1e6:.6f} us (range "
+              f"{ref.min() * 1e6:.6f}-{ref.max() * 1e6:.6f}), Mann-Whitney "
+              f"p(port worse) = {p:.4g}; {len(seeds)} port searches in "
+              f"{time.perf_counter() - t0:.2f} s")
+        print(f"[contract] rl_device {name} port us: "
+              f"{[round(float(x) * 1e6, 6) for x in port]}")
+        check(p >= CONTRACT_P,
+              f"the port's device-head search on {name} is worse than the "
+              f"reference's: p = {p:.3g} < {CONTRACT_P}")
     return worst
 
 
@@ -1273,11 +1542,15 @@ def main() -> int:
     print(f"[phase] search, engine='level': "
           f"{time.perf_counter() - t_phase:.2f} s")
 
-    # ---- the search's other paths, then the quality contract ----
+    # ---- the search's other paths, the device head, Table 13, then the
+    # quality contract ----
     sage_launches = slice_phases(torch, g, arrays, plat)
+    device_head_phase(torch, g, arrays)
+    capacity_phase(torch, g, arrays)
+    topology_phase(torch)
     t_phase = time.perf_counter()
     contract_p = contract_phase(graphs, plat)
-    print(f"[phase] contract (72 port searches): "
+    print(f"[phase] contract (96 port searches): "
           f"{time.perf_counter() - t_phase:.2f} s; smallest p {contract_p:.4g}")
 
     # ---- the LM kernels against their plain versions ----

@@ -3,7 +3,8 @@
 The reference keeps its parameters as a nested tree of arrays,
 ``{"enc": {"trans": [{"w", "b"}, ...], "gnn": [{"w"}, ...]},
 "gpn": {"phi": [...]}, "pol": {"mlp": [...]}}`` (a GraphSAGE encoder's
-``gnn`` layers hold ``{"w_self", "w_nbr"}``), with every weight stored
+``gnn`` layers hold ``{"w_self", "w_nbr"}``; the device head's ``pol`` is
+``{"mlp": [...], "dev": [...]}``), with every weight stored
 (in, out) and applied as ``x @ w``.  ``nn.Linear`` stores the transpose.
 This module maps between the two and reads the reference's ``save_policy``
 checkpoints (``step_<n>/state.npz`` + ``manifest.json``) with numpy alone.
@@ -77,16 +78,15 @@ def params_from_numpy(tree: Dict) -> HSDAGPolicy:
     enc, gpn, pol = tree["enc"], tree["gpn"], tree["pol"]
     # The layer keys name the model, as the reference's encoder reads them.
     sage = bool(enc["gnn"]) and "w" not in enc["gnn"][0]
-    if "dev" in pol:
-        raise NotImplementedError(
-            "only head='dense' is ported; ROADMAP.md 'Modules to port' item "
-            "7 ports head='device'")
+    device = "dev" in pol
     d_in, hidden = np.shape(enc["trans"][0]["w"])
     policy = HSDAGPolicy(
         d_in, hidden, np.shape(pol["mlp"][-1]["w"])[1],
         layer_trans=len(enc["trans"]), layer_gnn=len(enc["gnn"]),
         gnn_model="sage" if sage else "gcn",
-        layer_parsingnet=len(gpn["phi"]), policy_layers=len(pol["mlp"]))
+        layer_parsingnet=len(gpn["phi"]), policy_layers=len(pol["mlp"]),
+        head="device" if device else "dense",
+        dev_feat_dim=np.shape(pol["dev"][0]["w"])[0] if device else None)
     with torch.no_grad():
         for name, p in policy.named_parameters():
             path, transposed = _ref_path(name)

@@ -12,41 +12,64 @@ the aggregations run over the edge list in the ``gcn_aggregate`` and
 Every tensor carries a leading chain axis B: x (B, V, d), keep (B, E).
 Linear weights follow ``nn.Linear`` ((out, in)); the reference stores the
 transpose (``checkpoint/convert.py`` maps between them).
+
+``mlp_init`` and ``encoder_init`` build the reference's initial parameter
+tree (numpy, (in, out) weights) from a threefry key of ``core/prng.py``,
+split as the reference splits it, so the same key gives the same weights.
 """
 from __future__ import annotations
 
-import math
-from typing import Optional, Sequence
+from typing import Dict, List, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.gcn_spmm import GCNAggregate, GCNGraph, SageAggregate
+from . import prng
 
-__all__ = ["glorot_", "MLP", "normalize_adjacency", "SageLayer", "Encoder"]
+__all__ = ["mlp_init", "encoder_init", "MLP", "normalize_adjacency",
+           "SageLayer", "Encoder"]
 
 
-def glorot_(weight: torch.Tensor, generator: torch.Generator) -> None:
-    """Uniform(±sqrt(6 / (fan_in + fan_out))) in place, the reference init."""
-    fan_out, fan_in = weight.shape
-    lim = math.sqrt(6.0 / (fan_in + fan_out))
-    with torch.no_grad():
-        weight.copy_(torch.rand(weight.shape, generator=generator,
-                                dtype=weight.dtype) * (2 * lim) - lim)
+def mlp_init(key: np.ndarray, sizes: Sequence[int]) -> List[Dict]:
+    """The reference's ``mlp_init``: one key split off per layer, a Glorot
+    weight (in, out) and a zero bias."""
+    layers = []
+    for a, b in zip(sizes, sizes[1:]):
+        key, sub = prng.split(key)
+        layers.append({"w": prng.glorot(sub, (a, b)),
+                       "b": np.zeros(b, np.float32)})
+    return layers
+
+
+def encoder_init(key: np.ndarray, d_in: int, hidden: int, *,
+                 layer_trans: int = 2, layer_gnn: int = 2,
+                 gnn_model: str = "gcn") -> Dict:
+    """The reference's ``encoder_init`` tree."""
+    if gnn_model not in ("gcn", "sage"):
+        raise ValueError(f"unknown gnn_model {gnn_model!r}")
+    key, k_mlp = prng.split(key)
+    tree = {"trans": mlp_init(k_mlp, [d_in] + [hidden] * layer_trans),
+            "gnn": []}
+    for _ in range(layer_gnn):
+        key, sub = prng.split(key)
+        if gnn_model == "gcn":
+            tree["gnn"].append({"w": prng.glorot(sub, (hidden, hidden))})
+        else:
+            k1, k2 = prng.split(sub)
+            tree["gnn"].append({"w_self": prng.glorot(k1, (hidden, hidden)),
+                                "w_nbr": prng.glorot(k2, (hidden, hidden))})
+    return tree
 
 
 class MLP(nn.ModuleList):
     """Stack of ``nn.Linear`` layers with ReLU between them; its forward is
     the reference ``mlp_apply``."""
 
-    def __init__(self, sizes: Sequence[int],
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, sizes: Sequence[int]):
         super().__init__(nn.Linear(a, b) for a, b in zip(sizes, sizes[1:]))
-        if generator is not None:
-            for layer in self:
-                glorot_(layer.weight, generator)
-                nn.init.zeros_(layer.bias)
 
     def forward(self, x: torch.Tensor, act_final: bool = False):
         for i, layer in enumerate(self):
@@ -75,14 +98,10 @@ class SageLayer(nn.Module):
     """One GraphSAGE layer, ``z @ w_self + mean_nbr(z) @ w_nbr``; both
     weights stored (out, in) like ``nn.Linear``'s."""
 
-    def __init__(self, hidden: int,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, hidden: int):
         super().__init__()
         self.w_self = nn.Parameter(torch.empty(hidden, hidden))
         self.w_nbr = nn.Parameter(torch.empty(hidden, hidden))
-        if generator is not None:          # the reference's order
-            glorot_(self.w_self, generator)
-            glorot_(self.w_nbr, generator)
 
     def forward(self, z: torch.Tensor, graph: GCNGraph,
                 keep: torch.Tensor) -> torch.Tensor:
@@ -94,22 +113,18 @@ class Encoder(nn.Module):
     """X^(0) → Z (Eq. 6) for a batch of chains."""
 
     def __init__(self, d_in: int, hidden: int, *, layer_trans: int = 2,
-                 layer_gnn: int = 2, gnn_model: str = "gcn",
-                 generator: Optional[torch.Generator] = None):
+                 layer_gnn: int = 2, gnn_model: str = "gcn"):
         super().__init__()
         if gnn_model not in ("gcn", "sage"):
             raise ValueError(f"unknown gnn_model {gnn_model!r}")
         self.gnn_model = gnn_model
-        self.trans = MLP([d_in] + [hidden] * layer_trans, generator)
+        self.trans = MLP([d_in] + [hidden] * layer_trans)
         if gnn_model == "sage":
-            self.gnn = nn.ModuleList(SageLayer(hidden, generator)
+            self.gnn = nn.ModuleList(SageLayer(hidden)
                                      for _ in range(layer_gnn))
         else:
             self.gnn = nn.ModuleList(nn.Linear(hidden, hidden, bias=False)
                                      for _ in range(layer_gnn))
-            if generator is not None:
-                for layer in self.gnn:
-                    glorot_(layer.weight, generator)
 
     def forward(self, x: torch.Tensor, graph: GCNGraph, keep: torch.Tensor,
                 *, transform: bool = True) -> torch.Tensor:

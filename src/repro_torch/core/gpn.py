@@ -18,14 +18,16 @@ later stage of the search reads it.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
-from .gnn import MLP
+from .gnn import MLP, mlp_init
 
-__all__ = ["GPN", "edge_scores", "parse_graph", "gpn_apply", "ParseResult"]
+__all__ = ["gpn_init", "GPN", "edge_scores", "parse_graph", "gpn_apply",
+           "ParseResult"]
 
 
 class ParseResult(NamedTuple):
@@ -37,13 +39,18 @@ class ParseResult(NamedTuple):
     num_groups: torch.Tensor            # (B,) i64
 
 
+def gpn_init(key: np.ndarray, hidden: int, *,
+             layer_parsingnet: int = 2) -> Dict:
+    """The reference's ``gpn_init`` tree (see ``gnn.mlp_init``)."""
+    return {"phi": mlp_init(key, [hidden] * layer_parsingnet + [1])}
+
+
 class GPN(nn.Module):
     """φ of Eq. 7 — an MLP from the hidden width to a scalar logit."""
 
-    def __init__(self, hidden: int, *, layer_parsingnet: int = 2,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, hidden: int, *, layer_parsingnet: int = 2):
         super().__init__()
-        self.phi = MLP([hidden] * layer_parsingnet + [1], generator)
+        self.phi = MLP([hidden] * layer_parsingnet + [1])
 
 
 def edge_scores(gpn: GPN, z: torch.Tensor, src: torch.Tensor,

@@ -9,6 +9,14 @@ decode::
     result = agent.search(graph, arrays, platform=paper_platform())
     placement = agent.place(arrays)
 
+``head="device"`` conditions the policy on a fleet (``platforms``)::
+
+    fleet = nvlink_island(2, 4)
+    agent = HSDAG(HSDAGConfig(batch_chains=16, head="device",
+                              num_devices=fleet.num_devices))
+    result = agent.search(graph, arrays, platform=fleet)
+    placement = agent.place(arrays)          # decodes on the bound fleet
+
 Each episode samples one window of ``update_timestep`` steps for
 ``batch_chains`` parallel REINFORCE chains (encode → parse → place → state
 update), scores every placement of the window (in one launch of the level
@@ -18,8 +26,10 @@ kernel for the ``scan`` and ``level`` backends, on the host for the
 ``population=`` turns the chains into a PBT population
 (``core/train/population.py``).  The reference's one-placement-at-a-time
 loop (``engine="scalar"``) is the batched loop at one chain with a host
-reward, which follows the same trajectory.  Everything runs on ``device`` (the card
-unless the caller passes ``device="cpu"``).
+reward, which follows the same trajectory.  ``HSDAG.init`` draws the
+reference's initial weights for ``cfg.seed`` (``core/prng.py``), so a search
+of either package for a seed starts from the same weights.  Everything runs
+on ``device`` (the card unless the caller passes ``device="cpu"``).
 """
 from __future__ import annotations
 
@@ -37,10 +47,12 @@ from ..kernels.gcn_spmm import GCNGraph, gcn_graph
 from ..optim.adamw import Adam
 from .costmodel import Platform, simulate
 from .features import GraphArrays
-from .gnn import Encoder
-from .gpn import GPN, ParseResult, gpn_apply
+from . import prng
+from .gnn import Encoder, encoder_init
+from .gpn import GPN, ParseResult, gpn_apply, gpn_init
 from .graph import CompGraph
-from .policy import DensePolicy, PolicyOutput, policy_apply
+from .policy import (DensePolicy, DevicePolicy, PolicyOutput, policy_apply,
+                     policy_init)
 from .reinforce import RunningBaseline, step_weights
 from .sim import backend_names
 from .sim.pipeline import RewardPipeline
@@ -127,13 +139,6 @@ class HSDAGConfig:
         return cls(**data)
 
 
-def _check_ported(cfg: HSDAGConfig) -> None:
-    if cfg.head != "dense":
-        raise NotImplementedError(
-            "head='device' is not ported yet; ROADMAP.md 'Modules to port' "
-            "item 7 (platforms) ports it")
-
-
 def _as_population(population) -> PopulationConfig:
     """Accept a :class:`PopulationConfig` or its JSON (dict/str) form."""
     if isinstance(population, PopulationConfig):
@@ -159,21 +164,21 @@ def _rms_normalize(z: torch.Tensor) -> torch.Tensor:
 
 
 class HSDAGPolicy(nn.Module):
-    """Encoder (Eq. 6), GPN (Eq. 7–11) and dense placement head (§2.5)."""
+    """Encoder (Eq. 6), GPN (Eq. 7–11) and placement head (§2.5): the dense
+    head, or the device head over ``dev_feat_dim`` fleet features."""
 
     def __init__(self, d_in: int, hidden: int, num_devices: int, *,
                  layer_trans: int = 2, layer_gnn: int = 2,
                  layer_parsingnet: int = 2, policy_layers: int = 2,
-                 gnn_model: str = "gcn",
-                 generator: Optional[torch.Generator] = None):
+                 gnn_model: str = "gcn", head: str = "dense",
+                 dev_feat_dim: Optional[int] = None):
         super().__init__()
         self.enc = Encoder(d_in, hidden, layer_trans=layer_trans,
-                           layer_gnn=layer_gnn, gnn_model=gnn_model,
-                           generator=generator)
-        self.gpn = GPN(hidden, layer_parsingnet=layer_parsingnet,
-                       generator=generator)
-        self.pol = DensePolicy(hidden, num_devices, layers=policy_layers,
-                               generator=generator)
+                           layer_gnn=layer_gnn, gnn_model=gnn_model)
+        self.gpn = GPN(hidden, layer_parsingnet=layer_parsingnet)
+        self.pol = (DevicePolicy(hidden, dev_feat_dim, layers=policy_layers)
+                    if head == "device" else
+                    DensePolicy(hidden, num_devices, layers=policy_layers))
 
     def step(self, z: torch.Tensor, x0: torch.Tensor, graph: GCNGraph,
              keep: torch.Tensor, *, first: bool, state_norm: bool = True,
@@ -181,19 +186,23 @@ class HSDAGPolicy(nn.Module):
              labels: Optional[torch.Tensor] = None,
              actions: Optional[torch.Tensor] = None,
              parse_keep: Optional[torch.Tensor] = None,
-             temperature: Optional[torch.Tensor] = None) -> StepOutput:
+             temperature: Optional[torch.Tensor] = None,
+             dev_feats: Optional[torch.Tensor] = None,
+             action_mask: Optional[torch.Tensor] = None) -> StepOutput:
         """One Alg.-1 iteration for B chains: encode → parse → place → state
         update.  ``keep`` (B, E) is the edge-dropout mask (all ones when not
         exploring) and ``parse_keep`` (B, E) the parse dropout (none by
         default); ``greedy``/``gumbel``/``actions`` pick the placement at
-        the per-chain ``temperature`` (see ``policy_apply``); ``labels``
-        replays a recorded parse."""
+        the per-chain ``temperature`` (see ``policy_apply``), on the fleet
+        ``dev_feats`` under the capacity ``action_mask`` for the device
+        head; ``labels`` replays a recorded parse."""
         z_enc = self.enc(x0 if first else z, graph, keep, transform=first)
         parse = gpn_apply(self.gpn, z_enc, graph.src, graph.dst,
                           labels=labels, parse_keep=parse_keep)
         pol = policy_apply(self.pol, parse.pooled_z, parse.active,
                            parse.labels, greedy=greedy, gumbel=gumbel,
-                           actions=actions, temperature=temperature)
+                           actions=actions, temperature=temperature,
+                           dev_feats=dev_feats, action_mask=action_mask)
         # Alg. 1 line 10: Z_v ← Z_v + Z_{v'}.
         z_next = z_enc + torch.gather(
             parse.pooled_z, 1, parse.labels[..., None].expand_as(z_enc))
@@ -222,19 +231,44 @@ class HSDAG:
         self.device = resolve_device(device)
         self.policy: Optional[HSDAGPolicy] = None
         self._opt: Optional[Adam] = None
+        # head="device": the (D, F_dev) fleet table the policy is
+        # conditioned on, set by bind_platform(); place() decodes with it.
+        self._dev_feats: Optional[np.ndarray] = None
+
+    def bind_platform(self, platform: Platform) -> None:
+        """Condition the ``head="device"`` policy on ``platform``'s fleet
+        (its device feature table); a no-op for ``head="dense"``.
+        ``search`` calls it from its ``platform=``; a policy loaded from a
+        checkpoint needs it before ``place``."""
+        if self.cfg.head != "device":
+            return
+        from ..platforms.topology import device_feature_table
+        self._dev_feats = device_feature_table(platform)
 
     # ------------------------------------------------------------------ init
     def init(self, arrays: GraphArrays) -> HSDAGPolicy:
-        """Fresh parameters (reference init distribution, seeded by
-        ``cfg.seed``) for graphs featurized like ``arrays``."""
+        """The weights the reference's search for ``cfg.seed`` starts from,
+        for graphs featurized like ``arrays``: its ``init`` on the second
+        key of ``split(PRNGKey(cfg.seed))``, drawn by ``core/prng.py``."""
+        # Local import: platforms imports core.costmodel.
+        from ..platforms.topology import DEV_FEATURE_DIM
         cfg = self.cfg
-        gen = torch.Generator().manual_seed(cfg.seed)
-        self._set_policy(HSDAGPolicy(
-            arrays.x.shape[1], cfg.hidden_channel, cfg.num_devices,
-            layer_trans=cfg.layer_trans, layer_gnn=cfg.layer_gnn,
-            layer_parsingnet=cfg.layer_parsingnet, gnn_model=cfg.gnn_model,
-            generator=gen))
-        return self.policy
+        k_init = prng.split(prng.key(cfg.seed))[1]
+        k_enc, k_gpn, k_pol = prng.split(k_init, 3)
+        tree = {
+            "enc": encoder_init(k_enc, arrays.x.shape[1], cfg.hidden_channel,
+                                layer_trans=cfg.layer_trans,
+                                layer_gnn=cfg.layer_gnn,
+                                gnn_model=cfg.gnn_model),
+            "gpn": gpn_init(k_gpn, cfg.hidden_channel,
+                            layer_parsingnet=cfg.layer_parsingnet),
+            "pol": (policy_init(k_pol, cfg.hidden_channel, cfg.num_devices)
+                    if cfg.head == "dense" else
+                    policy_init(k_pol, cfg.hidden_channel, cfg.num_devices,
+                                head="device",
+                                dev_feat_dim=DEV_FEATURE_DIM)),
+        }
+        return self.load_params(tree)
 
     def load_params(self, tree: Dict) -> HSDAGPolicy:
         """Adopt a reference parameter tree (numpy leaves, e.g. from
@@ -256,13 +290,34 @@ class HSDAG:
         return gcn_graph(arrays.edges, arrays.num_nodes, self.device)
 
     def rollout_engine(self, arrays: GraphArrays,
-                       population: Optional[PopulationConfig] = None
+                       population: Optional[PopulationConfig] = None,
+                       pipeline: Optional[RewardPipeline] = None
                        ) -> RolloutEngine:
-        """The window rollout/replay engine for one graph."""
+        """The window rollout/replay engine for one graph.
+
+        The device head decodes on the bound fleet; its capacity mask
+        (``SimArrays.fit_ok``) rides along, as in the reference, only with a
+        ``pipeline`` whose reward the reference scores inside its rollout
+        (``RewardPipeline.fused``: the ``scan`` backend), and then in
+        sampling, every replay and the population's greedy restarts alike.
+        """
         x0 = torch.as_tensor(arrays.x, device=self.device)
+        dev_feats = action_mask = None
+        if self.cfg.head == "device":
+            if self._dev_feats is None:
+                raise ValueError(
+                    "head='device' needs a bound platform (its device "
+                    "feature table conditions the policy); call "
+                    "bind_platform(platform) or pass platform= to "
+                    "search/train")
+            dev_feats = torch.as_tensor(self._dev_feats, device=self.device)
+            if pipeline is not None and pipeline.fused:
+                action_mask = torch.as_tensor(pipeline.fit_ok,
+                                              device=self.device)
         return RolloutEngine(self.policy, self.cfg, x0=x0,
                              graph=self._graph(arrays),
-                             population=population)
+                             population=population, dev_feats=dev_feats,
+                             action_mask=action_mask)
 
     # ---------------------------------------------------------------- search
     def search(self, graph: CompGraph, arrays: GraphArrays, *,
@@ -294,7 +349,6 @@ class HSDAG:
         cfg = self.cfg
         engine = _validate_engine(engine if engine is not None
                                   else cfg.engine)
-        _check_ported(cfg)
         if platform is None and reward_fn is None:
             raise ValueError("search() needs a reward source: platform= or "
                              "reward_fn")
@@ -308,6 +362,17 @@ class HSDAG:
             raise ValueError(
                 f"cfg.num_devices={cfg.num_devices} exceeds the platform's "
                 f"{platform.num_devices} devices")
+        if cfg.head == "device":
+            if platform is None:
+                raise ValueError(
+                    "head='device' conditions the policy on a platform's "
+                    "device feature table; a bare reward_fn carries no "
+                    "fleet description — pass platform=")
+            if engine == "scalar":
+                raise ValueError(
+                    "head='device' needs the batched engine (the scalar "
+                    "reference loop predates device conditioning)")
+            self.bind_platform(platform)
         if engine not in _LOOP_ENGINES and reward_fn is not None:
             raise ValueError(
                 f"engine={engine!r} names a simulator backend but a host "
@@ -352,7 +417,7 @@ class HSDAG:
         t_start = time.perf_counter()
         if self.policy is None:
             self.init(arrays)
-        rollout = self.rollout_engine(arrays, population)
+        rollout = self.rollout_engine(arrays, population, pipeline)
         streams = ChainStreams(cfg.seed, nchains, self.device)
         baseline = RunningBaseline() if cfg.use_baseline else None
         # The population draws from its own generator, so the chain
@@ -451,7 +516,9 @@ class HSDAG:
         ``greedy`` decodes the most likely placement without dropout;
         ``greedy=False`` samples one, its edge and parse dropout and Gumbel
         noise drawn from ``generator`` (default: a generator on the agent's
-        device seeded 0).
+        device seeded 0).  The device head places on the bound fleet
+        (``bind_platform``), with no capacity mask, as the reference's
+        ``place`` does.
         """
         if self.policy is None:
             raise RuntimeError("call init(), load_params() or search() first")

@@ -30,6 +30,9 @@ class SimulatorBackend:
     """Interface every simulation engine implements."""
 
     name: str = "?"
+    #: the reference scores this backend inside its jitted rollout
+    #: (``jit_fused``), where the device head's capacity mask rides along
+    fused: bool = False
 
     def prepare(self, graph, platform):
         """Placement-independent handle for one (graph, platform) pair."""

@@ -32,6 +32,20 @@ class RewardPipeline:
         self.reward_fn = reward_fn
         self.num_nodes = int(num_nodes) if num_nodes is not None else None
 
+    @property
+    def fused(self) -> bool:
+        """Whether the reference scores this reward inside its jitted
+        rollout (its ``pipeline.fused``): the ``scan`` backend, not
+        ``level``, ``reference`` or a ``reward_fn``.  The device head's
+        capacity mask applies only then."""
+        return self.backend is not None and self.backend.fused
+
+    @property
+    def fit_ok(self):
+        """(V, D) bool: node v's bytes alone fit device d
+        (``SimArrays.fit_ok``) — the device head's capacity mask."""
+        return self.prep.arrays.fit_ok
+
     @classmethod
     def from_reward_fn(cls, reward_fn: Callable, *,
                        num_nodes: Optional[int] = None) -> "RewardPipeline":

@@ -20,6 +20,12 @@ actions it scores may differ from the ones that were rewarded.
 Random draws come from :class:`ChainStreams` (one ``torch.Generator`` per
 chain) or are injected whole as a :class:`WindowNoise` — the tests feed the
 reference's own masks and Gumbel noise that way.
+
+The device head (``dev_feats``) places on the fleet's D devices, so its
+Gumbel noise is (V, D) whatever ``cfg.num_devices`` says.  Its capacity mask
+(``action_mask``) enters every step the engine takes — sampling, both kinds
+of replay and the greedy decode of a restart — so the replayed distribution
+is the sampled one (the Eq.-14 exactness).
 """
 from __future__ import annotations
 
@@ -99,10 +105,10 @@ class ChainStreams:
             (torch.rand(num_edges, generator=g, device=self.device)
              < 1.0 - parse_dropout).float() for g in self.generators])
 
-    def step(self, cfg, num_edges: int, num_nodes: int):
-        """One step's draws for ``cfg`` → (keep, gumbel, parse_keep or
-        None)."""
-        keep, gumbel = self.draw(num_edges, num_nodes, cfg.num_devices,
+    def step(self, cfg, num_edges: int, num_nodes: int, num_devices: int):
+        """One step's draws for ``cfg`` over ``num_devices`` devices →
+        (keep, gumbel, parse_keep or None)."""
+        keep, gumbel = self.draw(num_edges, num_nodes, num_devices,
                                  cfg.dropout_network)
         parse_keep = (self.draw_parse_keep(num_edges, cfg.dropout_parsing)
                       if cfg.dropout_parsing > 0 else None)
@@ -115,15 +121,22 @@ class RolloutEngine:
     ``policy`` is the port's ``HSDAGPolicy``; its ``step`` is one Alg.-1
     iteration.  ``x0`` (V, d) holds the graph's initial features.
     ``population`` (a ``PopulationConfig``) enables the population methods.
+    ``dev_feats`` (D, F_dev) is the device head's fleet table and
+    ``action_mask`` (V, D) bool its capacity mask (None: unmasked).
     """
 
     def __init__(self, policy, cfg, *, x0: torch.Tensor, graph: GCNGraph,
-                 population=None):
+                 population=None, dev_feats: Optional[torch.Tensor] = None,
+                 action_mask: Optional[torch.Tensor] = None):
         self.policy = policy
         self.cfg = cfg
         self.x0 = x0
         self.graph = graph
         self.population = population
+        self.dev_feats = dev_feats
+        self.action_mask = action_mask
+        self.num_devices = (cfg.num_devices if dev_feats is None
+                            else dev_feats.shape[0])
 
     def _x0(self, num_chains: int) -> torch.Tensor:
         return self.x0.expand(num_chains, *self.x0.shape)
@@ -140,7 +153,7 @@ class RolloutEngine:
                     None if noise.parse_keep is None
                     else noise.parse_keep[t].float())
         if streams is not None:
-            return streams.step(self.cfg, E, V)
+            return streams.step(self.cfg, E, V, self.num_devices)
         return torch.ones(num_chains, E, device=self.x0.device), None, None
 
     def rollout_window(self, z: torch.Tensor, *, num_steps: int,
@@ -171,7 +184,9 @@ class RolloutEngine:
                                        state_norm=self.cfg.state_norm,
                                        greedy=greedy, gumbel=gumbel,
                                        parse_keep=parse_keep,
-                                       temperature=temperature)
+                                       temperature=temperature,
+                                       dev_feats=self.dev_feats,
+                                       action_mask=self.action_mask)
                 rows.append((keep, out.parse.labels,
                              out.policy.coarse_placement, gumbel,
                              parse_keep))
@@ -207,7 +222,8 @@ class RolloutEngine:
                 state_norm=self.cfg.state_norm,
                 parse_keep=(None if record.parse_keep is None
                             else record.parse_keep[t]),
-                temperature=record.temperature, **chosen)
+                temperature=record.temperature, dev_feats=self.dev_feats,
+                action_mask=self.action_mask, **chosen)
             loss = -out.policy.logp * weights[t] \
                 - self.cfg.entropy_coef * out.policy.entropy
             total = total + loss.sum()

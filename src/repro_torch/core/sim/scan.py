@@ -31,6 +31,7 @@ class ScanSim(LevelSim):
 
 class ScanBackend(TableBackend):
     name = "scan"
+    fused = True
 
     def prepare(self, graph, platform, *, schedule: str = "topo") -> ScanSim:
         """``schedule`` picks the retire order: ``"topo"`` (heap-Kahn, the

@@ -34,3 +34,39 @@ def test_reference_spread_has_every_graph_engine_and_seed():
             lat = list(by_seed.values())
             assert all(math.isfinite(x) and 0 < x < 1 for x in lat), (
                 name, engine)
+
+
+def test_reference_topology_spread_is_chip_smokes_table_13():
+    """``tools/reference_topology_spread.json``: the device-head search's
+    config and the fleets as ``chip_smoke.py`` searches them, finite best
+    latencies of seeds 0-11 on the contract's fleets, host latencies within
+    1e-5 of the scored ones, and a DP bound of every fleet that lies below
+    every search."""
+    smoke = _chip_smoke()
+    with open(smoke.TOPO_JSON) as f:
+        doc = json.load(f)
+    assert doc["config"] == smoke.TOPO_CONFIG
+    assert doc["seeds"] == list(range(12))
+    assert doc["jax_version"] and doc["date"]
+    assert doc["graph"] == {"family": "series_parallel", "target_nodes": 20,
+                            "seed": 0}
+    assert doc["features"] == {"d_pos": 16}
+    assert doc["fleets"] == {
+        "nvlink_island": {"builder": "nvlink_island",
+                          "args": {"islands": 2, "gpus_per_island": 2}},
+        "multi_host": {"builder": "multi_host",
+                       "args": {"hosts": 2, "gpus_per_host": 2}},
+        "torus": {"builder": "torus", "args": {"rows": 2, "cols": 2}},
+        "ring": {"builder": "ring", "args": {"devices": 4}}}
+    assert set(doc["dp_bound"]) == set(doc["fleets"])
+    assert set(doc["results"]) == set(doc["host_latency"]) == \
+        set(smoke.TOPO_CONTRACT)
+    for name in smoke.TOPO_CONTRACT:
+        bound = doc["dp_bound"][name]
+        for part in ("results", "host_latency"):
+            row = doc[part][name]
+            assert set(row) == {str(s) for s in doc["seeds"]}
+            assert all(math.isfinite(x) and bound * (1 - 1e-6) <= x < 1
+                       for x in row.values()), (name, part)
+            assert all(math.isclose(row[s], doc["results"][name][s],
+                                    rel_tol=1e-5) for s in row)

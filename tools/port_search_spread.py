@@ -19,11 +19,11 @@ seed by seed), and prints each seed's episodes on both sides.
 ``chip_smoke.py`` runs the same comparison over seeds 0-11; this tool takes
 more seeds where a pair needs a closer look.
 
-``--init-from DIR`` starts each search from the reference's initial weights
-for its seed (written by ``tools/reference_search_spread.py --save-init
-DIR``), so the two sides differ only in their random draws; the tool then
-also prints the paired (Wilcoxon signed-rank, two-sided) p-value of the
-best latencies, seed by seed.
+The port's search for a seed starts from the reference's initial weights
+for that seed (``HSDAG.init`` draws the reference's threefry stream), so the
+two sides differ only in their random draws; the tool also prints the
+paired (Wilcoxon signed-rank, two-sided) p-value of the best latencies,
+seed by seed.
 
 ``--from-json RUN.json ...`` reports on earlier runs' ``--out`` files
 instead of searching (no card needed), over the seeds given; with several
@@ -133,8 +133,6 @@ def main(argv=None) -> int:
                     help="more reference results (JSON pieces)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", help="write the port's latencies here")
-    ap.add_argument("--init-from", metavar="DIR",
-                    help="start from the reference's initial weights")
     ap.add_argument("--from-json", nargs="+", metavar="RUN",
                     help="report on these earlier --out files; no search")
     args = ap.parse_args(argv)
@@ -155,7 +153,7 @@ def main(argv=None) -> int:
                         [run], "history", name, engine).items() if k in keep}
                     ports.append(port)
                     compare(name, engine, port, hist, ref, ref_hist,
-                            paired=bool(run.get("init_from")),
+                            paired=run.get("paired", False),
                             note=f" ({os.path.basename(path)})")
                 if len(ports) > 1:
                     print(f"{name} engine={engine}: {p_range(ports, ref)}")
@@ -164,12 +162,10 @@ def main(argv=None) -> int:
     import torch
     from repro_torch import (HSDAG, HSDAGConfig, PAPER_BENCHMARKS,
                              extract_features, paper_platform)
-    from repro_torch.checkpoint.convert import load_reference_policy
     torch.backends.cuda.matmul.allow_tf32 = False
 
     plat = paper_platform()
-    out = {"config": CONFIG, "init_from": args.init_from, "results": {},
-           "history": {}}
+    out = {"config": CONFIG, "paired": True, "results": {}, "history": {}}
     for name in args.graph or GRAPHS:
         g = PAPER_BENCHMARKS[name]()
         arrays = extract_features(g)
@@ -179,9 +175,6 @@ def main(argv=None) -> int:
             for s in args.seeds:
                 agent = HSDAG(HSDAGConfig(seed=s, **CONFIG),
                               device=args.device)
-                if args.init_from:
-                    agent.load_params(load_reference_policy(os.path.join(
-                        args.init_from, name, f"seed_{s}"))[0])
                 res = agent.search(g, arrays, platform=plat, engine=engine)
                 port[str(s)] = float(res.best_latency)
                 port_hist[str(s)] = episodes(res.history)
@@ -190,7 +183,7 @@ def main(argv=None) -> int:
             compare(name, engine, port, port_hist,
                     _merged(ref_docs, "results", name, engine),
                     _merged(ref_docs, "history", name, engine),
-                    paired=bool(args.init_from),
+                    paired=True,
                     note=f" in {time.perf_counter() - t0:.2f} s")
     if args.out:
         with open(args.out, "w") as f:
