@@ -16,7 +16,8 @@ node a row, ``node_scan``, whose backend is also held against the host
 scheduler; rmsnorm's warp, block and general
 routes over rows x widths x dtypes; gcn_aggregate's float4 and scalar routes
 and the SAGE mean aggregation ``sage_aggregate`` on the three paper graphs,
-forward and backward) and times both, then drives the main paths through the
+forward and backward, also at the joint trainer's B=8 and, on chain
+tables, B=80) and times both, then drives the main paths through the
 user entry points:
 
 1. the placement search: ``HSDAG(HSDAGConfig(batch_chains=16)).search``
@@ -44,7 +45,17 @@ user entry points:
    max_episodes=3)``) held against the reference's
    (``tools/reference_search_spread.json``), and the device head's on two
    Table-13 fleets against ``tools/reference_topology_spread.json``, by a
-   one-sided Mann-Whitney test, failing at p < 1e-3;
+   one-sided Mann-Whitney test, failing at p < 1e-3, and joint training's
+   (``MultiGraphTrainer(HSDAGConfig(num_devices=2, batch_chains=8,
+   max_episodes=3, update_timestep=10))``: each paper graph's joint best
+   and BERT-base's zero-shot greedy latency after training on Inception-v3
+   and ResNet-50, seeds 0-11) against
+   ``tools/reference_multi_spread.json``; then Table 7
+   (``benchmarks/table7_generalization.py``) on the card: one
+   ``MultiGraphTrainer`` over the three paper graphs (12 episodes, T=10,
+   B=8), the three held-out runs (train on two, ``evaluate_zero_shot`` on
+   the third) and a ``save_policy`` / ``load_policy`` round trip that must
+   decode the same greedy placements;
 2. LM serving: ``repro_torch.launch.serve`` at full width in bf16 with
    random weights, h2o-danube-1.8b (batch 4, prompt 4608 > its 4096 window,
    32 steps: ``rmsnorm``, ``flash_attention``) and mamba2-130m (batch 4,
@@ -120,6 +131,13 @@ TOPO_JSON = os.path.join(ROOT, "tools", "reference_topology_spread.json")
 TOPO_CONFIG = {"num_devices": 4, "head": "device", "max_episodes": 12,
                "update_timestep": 10, "batch_chains": 8}
 TOPO_CONTRACT = ("nvlink_island", "torus")
+# Table 7 (benchmarks/table7_generalization.py): the joint trainer's config
+# (the held-out runs take seed 1, as the benchmark's PRNGKey(1)), and the
+# contract's config and record (tools/reference_multi_spread.py)
+MULTI_CONFIG = {"num_devices": 2, "batch_chains": 8, "max_episodes": 12,
+                "update_timestep": 10}
+MULTI_JSON = os.path.join(ROOT, "tools", "reference_multi_spread.json")
+MULTI_CONTRACT_CONFIG = dict(MULTI_CONFIG, max_episodes=3)
 # the device head's fleet: two NVLink islands of four GPUs; the capacity
 # phase gives the first island 128 MB a GPU and the second 0.04 of it
 # (5.12 MB), which 8 of Inception-v3's nodes exceed
@@ -394,7 +412,8 @@ def scan_checks(torch, graphs, plat):
     """The scan backend: level_makespan on chain tables (one non-data node
     a row, heap-Kahn order; every case on the staged route, one lane a
     placement) bitwise against its plain version on the three paper graphs
-    at B = 1, 7, 320 and 4096, on the four-device platform, on the
+    at B = 1, 7, 80 (a joint-training window), 320 and 4096, on the
+    four-device platform, on the
     eight-GPU fleet and on the W=40 DAG; the backend against the host
     scheduler in its default (topo) order
     at 1e-5; then device and host time at B=320 on the three paper graphs
@@ -405,7 +424,9 @@ def scan_checks(torch, graphs, plat):
     backend = ScanBackend(device="cuda")
     four = four_devices()
     wide = wide_dag(1, 5, 40, 9, 2)
-    cases = [(g, plat, B) for g in graphs.values() for B in (1, 7, 320, 4096)]
+    # B=80: a joint-training window of one graph (T=10 × 8 chains)
+    cases = [(g, plat, B) for g in graphs.values()
+             for B in (1, 7, 80, 320, 4096)]
     cases += [(wide, plat, 7), (wide, plat, 320), (wide, four, 7),
               (wide, four, 320), (graphs["inception_v3"], four, 7),
               (graphs["inception_v3"], four, 320),
@@ -434,8 +455,8 @@ def scan_checks(torch, graphs, plat):
 def gcn_checks(torch, graphs):
     """gcn_aggregate forward and backward against its plain version on the
     three paper graphs at F = 37 (the scalar route), 128 and 200 (the
-    float4 route, 200 with a ragged second pass) and B = 1 and 16,
-    each case checking the route it took; then its time at the search's
+    float4 route, 200 with a ragged second pass) and B = 1, 8 (the joint
+    trainer's chains) and 16, each case checking the route it took; then its time at the search's
     shape (Inception-v3, B=16, F=128) beside the plain version and a dense
     ``torch.bmm``."""
     from repro_torch.core.gnn import normalize_adjacency
@@ -447,7 +468,7 @@ def gcn_checks(torch, graphs):
     for name, g in graphs.items():
         V, E = g.num_nodes, g.num_edges
         graph = gcn_graph(g.edges, V, "cuda")
-        for B in (1, 16):
+        for B in (1, 8, 16):
             keep = (torch.rand(B, E, generator=gen, device="cuda")
                     < 0.8).float()
             for F in (37, 128, 200):
@@ -528,7 +549,7 @@ def sage_checks(torch, graphs):
     for name, g in graphs.items():
         V, E = g.num_nodes, g.num_edges
         graph = gcn_graph(g.edges, V, "cuda")
-        for B in (1, 16):
+        for B in (1, 8, 16):
             keep = (torch.rand(B, E, generator=gen, device="cuda")
                     < 0.8).float()
             for F in (37, 128, 200):
@@ -1279,7 +1300,7 @@ def capacity_phase(torch, g, arrays):
     score = RewardPipeline.score_window
 
     def spy(self, fines):
-        seen.append(fines.clone())
+        seen.extend(f.clone() for f in fines)     # one window a graph
         return score(self, fines)
     RewardPipeline.score_window = spy
     try:
@@ -1422,7 +1443,170 @@ def contract_phase(graphs, plat):
             check(p >= CONTRACT_P,
                   f"the port's search on {name} (engine={engine}) is worse "
                   f"than the reference's: p = {p:.3g} < {CONTRACT_P}")
-    return min(worst, device_contract())
+    return min(worst, device_contract(), multi_contract(graphs, plat))
+
+
+def multi_contract(graphs, plat):
+    """The contract's joint-training pairs: for seeds 0-11 at
+    ``MULTI_CONTRACT_CONFIG``, each paper graph's best latency of the
+    port's ``MultiGraphTrainer`` over the three, and BERT-base's zero-shot
+    greedy latency after training on Inception-v3 and ResNet-50, beside the
+    reference's (``tools/reference_multi_spread.json``); the same test and
+    limit as the search pairs.  → the smallest p-value."""
+    from repro_torch import HSDAGConfig, MultiGraphTrainer, extract_features
+    from repro_torch.core import shared_feature_config
+    with open(MULTI_JSON) as f:
+        doc = json.load(f)
+    check(doc["config"] == MULTI_CONTRACT_CONFIG,
+          f"{MULTI_JSON} holds config {doc['config']}, not "
+          f"{MULTI_CONTRACT_CONFIG}")
+    seeds, to = doc["seeds"], doc["transfer_to"]
+    port = {name: [] for name in doc["joint"]}
+    port[f"{to} zero-shot"] = []
+    # what train() would featurize without arrays=, once for every seed
+    runs = {}
+    for part in ("joint", "transfer_from"):
+        gs = [graphs[n] for n in doc[part]]
+        fc = shared_feature_config(gs)
+        runs[part] = (gs, [extract_features(g, fc) for g in gs], fc)
+    to_arrays = extract_features(graphs[to], runs["transfer_from"][2])
+    t0 = time.perf_counter()
+    for s in seeds:
+        cfg = HSDAGConfig(seed=s, **MULTI_CONTRACT_CONFIG)
+        gs, arrays, fc = runs["joint"]
+        res = MultiGraphTrainer(cfg).train(gs, arrays, platform=plat,
+                                           feature_cfg=fc)
+        for name, lat in zip(doc["joint"], res.best_latencies):
+            port[name].append(float(lat))
+        gs, arrays, fc = runs["transfer_from"]
+        t = MultiGraphTrainer(cfg)
+        t.train(gs, arrays, platform=plat, feature_cfg=fc)
+        port[f"{to} zero-shot"].append(t.evaluate_zero_shot(
+            graphs[to], platform=plat, arrays=to_arrays)[1])
+    print(f"[contract] multi: {2 * len(seeds)} joint trainings in "
+          f"{time.perf_counter() - t0:.2f} s")
+    worst = 1.0
+    for name, lat in port.items():
+        part, key = (("transfer", to) if name.endswith("zero-shot")
+                     else ("joint", name))
+        ref = np.array([doc["results"][part][key][str(s)] for s in seeds])
+        lat = np.array(lat)
+        p = one_sided_p(lat, ref)
+        worst = min(worst, p)
+        print(f"[contract] multi {name}: port median "
+              f"{np.median(lat) * 1e3:.6f} ms (range "
+              f"{lat.min() * 1e3:.6f}-{lat.max() * 1e3:.6f}), reference "
+              f"median {np.median(ref) * 1e3:.6f} ms (range "
+              f"{ref.min() * 1e3:.6f}-{ref.max() * 1e3:.6f}), Mann-Whitney "
+              f"p(port worse) = {p:.4g}")
+        print(f"[contract] multi {name} port ms: "
+              f"{[round(float(x) * 1e3, 6) for x in lat]}")
+        check(p >= CONTRACT_P,
+              f"the port's joint training ({name}) is worse than the "
+              f"reference's: p = {p:.3g} < {CONTRACT_P}")
+    return worst
+
+
+def multi_phase(torch, graphs, plat):
+    """Table 7 on the card (``benchmarks/table7_generalization.py``): one
+    ``MultiGraphTrainer`` over the three paper graphs at ``MULTI_CONFIG``,
+    then each graph held out (trained on the other two, seed 1, decoded
+    zero-shot), then a ``save_policy`` / ``load_policy`` round trip in a
+    temporary directory whose restored policy must hold the trained weights
+    and decode the same greedy placements.  Each run's kernel counts are
+    zeroed just before it and read just after it; best and greedy latencies
+    are held against the host scheduler at 1e-5."""
+    import tempfile
+    from repro_torch import (HSDAGConfig, MultiGraphTrainer,
+                             extract_features, simulate)
+    from repro_torch.core.baselines import cpu_only, gpu_only
+    t_phase = time.perf_counter()
+    names = list(graphs)
+    cfg = HSDAGConfig(**MULTI_CONFIG)
+    trainer = MultiGraphTrainer(cfg)
+    res, n = counted(torch, lambda: trainer.train(
+        [graphs[k] for k in names], platform=plat))
+    for h in res.history:
+        print(f"[multi] joint episode {h['episode']}: wall "
+              f"{h['wall_s']:.3f} s, mean reward {h['mean_reward']:.4f}, "
+              f"best ms {[round(x * 1e3, 6) for x in h['per_graph_best']]}, "
+              f"mean groups {h['mean_groups']:.1f}")
+    walls = [h["wall_s"] for h in res.history[1:]]
+    steady = cfg.update_timestep * len(names) * cfg.batch_chains \
+        * len(walls) / sum(walls)
+    print(f"[multi] joint G={len(names)} B={cfg.batch_chains} "
+          f"T={cfg.update_timestep}: {res.num_evaluations} evaluations in "
+          f"{res.wall_time_s:.3f} s ({res.evals_per_sec:.1f} evals/s; "
+          f"{steady:.1f} evals/s over episodes 1-{len(walls)}); episode "
+          f"wall median {np.median(walls):.3f} s (range "
+          f"{min(walls):.3f}-{max(walls):.3f}); launches over train + "
+          f"greedy decodes: {n}")
+    check(n["level_makespan"] == cfg.max_episodes * len(names),
+          f"the joint run scored {n['level_makespan']} windows through the "
+          f"level kernel, not one a graph and episode")
+    check(n["gcn_aggregate"] > 0, "the joint run never launched the gcn "
+                                  "kernel")
+    for i, name in enumerate(names):
+        g = graphs[name]
+        cpu = simulate(g, cpu_only(g), plat).latency
+        gpu = simulate(g, gpu_only(g), plat).latency
+        best, greedy = res.best_latencies[i], res.greedy_latencies[i]
+        host_best = simulate(g, res.best_placements[i], plat).latency
+        host_greedy = simulate(g, res.greedy_placements[i], plat).latency
+        print(f"[multi] joint {name}: best {best * 1e3:.6f} ms (host "
+              f"{host_best * 1e3:.6f}), greedy {greedy * 1e3:.6f} ms (host "
+              f"{host_greedy * 1e3:.6f}); cpu_only {cpu * 1e3:.6f} ms, "
+              f"gpu_only {gpu * 1e3:.6f} ms")
+        check(abs(best - host_best) <= TOL * host_best
+              and abs(greedy - host_greedy) <= TOL * host_greedy,
+              f"the joint run's latencies on {name} disagree with the host "
+              f"scheduler")
+
+    for held in names:
+        rest = [k for k in names if k != held]
+        t = MultiGraphTrainer(HSDAGConfig(seed=1, **MULTI_CONFIG))
+
+        def run():
+            r = t.train([graphs[k] for k in rest], platform=plat)
+            return r, t.evaluate_zero_shot(graphs[held], platform=plat)
+        (r, (p, lat)), n = counted(torch, run)
+        g = graphs[held]
+        host = simulate(g, p, plat).latency
+        cpu = simulate(g, cpu_only(g), plat).latency
+        gpu = simulate(g, gpu_only(g), plat).latency
+        w = [h["wall_s"] for h in r.history[1:]]
+        print(f"[multi] held out {held} (trained on {'+'.join(rest)}): "
+              f"zero-shot greedy {lat * 1e3:.6f} ms (host "
+              f"{host * 1e3:.6f}), cpu_only {cpu * 1e3:.6f} ms, gpu_only "
+              f"{gpu * 1e3:.6f} ms; training bests ms "
+              f"{[round(float(x) * 1e3, 6) for x in r.best_latencies]}, "
+              f"episode wall median {np.median(w):.3f} s, "
+              f"{r.evals_per_sec:.1f} evals/s; launches {n}")
+        check(p.shape == (g.num_nodes,) and abs(lat - host) <= TOL * host,
+              f"the zero-shot decode of {held} disagrees with the host "
+              f"scheduler")
+        check(n["level_makespan"] > 0 and n["gcn_aggregate"] > 0,
+              f"the run holding out {held} did not launch the search's "
+              f"kernels")
+
+    with tempfile.TemporaryDirectory() as d:
+        trainer.save_policy(d, step=cfg.max_episodes)
+        restored = MultiGraphTrainer(cfg)
+        restored.init(extract_features(graphs[names[0]],
+                                       trainer.feature_config))
+        check(restored.load_policy(d) == cfg.max_episodes
+              and restored.feature_config == trainer.feature_config,
+              "load_policy did not restore the step and feature layout")
+    check(all(torch.equal(a, b) for a, b in zip(
+        restored.policy.parameters(), trainer.policy.parameters())),
+        "the restored policy's weights are not the trained ones")
+    for name in names:
+        arrays = extract_features(graphs[name], trainer.feature_config)
+        check(np.array_equal(restored.place(arrays), trainer.place(arrays)),
+              f"the restored policy decodes {name} differently")
+    print(f"[multi] save_policy / load_policy: weights equal, greedy "
+          f"placements equal on {len(names)} graphs")
+    print(f"[phase] multi (Table 7): {time.perf_counter() - t_phase:.2f} s")
 
 
 def device_contract():
@@ -1550,8 +1734,9 @@ def main() -> int:
     topology_phase(torch)
     t_phase = time.perf_counter()
     contract_p = contract_phase(graphs, plat)
-    print(f"[phase] contract (96 port searches): "
+    print(f"[phase] contract (96 port searches, 24 joint trainings): "
           f"{time.perf_counter() - t_phase:.2f} s; smallest p {contract_p:.4g}")
+    multi_phase(torch, graphs, plat)
 
     # ---- the LM kernels against their plain versions ----
     t_phase = time.perf_counter()

@@ -7,9 +7,11 @@ nothing of it.  Entry points run on the card unless the caller passes
 ``device="cpu"``.
 """
 from .core import (HSDAG, CompGraph, FeatureConfig, HSDAGConfig,
-                   extract_features, paper_platform, simulate)
+                   MultiGraphTrainer, extract_features, paper_platform,
+                   simulate)
 from .graphs import PAPER_BENCHMARKS
 
 __all__ = ["HSDAG", "CompGraph", "FeatureConfig", "HSDAGConfig",
+           "MultiGraphTrainer",
            "extract_features", "paper_platform", "simulate",
            "PAPER_BENCHMARKS"]

@@ -6,16 +6,14 @@ The reference keeps its parameters as a nested tree of arrays,
 ``gnn`` layers hold ``{"w_self", "w_nbr"}``; the device head's ``pol`` is
 ``{"mlp": [...], "dev": [...]}``), with every weight stored
 (in, out) and applied as ``x @ w``.  ``nn.Linear`` stores the transpose.
-This module maps between the two and reads the reference's ``save_policy``
-checkpoints (``step_<n>/state.npz`` + ``manifest.json``) with numpy alone.
+This module maps between the two; ``checkpoint/manager.py`` reads and
+writes the reference's checkpoint format.
 
 The LM's parameters keep the reference's tree and layouts in the port, so
 ``lm_params_from_numpy`` copies them leaf for leaf.
 """
 from __future__ import annotations
 
-import json
-import os
 from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
@@ -102,31 +100,11 @@ def params_from_numpy(tree: Dict) -> HSDAGPolicy:
 
 def load_reference_policy(directory: str,
                           step: Optional[int] = None) -> Tuple[Dict, Dict]:
-    """Read a reference ``save_policy`` checkpoint → (tree, manifest).
-
-    ``step=None`` takes the latest complete step.
-    """
-    if step is None:
-        steps = sorted(
-            int(name[5:]) for name in os.listdir(directory)
-            if name.startswith("step_") and not name.endswith(".tmp")
-            and os.path.exists(os.path.join(directory, name,
-                                            "manifest.json")))
-        if not steps:
-            raise FileNotFoundError(f"no checkpoints under {directory!r}")
-        step = steps[-1]
-    step_dir = os.path.join(directory, f"step_{step:010d}")
-    with open(os.path.join(step_dir, "manifest.json")) as f:
-        manifest = json.load(f)
-    tree: Dict = {}
-    with np.load(os.path.join(step_dir, "state.npz")) as data:
-        for key in data.files:
-            path = [int(p) if p.isdigit() else p for p in key.split("/")]
-            node = tree
-            for p in path[:-1]:
-                node = node.setdefault(p, {})
-            node[path[-1]] = data[key]
-    return _lists(tree), manifest
+    """Read a ``save_policy`` checkpoint of either package → (tree,
+    manifest); ``step=None`` takes the latest complete step."""
+    from .manager import restore_policy
+    tree, _, _, manifest = restore_policy(directory, step=step)
+    return tree, manifest
 
 
 def _leaf_tensor(a, path: str) -> torch.Tensor:

@@ -11,6 +11,10 @@ A calibrated DAG list-scheduler simulator:
 ``simulate`` is the f64 reference scheduler.  ``sim_arrays`` precomputes the
 placement-independent dense view (:class:`SimArrays`) that the level-parallel
 makespan kernel (``kernels/levelsim.py``) scores batches of placements on.
+``pad_sim_arrays`` / ``sim_arrays_batch`` / ``sim_arrays_bucketed`` pad such
+views to a common node count for multi-graph batches (pad slots are inert
+data ops), and ``critical_path`` is a lower bound on any placement's
+makespan.
 """
 from __future__ import annotations
 
@@ -25,7 +29,9 @@ from .graph import CompGraph, topological_order
 
 __all__ = [
     "DeviceSpec", "Platform", "simulate", "SimResult", "paper_platform",
-    "SimArrays", "sim_arrays", "BatchSimResult",
+    "SimArrays", "sim_arrays", "BatchSimResult", "SimArraysBatch",
+    "pad_sim_arrays", "sim_arrays_batch", "plan_buckets",
+    "sim_arrays_bucketed", "critical_path",
 ]
 
 
@@ -440,3 +446,193 @@ class BatchSimResult:
 
     def __len__(self) -> int:
         return int(self.latency.shape[0])
+
+
+# --------------------------------------------------------------------------
+# Multi-graph batching: pad per-graph SimArrays to a common (G, V_max) shape.
+#
+# The padding contract: every pad slot is a zero-byte "data" op with zero
+# duration and sentinel-only predecessors, appended *after* the real
+# topological order.  Data ops are exact no-ops in the list schedule (finish
+# pinned to 0, queues and the transfer sum untouched), so the padded
+# makespan is bitwise the unpadded one.
+# --------------------------------------------------------------------------
+
+
+class SimArraysBatch(NamedTuple):
+    """G padded :class:`SimArrays` stacked on a leading graph axis.
+
+    ``arrays`` holds one SimArrays whose every field carries a leading G
+    axis; ``node_mask`` marks real node slots (pad slots are inert data ops).
+    """
+
+    arrays: SimArrays        # each field: (G, ...) stacked padded view
+    node_mask: np.ndarray    # (G, V_max) bool — True at real node slots
+    num_nodes: np.ndarray    # (G,) int32 — real node count per graph
+
+    @property
+    def num_graphs(self) -> int:
+        return int(self.node_mask.shape[0])
+
+    @property
+    def max_nodes(self) -> int:
+        return int(self.node_mask.shape[1])
+
+    @property
+    def num_devices(self) -> int:
+        return int(self.arrays.op_time.shape[1])
+
+
+def pad_sim_arrays(sa: SimArrays, v_max: int,
+                   p_max: Optional[int] = None) -> SimArrays:
+    """Pad one graph's dense view to ``v_max`` node slots / ``p_max`` preds.
+
+    Pad slots are data ops (no duration, no bytes, sentinel preds), so the
+    padded view's makespan matches the unpadded one exactly for any
+    ``v_max >= V`` — including V_max ≫ V.
+    """
+    n = sa.num_nodes
+    p = sa.preds.shape[1]
+    p_max = p if p_max is None else p_max
+    if v_max < n or p_max < p:
+        raise ValueError(f"cannot pad {n} nodes/{p} preds down to "
+                         f"({v_max}, {p_max})")
+    if v_max == n and p_max == p:
+        return sa
+    order = np.concatenate([sa.order,
+                            np.arange(n, v_max, dtype=np.int32)])
+    # Real rows keep their original sentinel n; pad rows use v_max.  Both
+    # slots are data ops in the padded view, so both sentinels are inert.
+    preds = np.full((v_max, p_max), v_max, dtype=np.int32)
+    preds[:n, :p] = sa.preds
+    levels = np.concatenate([sa.levels, np.zeros(v_max - n, np.int32)])
+    ndev = sa.op_time.shape[0]
+    op_time = np.zeros((ndev, v_max), np.float32)
+    op_time[:, :n] = sa.op_time
+    bytes_out = np.zeros(v_max + 1, np.float32)
+    bytes_out[:n] = sa.bytes_out[:n]
+    is_data = np.ones(v_max + 1, bool)
+    is_data[:n] = sa.is_data[:n]
+    fit_ok = np.ones((v_max, sa.fit_ok.shape[1]), bool)  # pads fit anywhere
+    fit_ok[:n] = sa.fit_ok
+    return SimArrays(order=order, preds=preds, levels=levels,
+                     op_time=op_time, bytes_out=bytes_out, is_data=is_data,
+                     inv_bw=sa.inv_bw, lat=sa.lat,
+                     mem_capacity=sa.mem_capacity, queue_init=sa.queue_init,
+                     fit_ok=fit_ok)
+
+
+def sim_arrays_batch(graphs: Sequence[CompGraph], platform: Platform, *,
+                     v_max: Optional[int] = None,
+                     p_max: Optional[int] = None,
+                     schedule: str = "topo") -> SimArraysBatch:
+    """Stack ``graphs`` into one padded (G, V_max) batch for ``platform``.
+
+    ``v_max``/``p_max`` pin the node/predecessor axes beyond the batch
+    maximum (a bucketed trainer fixes them per size bucket).
+    """
+    if not graphs:
+        raise ValueError("sim_arrays_batch needs at least one graph")
+    if any(g.num_nodes == 0 for g in graphs):
+        raise ValueError("cannot batch an empty graph")
+    sas = [sim_arrays(g, platform, schedule=schedule) for g in graphs]
+    vm = max(sa.num_nodes for sa in sas)
+    if v_max is not None:
+        if v_max < vm:
+            raise ValueError(f"v_max={v_max} < largest graph ({vm} nodes)")
+        vm = v_max
+    pm = max(sa.preds.shape[1] for sa in sas)
+    if p_max is not None:
+        if p_max < pm:
+            raise ValueError(f"p_max={p_max} < largest in-degree ({pm})")
+        pm = p_max
+    padded = [pad_sim_arrays(sa, vm, pm) for sa in sas]
+    stacked = SimArrays(*[np.stack([getattr(sa, f) for sa in padded])
+                          for f in SimArrays._fields])
+    node_mask = np.zeros((len(sas), vm), dtype=bool)
+    for i, sa in enumerate(sas):
+        node_mask[i, :sa.num_nodes] = True
+    return SimArraysBatch(stacked, node_mask,
+                          np.asarray([sa.num_nodes for sa in sas], np.int32))
+
+
+# --------------------------------------------------------------------------
+# Size-bucketed batching: bound pad waste for corpora whose sizes span a
+# wide range — each bucket is padded only to its own maximum, and the
+# padding contract keeps every bucket's makespans bitwise the unpadded ones.
+# --------------------------------------------------------------------------
+
+
+def plan_buckets(sizes: Sequence[int], max_buckets: int) -> List[List[int]]:
+    """Partition graph indices into ≤ ``max_buckets`` size-contiguous buckets
+    minimizing total pad waste (Σ bucket_max − size; exact DP over the sorted
+    sizes).  Deterministic: ties keep input order; buckets are returned
+    smallest-sizes first.
+    """
+    if max_buckets < 1:
+        raise ValueError(f"max_buckets must be >= 1, got {max_buckets}")
+    n = len(sizes)
+    if n == 0:
+        return []
+    order = sorted(range(n), key=lambda i: (sizes[i], i))
+    s = [int(sizes[i]) for i in order]
+    k = min(max_buckets, n)
+    # cost(i, j): waste of one bucket spanning sorted slots i..j (pad to s[j])
+    prefix = np.concatenate([[0], np.cumsum(s)])
+
+    def cost(i, j):
+        return s[j] * (j - i + 1) - (prefix[j + 1] - prefix[i])
+    INF = float("inf")
+    dp = [[INF] * (k + 1) for _ in range(n + 1)]   # dp[j][b]: first j slots
+    cut = [[0] * (k + 1) for _ in range(n + 1)]
+    dp[0][0] = 0.0
+    for j in range(1, n + 1):
+        for b in range(1, k + 1):
+            for i in range(b - 1, j):
+                c = dp[i][b - 1] + cost(i, j - 1)
+                if c < dp[j][b]:
+                    dp[j][b] = c
+                    cut[j][b] = i
+    best_b = min(range(1, k + 1), key=lambda b: (dp[n][b], b))
+    bounds = []
+    j, b = n, best_b
+    while b > 0:
+        i = cut[j][b]
+        bounds.append((i, j))
+        j, b = i, b - 1
+    return [[order[t] for t in range(i, j)] for i, j in reversed(bounds)]
+
+
+def sim_arrays_bucketed(graphs: Sequence[CompGraph], platform: Platform, *,
+                        max_buckets: int, schedule: str = "topo",
+                        buckets: Optional[List[List[int]]] = None
+                        ) -> Tuple[List[List[int]], List[SimArraysBatch]]:
+    """→ (buckets, batches): the graphs split into ≤ ``max_buckets`` padded
+    batches, each padded to its *bucket's* maximum.  ``buckets`` overrides
+    the :func:`plan_buckets` partition (any index partition is valid).
+    """
+    if buckets is None:
+        buckets = plan_buckets([g.num_nodes for g in graphs], max_buckets)
+    batches = [sim_arrays_batch([graphs[i] for i in idx], platform,
+                                schedule=schedule)
+               for idx in buckets]
+    return buckets, batches
+
+
+def critical_path(g: CompGraph, platform: Platform) -> float:
+    """Lower bound: longest path assuming every op runs on its best device
+    and transfers are free."""
+    n = g.num_nodes
+    best = np.array([min(_op_time(node.flops, node.bytes_out, d,
+                                  op_class(node.op_type), _eff_hint(node, d))
+                         for d in platform.devices) for node in g.nodes])
+    order = topological_order(g)
+    dist = np.zeros(n)
+    preds: List[List[int]] = [[] for _ in range(n)]
+    for s, d in g.edges:
+        preds[int(d)].append(int(s))
+    for v in order:
+        v = int(v)
+        p = max((dist[u] for u in preds[v]), default=0.0)
+        dist[v] = p + best[v]
+    return float(dist.max()) if n else 0.0

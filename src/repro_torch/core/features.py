@@ -30,6 +30,9 @@ __all__ = [
     "GraphArrays",
     "GraphArraysBatch",
     "batch_graph_arrays",
+    "batch_graph_arrays_bucketed",
+    "shared_feature_config",
+    "check_feature_compat",
 ]
 
 
@@ -183,6 +186,28 @@ class GraphArraysBatch:
         return not (bool(self.node_mask.all()) and bool(self.edge_mask.all()))
 
 
+def shared_feature_config(graphs: Sequence[CompGraph],
+                          base: FeatureConfig = FeatureConfig()
+                          ) -> FeatureConfig:
+    """A FeatureConfig whose vocabularies span every graph in ``graphs``.
+
+    Cross-graph training needs one feature layout: the op-type / degree
+    one-hots must index into shared vocabularies or the same column means
+    different things on different graphs (and widths disagree).  Held-out
+    graphs evaluated zero-shot must be featurized with this same config.
+    """
+    ops, in_deg, out_deg = set(), set(), set()
+    for g in graphs:
+        ops.update(g.op_types())
+        in_deg.update(g.in_degrees().tolist())
+        out_deg.update(g.out_degrees().tolist())
+    return dataclasses.replace(
+        base,
+        op_vocab=tuple(sorted(ops)),
+        in_deg_vocab=tuple(sorted(in_deg)),
+        out_deg_vocab=tuple(sorted(out_deg)))
+
+
 def batch_graph_arrays(arrays: Sequence[GraphArrays], *,
                        v_max: Optional[int] = None,
                        e_max: Optional[int] = None) -> GraphArraysBatch:
@@ -198,8 +223,7 @@ def batch_graph_arrays(arrays: Sequence[GraphArrays], *,
     if len(widths) != 1:
         raise ValueError(
             f"feature widths differ across graphs ({sorted(widths)}); "
-            "extract all graphs with one FeatureConfig whose vocabularies "
-            "span them")
+            "extract all graphs with one shared_feature_config()")
     vm = max(a.num_nodes for a in arrays)
     if v_max is not None:
         if v_max < vm:
@@ -227,6 +251,55 @@ def batch_graph_arrays(arrays: Sequence[GraphArrays], *,
         x=x, adj=adj, edges=edges, node_mask=node_mask, edge_mask=edge_mask,
         num_nodes=np.asarray([a.num_nodes for a in arrays], np.int32),
         num_edges=np.asarray([a.edges.shape[0] for a in arrays], np.int32))
+
+
+def batch_graph_arrays_bucketed(arrays: Sequence[GraphArrays], *,
+                                max_buckets: int,
+                                buckets: Optional[Sequence[Sequence[int]]]
+                                = None):
+    """→ (buckets, batches): encoder-side twin of
+    :func:`~repro_torch.core.costmodel.sim_arrays_bucketed` — the per-graph
+    arrays split into ≤ ``max_buckets`` size-contiguous batches, each padded
+    only to its own bucket maximum.
+    """
+    from .costmodel import plan_buckets
+    if buckets is None:
+        buckets = plan_buckets([a.num_nodes for a in arrays], max_buckets)
+    batches = [batch_graph_arrays([arrays[i] for i in idx])
+               for idx in buckets]
+    return [list(idx) for idx in buckets], batches
+
+
+def check_feature_compat(cfg: FeatureConfig,
+                         graphs: Sequence[CompGraph]) -> None:
+    """Validate that ``cfg``'s saved vocabularies cover ``graphs``.
+
+    A warm-started policy is only meaningful if the new graphs' one-hot
+    columns line up with the layout it was trained on; an op type absent
+    from the saved ``op_vocab`` would be encoded all-zero.  Raises
+    ``ValueError`` naming every mismatched op type.
+    """
+    if cfg.op_vocab is None:
+        raise ValueError(
+            "feature config has no op_vocab — it was not saved from a "
+            "(shared-vocabulary) training run and cannot be validated "
+            "against new graphs")
+    known = set(cfg.op_vocab)
+    missing: Dict[str, List[str]] = {}
+    for g in graphs:
+        unknown = sorted(set(g.op_types()) - known)
+        if unknown:
+            missing[g.name] = unknown
+    if missing:
+        detail = "; ".join(f"{name}: {ops}" for name, ops in
+                           sorted(missing.items()))
+        raise ValueError(
+            f"checkpoint feature vocabulary does not cover the new graphs — "
+            f"op types absent from the saved op_vocab would get all-zero "
+            f"one-hot columns and silently corrupt fine-tuning. Unknown op "
+            f"types by graph: {detail}. Re-train with a corpus spanning "
+            f"these op types, or extract features with a fresh "
+            f"shared_feature_config() and train from scratch.")
 
 
 def extract_features(g: CompGraph,

@@ -1,13 +1,22 @@
 """HSDAG — the paper's framework end to end (§2, Fig. 1, Alg. 1), PyTorch.
 
-Port of ``repro/core/hsdag.py`` for the single-graph search and the
-decode::
+Port of ``repro/core/hsdag.py``: the single-graph search and the decode::
 
     graph  = inception_v3()
     arrays = extract_features(graph)
     agent  = HSDAG(HSDAGConfig(batch_chains=16))
     result = agent.search(graph, arrays, platform=paper_platform())
     placement = agent.place(arrays)
+
+and joint training of one policy over several graphs, with zero-shot
+transfer to a held-out graph and the reference's checkpoint format::
+
+    trainer = MultiGraphTrainer(HSDAGConfig(batch_chains=8))
+    res = trainer.train([inception_v3(), resnet50()],
+                        platform=paper_platform())
+    placement, latency = trainer.evaluate_zero_shot(
+        bert_base(), platform=paper_platform())
+    trainer.save_policy("ckpt/joint")      # the reference's restore reads it
 
 ``head="device"`` conditions the policy on a fleet (``platforms``)::
 
@@ -46,22 +55,24 @@ from .._device import resolve_device
 from ..kernels.gcn_spmm import GCNGraph, gcn_graph
 from ..optim.adamw import Adam
 from .costmodel import Platform, simulate
-from .features import GraphArrays
+from .features import (FeatureConfig, GraphArrays, extract_features,
+                       shared_feature_config)
 from . import prng
 from .gnn import Encoder, encoder_init
 from .gpn import GPN, ParseResult, gpn_apply, gpn_init
 from .graph import CompGraph
 from .policy import (DensePolicy, DevicePolicy, PolicyOutput, policy_apply,
                      policy_init)
-from .reinforce import RunningBaseline, step_weights
+from .reinforce import RunningBaseline
 from .sim import backend_names
 from .sim.pipeline import RewardPipeline
-from .sim.rollout import ChainStreams, RolloutEngine
+from .sim.rollout import ChainStreams, MultiRolloutEngine, RolloutEngine
+from .train.loop import BestTracker, EpisodeRunner, WindowStream
 from .train.population import (PopulationConfig, PopulationController,
                                population_generator)
 
 __all__ = ["HSDAGConfig", "HSDAG", "HSDAGPolicy", "SearchResult",
-           "StepOutput"]
+           "StepOutput", "MultiGraphTrainer", "MultiSearchResult"]
 
 #: rollout loops; every other engine names a registered simulator backend,
 #: which runs the batched loop with that reward.
@@ -223,6 +234,21 @@ class SearchResult(NamedTuple):
     chain_best: Optional[np.ndarray] = None   # (B,) per-chain best latency
 
 
+class MultiSearchResult(NamedTuple):
+    """Outcome of one joint cross-graph training run (``train_multi``)."""
+
+    best_placements: List[np.ndarray]   # per graph: best sampled, (V_g,) i64
+    best_latencies: np.ndarray          # (G,) seconds
+    greedy_placements: List[np.ndarray]  # per graph: greedy decode after train
+    greedy_latencies: np.ndarray        # (G,) seconds
+    history: List[dict]                 # per-episode stats
+    params: HSDAGPolicy                 # the one shared policy
+    wall_time_s: float
+    num_evaluations: int                # placements scored (episodes·T·G·B)
+    evals_per_sec: float
+    chain_best: Optional[np.ndarray] = None   # (G, B) per-chain best latency
+
+
 class HSDAG:
     """The framework object: owns the policy, its optimizer and the device."""
 
@@ -231,6 +257,9 @@ class HSDAG:
         self.device = resolve_device(device)
         self.policy: Optional[HSDAGPolicy] = None
         self._opt: Optional[Adam] = None
+        # Set by train_multi(): the layout held-out graphs must be
+        # featurized with so the shared policy sees the same columns.
+        self.feature_config: Optional[FeatureConfig] = None
         # head="device": the (D, F_dev) fleet table the policy is
         # conditioned on, set by bind_platform(); place() decodes with it.
         self._dev_feats: Optional[np.ndarray] = None
@@ -290,7 +319,6 @@ class HSDAG:
         return gcn_graph(arrays.edges, arrays.num_nodes, self.device)
 
     def rollout_engine(self, arrays: GraphArrays,
-                       population: Optional[PopulationConfig] = None,
                        pipeline: Optional[RewardPipeline] = None
                        ) -> RolloutEngine:
         """The window rollout/replay engine for one graph.
@@ -315,8 +343,7 @@ class HSDAG:
                 action_mask = torch.as_tensor(pipeline.fit_ok,
                                               device=self.device)
         return RolloutEngine(self.policy, self.cfg, x0=x0,
-                             graph=self._graph(arrays),
-                             population=population, dev_feats=dev_feats,
+                             graph=self._graph(arrays), dev_feats=dev_feats,
                              action_mask=action_mask)
 
     # ---------------------------------------------------------------- search
@@ -400,112 +427,166 @@ class HSDAG:
         else:
             pipeline = RewardPipeline.from_platform(
                 graph, platform, reward_backend(engine), device=self.device)
-        return self._search_batched(arrays, pipeline, verbose, population)
+        # The episode loop of train_multi over this one graph, with raw
+        # rewards and the EMA baseline.
+        t_start = time.perf_counter()
+        runner, stream = self._runner([arrays], pipeline, reward_norm="none",
+                                      population=population)
+        history = self._run_episodes(runner, stream, verbose)
+        wall = time.perf_counter() - t_start
+        n_evals = cfg.max_episodes * cfg.update_timestep * max(
+            1, cfg.batch_chains)
+        tracker = runner.tracker
+        return SearchResult(tracker.best_placements[0],
+                            float(tracker.best_latencies[0]), history,
+                            self.policy, {}, wall, n_evals,
+                            n_evals / max(wall, 1e-9), tracker.chain_best[0])
 
-    # ------------------------------------------------ batched multi-chain loop
-    def _search_batched(self, arrays: GraphArrays, pipeline: RewardPipeline,
-                        verbose: bool,
-                        population: Optional[PopulationConfig] = None
-                        ) -> SearchResult:
-        """B parallel chains, each window scored by ``pipeline``; the order
-        of an episode is the reference's: roll out, score, fold the chain
-        bests, update ``k_epochs`` times at the temperatures the window
-        sampled at, then the PBT round, whose states start the next
-        window."""
+    def _runner(self, arrays: List[GraphArrays], pipeline: RewardPipeline,
+                *, reward_norm: str,
+                population: Optional[PopulationConfig] = None):
+        """The episode runner over ``arrays``' graphs, scored by
+        ``pipeline`` → (``EpisodeRunner``, fresh ``WindowStream``).
+        Initializes the policy on the first graph if it has none."""
         cfg = self.cfg
         nchains = max(1, cfg.batch_chains)
-        t_start = time.perf_counter()
         if self.policy is None:
-            self.init(arrays)
-        rollout = self.rollout_engine(arrays, population, pipeline)
-        streams = ChainStreams(cfg.seed, nchains, self.device)
-        baseline = RunningBaseline() if cfg.use_baseline else None
-        # The population draws from its own generator, so the chain
-        # streams — and a search without one — are untouched.
+            self.init(arrays[0])
+        # One engine a graph over the shared policy, each with its graph's
+        # capacity mask when the reward carries one.
+        engine = MultiRolloutEngine(
+            [self.rollout_engine(a, pipeline.graph(g))
+             for g, a in enumerate(arrays)], population=population)
+        # The per-graph standardization is itself a per-graph baseline; the
+        # raw-scale EMA would swamp the standardized rewards.
+        baseline = (RunningBaseline()
+                    if cfg.use_baseline and reward_norm != "pergraph"
+                    else None)
         controller = pop = None
         if population is not None:
-            controller = PopulationController(population,
-                                              num_chains=nchains)
-            pop = rollout.init_population(
+            # The population draws from its own generator, so the chain
+            # streams — and a run without one — are untouched.
+            controller = PopulationController(population, num_chains=nchains)
+            pop = engine.init_population(
                 population_generator(cfg.seed, self.device),
                 num_chains=nchains)
+        runner = EpisodeRunner(
+            self, engine, pipeline=pipeline,
+            tracker=BestTracker([a.num_nodes for a in arrays], nchains),
+            reward_norm=reward_norm, baseline=baseline,
+            controller=controller)
+        return runner, WindowStream.fresh(engine, cfg.seed, nchains,
+                                          self.device, pop=pop)
 
-        best_latency = float("inf")
-        best_placement = np.zeros(arrays.num_nodes, dtype=np.int64)
-        chain_best = np.full(nchains, np.inf)
+    def _run_episodes(self, runner: EpisodeRunner, stream: WindowStream,
+                      verbose: bool) -> List[dict]:
+        """``cfg.max_episodes`` episodes of ``runner`` → the history."""
         history: List[dict] = []
-        z0_window = rollout.x0.expand(nchains, *rollout.x0.shape)
-        first_of_window = True
-        tsteps = cfg.update_timestep
-
-        for episode in range(cfg.max_episodes):
-            t_ep = time.perf_counter()
-            z, record, fines, ngroups = rollout.rollout_window(
-                z0_window, num_steps=tsteps, start_first=first_of_window,
-                streams=streams,
-                temperature=pop.temperature if pop is not None else None)
-            rewards, latencies = pipeline.score_window(fines)
-            fines_np = fines.cpu().numpy()
-            if pop is not None:
-                pop = rollout.update_population(pop, fines, latencies)
-
-            # Bookkeeping in (t, b) order — the reference's order (EMA
-            # baseline order and strict-< best tie-breaks matter).
-            for t in range(tsteps):
-                for b in range(nchains):
-                    if baseline is not None:
-                        baseline.update(rewards[t, b])
-                    if latencies[t, b] < best_latency:
-                        best_latency = float(latencies[t, b])
-                        best_placement = fines_np[t, b].astype(np.int64)
-            chain_best = np.minimum(chain_best, latencies.min(axis=0))
-
-            # ---- policy update over the (B, T) window (Eq. 14) ----
-            weights_bt = step_weights(
-                rewards.T, cfg.gamma, reward_to_go=cfg.reward_to_go,
-                baseline=(baseline.value if baseline is not None else None),
-                normalize=cfg.normalize_weights)
-            weights = torch.as_tensor(weights_bt.T.copy(), device=self.device)
-            for epoch in range(max(1, cfg.k_epochs)):
-                # Epochs ≥ 2 replay the window's draws under the updated
-                # weights, as the reference replays its keys.
-                self.apply_grads(rollout.window_grads(
-                    z0_window, record, weights, start_first=first_of_window,
-                    rederive=epoch > 0))
-            pop_stats: Dict = {}
-            if controller is not None:
-                # After the update (the replay must see the temperatures
-                # this window sampled at); new states and temperatures
-                # take effect next window.
-                due, use_greedy = controller.note_window()
-                if due:
-                    pop, z = rollout.pbt_step(pop, z, use_greedy=use_greedy)
-                pop_stats = {
-                    "culled": bool(due),
-                    "pop_best_latency": float(pop.best_latency.min()),
-                    "temp_mean": float(pop.temperature.mean()),
-                }
-            z0_window = z
-            first_of_window = False
-            history.append({
-                "episode": episode,
-                "mean_reward": float(np.mean(rewards)),
-                "best_latency": best_latency,
-                "mean_groups": float(ngroups.double().mean()),
-                "wall_s": time.perf_counter() - t_ep,
-                **pop_stats,
-            })
+        for episode in range(self.cfg.max_episodes):
+            history.append({"episode": episode,
+                            **runner.run_episode(stream)})
             if verbose:
                 h = history[-1]
+                per_g = "/".join(f"{x * 1e3:.2f}" for x in h["per_graph_best"])
                 print(f"ep {episode:3d} reward {h['mean_reward']:.4g} "
-                      f"best {best_latency:.6f}s groups {h['mean_groups']:.1f}"
-                      f" chains {nchains}")
+                      f"best[ms] {per_g} groups {h['mean_groups']:.1f} "
+                      f"G={len(stream.z)} B={stream.z[0].shape[0]}")
+        return history
+
+    # ------------------------------------------------------- joint training
+    def train_multi(self, graphs: List[CompGraph],
+                    arrays: Optional[List[GraphArrays]] = None, *,
+                    platform: Platform, verbose: bool = False,
+                    feature_cfg: Optional[FeatureConfig] = None,
+                    reward_norm: str = "pergraph",
+                    population=None) -> MultiSearchResult:
+        """Train ONE policy jointly over ``graphs`` (GDP/Placeto-style).
+
+        Each episode samples one window of ``batch_chains`` chains on every
+        graph, scores each graph's placements with the ``cfg.engine``
+        backend (``"scan"`` for ``"auto"``/``"batched"``) and updates the
+        shared policy once with the Eq.-14 gradient averaged over the G·B
+        chains.
+
+        ``reward_norm="pergraph"`` standardizes each graph's rewards within
+        the window (in float64 over its (t, b) entries), so graphs of very
+        different latency scales contribute comparably; it replaces
+        ``cfg.use_baseline``'s EMA.  ``"none"`` keeps raw 1/latency rewards
+        and the EMA: with one graph it is ``search`` draw for draw.
+
+        Without ``arrays``, features come from ``feature_cfg`` or a
+        :func:`shared_feature_config` spanning all graphs, stored on
+        ``self.feature_config`` for held-out graphs.
+        """
+        cfg = self.cfg
+        G = len(graphs)
+        nchains = max(1, cfg.batch_chains)
+        t_start = time.perf_counter()
+        runner, stream, arrays = self.joint_runner(
+            graphs, arrays, platform=platform, feature_cfg=feature_cfg,
+            reward_norm=reward_norm, population=population)
+        history = self._run_episodes(runner, stream, verbose)
+
+        # Per-graph greedy decodes with the final shared policy.
+        greedy_placements: List[np.ndarray] = []
+        greedy_latencies = np.empty(G)
+        for g in range(G):
+            p = self.place(arrays[g], greedy=True).astype(np.int64)
+            greedy_placements.append(p)
+            greedy_latencies[g] = simulate(graphs[g], p, platform).latency
 
         wall = time.perf_counter() - t_start
-        n_evals = cfg.max_episodes * tsteps * nchains
-        return SearchResult(best_placement, best_latency, history,
-                            self.policy, {}, wall, n_evals,
-                            n_evals / max(wall, 1e-9), chain_best)
+        n_evals = cfg.max_episodes * cfg.update_timestep * G * nchains
+        tracker = runner.tracker
+        return MultiSearchResult(
+            tracker.best_placements, tracker.best_latencies,
+            greedy_placements, greedy_latencies, history, self.policy, wall,
+            n_evals, n_evals / max(wall, 1e-9), tracker.chain_best)
+
+    def joint_runner(self, graphs: List[CompGraph],
+                     arrays: Optional[List[GraphArrays]] = None, *,
+                     platform: Platform,
+                     feature_cfg: Optional[FeatureConfig] = None,
+                     reward_norm: str = "pergraph", population=None):
+        """What ``train_multi`` runs its episodes with, after its checks →
+        (``EpisodeRunner``, fresh ``WindowStream``, the graphs' arrays).
+        Initializes the policy on the first graph if it has none."""
+        cfg = self.cfg
+        if not graphs:
+            raise ValueError("train_multi needs at least one graph")
+        if reward_norm not in ("none", "pergraph"):
+            raise ValueError(f"unknown reward_norm {reward_norm!r}")
+        if population is not None:
+            population = _as_population(population)
+        if cfg.num_devices > platform.num_devices:
+            raise ValueError(
+                f"cfg.num_devices={cfg.num_devices} exceeds the platform's "
+                f"{platform.num_devices} devices")
+        self.bind_platform(platform)
+        if arrays is None:
+            fc = feature_cfg or shared_feature_config(graphs)
+            self.feature_config = fc
+            arrays = [extract_features(g, fc) for g in graphs]
+        elif feature_cfg is not None:
+            self.feature_config = feature_cfg
+        widths = sorted({a.x.shape[1] for a in arrays})
+        if len(widths) > 1:
+            raise ValueError(
+                f"feature widths differ across graphs ({widths}); extract "
+                f"all graphs with one shared_feature_config()")
+        # cfg.engine names the reward backend; "auto"/"batched" mean scan.
+        # The scalar loop has no multi-graph form.
+        if cfg.engine == "scalar":
+            raise ValueError(
+                "train_multi has no scalar loop; use engine='auto' or a "
+                f"simulator backend name {backend_names()}")
+        pipeline = RewardPipeline.from_graphs(
+            graphs, platform, backend=reward_backend(cfg.engine),
+            device=self.device)
+        runner, stream = self._runner(arrays, pipeline,
+                                      reward_norm=reward_norm,
+                                      population=population)
+        return runner, stream, arrays
 
     # ------------------------------------------------------------- inference
     def place(self, arrays: GraphArrays,
@@ -532,3 +613,99 @@ class HSDAG:
             rollout.x0[None], num_steps=1, start_first=True,
             streams=streams, greedy=greedy)
         return fines[0, 0].cpu().numpy()
+
+
+class MultiGraphTrainer(HSDAG):
+    """Cross-graph trainer: one policy over several graphs.
+
+    A thin facade over :meth:`HSDAG.train_multi` that pins the reward
+    normalization, remembers the shared feature layout for held-out graphs,
+    and adds zero-shot evaluation and checkpointing of the shared policy in
+    the reference's format::
+
+        trainer = MultiGraphTrainer(HSDAGConfig(batch_chains=8))
+        res = trainer.train([inception_v3(), resnet50()],
+                            platform=paper_platform())
+        placement, latency = trainer.evaluate_zero_shot(
+            bert_base(), platform=paper_platform())
+        trainer.save_policy("ckpt/joint")
+    """
+
+    def __init__(self, cfg: HSDAGConfig = HSDAGConfig(), *,
+                 reward_norm: str = "pergraph", device="cuda"):
+        super().__init__(cfg, device=device)
+        if reward_norm not in ("none", "pergraph"):
+            raise ValueError(f"unknown reward_norm {reward_norm!r}")
+        self.reward_norm = reward_norm
+
+    def train(self, graphs: List[CompGraph],
+              arrays: Optional[List[GraphArrays]] = None, *,
+              platform: Platform, verbose: bool = False,
+              feature_cfg: Optional[FeatureConfig] = None,
+              population=None) -> MultiSearchResult:
+        return self.train_multi(graphs, arrays, platform=platform,
+                                verbose=verbose, feature_cfg=feature_cfg,
+                                reward_norm=self.reward_norm,
+                                population=population)
+
+    def evaluate_zero_shot(self, graph: CompGraph, *, platform: Platform,
+                           arrays: Optional[GraphArrays] = None
+                           ) -> Tuple[np.ndarray, float]:
+        """Greedy-decode an *unseen* graph with the trained shared policy →
+        (placement, latency on the host scheduler).  The graph is featurized
+        with the training run's shared feature config, so one-hot columns
+        line up (op types the training graphs lack get all-zero columns)."""
+        if self.policy is None:
+            raise RuntimeError("train() first")
+        if arrays is None:
+            if self.feature_config is None:
+                raise ValueError(
+                    "no stored feature_config; pass arrays= extracted with "
+                    "the training config")
+            arrays = extract_features(graph, self.feature_config)
+        p = self.place(arrays, greedy=True).astype(np.int64)
+        return p, simulate(graph, p, platform).latency
+
+    # ------------------------------------------------------------ checkpoint
+    def save_policy(self, directory: str, step: int = 0,
+                    meta: Optional[Dict] = None) -> None:
+        """Atomically persist the shared policy and its feature layout in
+        the reference's format (``step_%010d/state.npz`` +
+        ``manifest.json``).  The manifest records the training config and
+        the engine whose backend produced the rewards."""
+        from ..checkpoint import save_policy
+        if self.policy is None:
+            raise RuntimeError("train() first")
+        full_meta = dict(meta or {})
+        full_meta.setdefault("engine", self.cfg.engine)
+        full_meta.setdefault("config", dataclasses.asdict(self.cfg))
+        save_policy(directory, self.policy, step=step,
+                    feature_config=self.feature_config, meta=full_meta)
+
+    def load_policy(self, directory: str,
+                    step: Optional[int] = None) -> int:
+        """Restore a saved shared policy (either package's) into this
+        trainer.
+
+        ``self.policy`` must already be initialized (``init()`` on any graph
+        featurized with the same config) so the structure is known; every
+        leaf must be in the checkpoint at its shape.  Restores the stored
+        feature config onto ``self.feature_config``, resets the optimizer,
+        and returns the restored step.
+        """
+        from ..checkpoint import restore_policy
+        if self.policy is None:
+            raise RuntimeError(
+                "init() first (the checkpoint restores into the policy's "
+                "structure)")
+        tree, self.feature_config, step, manifest = restore_policy(
+            directory, self.policy, step=step)
+        recorded = manifest.get("engine")
+        if recorded is not None and recorded not in (
+                _LOOP_ENGINES + tuple(backend_names())):
+            raise ValueError(
+                f"checkpoint was trained with engine {recorded!r}, which is "
+                f"not registered here; registered simulator backends: "
+                f"{backend_names()}")
+        self.load_params(tree)
+        return step

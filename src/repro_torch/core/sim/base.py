@@ -1,18 +1,39 @@
 """Simulator-backend protocol and registry.
 
-Port of ``repro/core/sim/base.py`` for single graphs.  A
-:class:`SimulatorBackend` turns a (graph, platform) pair into a prepared,
-placement-independent handle (``prepare``) and scores placements against it
-(``simulate`` / ``simulate_batch``).  Backends register under a
-name; ``get_backend(name, device=...)`` builds one on a device, so each
-backend's prepared tensors live where its scorer runs.
+Port of ``repro/core/sim/base.py``.  A :class:`SimulatorBackend` turns a
+(graph, platform) pair into a prepared, placement-independent handle
+(``prepare``, or ``prepare_batch`` for several graphs) and scores placements
+against it (``simulate`` / ``simulate_batch`` / ``simulate_multi`` — single,
+(B, V) batch, (G, B, V_max) multi-graph).  Backends register under a name;
+``get_backend(name, device=...)`` builds one on a device, so each backend's
+prepared tensors live where its scorer runs.
+
+A multi-graph handle is the list of the graphs' own handles: each graph is
+scored on its own unpadded tables (one ``level_makespan`` launch a graph for
+the ``scan`` and ``level`` backends) and the columns of a placement row
+beyond the graph's V_g are ignored, as the reference's padding contract
+makes them (pad slots are inert data ops).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Type
+from typing import Dict, List, Optional, Sequence, Type
+
+import numpy as np
 
 __all__ = ["SimulatorBackend", "register_backend", "get_backend",
-           "backend_names", "single_from_batch"]
+           "backend_names", "single_from_batch", "stack_batch_results"]
+
+
+def stack_batch_results(results: Sequence):
+    """Stack per-graph ``BatchSimResult`` rows onto a leading (G,) axis."""
+    from ..costmodel import BatchSimResult
+    return BatchSimResult(
+        latency=np.stack([r.latency for r in results]),
+        reward=np.stack([r.reward for r in results]),
+        oom=np.stack([r.oom for r in results]),
+        per_device_busy=np.stack([r.per_device_busy for r in results]),
+        transfer_time=np.stack([r.transfer_time for r in results]),
+    )
 
 
 def single_from_batch(batch, i: int = 0):
@@ -20,10 +41,6 @@ def single_from_batch(batch, i: int = 0):
     from ..costmodel import SimResult
     return SimResult(float(batch.latency[i]), batch.per_device_busy[i],
                      float(batch.transfer_time[i]), bool(batch.oom[i]))
-
-
-_MULTI = ("multi-graph scoring is not ported yet; ROADMAP.md 'Modules to "
-          "port' item 6 (multi-graph and corpus) ports it")
 
 
 class SimulatorBackend:
@@ -46,13 +63,32 @@ class SimulatorBackend:
         """(B, V) placements → host ``BatchSimResult``."""
         raise NotImplementedError
 
-    def prepare_batch(self, graphs, platform, **kw):
-        """Padded multi-graph handle (the reference's ``from_graphs`` path)."""
-        raise NotImplementedError(_MULTI)
+    def prepare_batch(self, graphs: Sequence, platform, *,
+                      v_max: Optional[int] = None) -> List:
+        """Handles of several graphs, the list of ``prepare``'s.
 
-    def simulate_multi(self, prep, placements):
-        """(G, B, V_max) placements of a padded multi-graph batch."""
-        raise NotImplementedError(_MULTI)
+        ``v_max`` is the reference's pin of the padded node axis: it is
+        checked against the largest graph (a smaller pin raises), and
+        otherwise changes nothing here, where each graph is scored unpadded.
+        """
+        if not graphs:
+            raise ValueError("prepare_batch needs at least one graph")
+        need = max(g.num_nodes for g in graphs)
+        if v_max is not None and v_max < need:
+            raise ValueError(f"v_max={v_max} < largest graph ({need})")
+        return [self.prepare(g, platform) for g in graphs]
+
+    def simulate_multi(self, preps: List, placements):
+        """(G, B, V_max) placements (tensor or array) → host
+        ``BatchSimResult`` with (G, B) axes; row g is scored on its graph's
+        first V_g columns, whatever the pad columns hold."""
+        if placements.ndim != 3 or placements.shape[0] != len(preps):
+            raise ValueError(f"expected (G={len(preps)}, B, V_max) "
+                             f"placements; got {tuple(placements.shape)}")
+        return stack_batch_results([
+            self.simulate_batch(prep,
+                                placements[i, :, :prep.graph.num_nodes])
+            for i, prep in enumerate(preps)])
 
     def schedule_order(self, prep):
         """The list-schedule retire order this backend simulates.

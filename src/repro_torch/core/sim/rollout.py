@@ -1,7 +1,17 @@
-"""Window rollout and its Eq.-14 replay for B chains on one graph.
+"""Window rollout and its Eq.-14 replay for B chains on one graph, and for
+(G, B) chains on G graphs.
 
-Port of ``repro/core/sim/rollout.py::RolloutEngine`` at G=1: the window
-rollout (sampled or greedy) and replay, and the population methods.  The reference samples with per-step PRNG keys and replays the
+Port of ``repro/core/sim/rollout.py::RolloutEngine``: the window rollout
+(sampled or greedy) and replay, and the population methods.  The reference
+vmaps one step over a padded (G, V_max) batch with node and edge masks; its
+padding contract makes every graph's slot compute what that graph computes
+unpadded.  :class:`MultiRolloutEngine` therefore runs one
+:class:`RolloutEngine` a graph, each on the graph's own unpadded tensors,
+all sharing one policy, and sums their replay losses into one Eq.-14
+update averaged over the G·B chains, as the reference does; the
+single-graph search is its G=1 case.
+
+The reference samples with per-step PRNG keys and replays the
 window differentiably from the same keys.  Here the sampling pass runs under
 ``torch.no_grad()`` and records what the replay needs to retrace the
 identical window: each step's edge keep-masks, parse-dropout keeps, Gumbel
@@ -38,7 +48,8 @@ from ..._device import seeded_generator
 from ...kernels.gcn_spmm import GCNGraph
 from ..train import population as popmod
 
-__all__ = ["ChainStreams", "WindowNoise", "WindowRecord", "RolloutEngine"]
+__all__ = ["ChainStreams", "WindowNoise", "WindowRecord", "RolloutEngine",
+           "MultiRolloutEngine"]
 
 
 class WindowNoise(NamedTuple):
@@ -115,6 +126,16 @@ class ChainStreams:
         return keep, gumbel, parse_keep
 
 
+def policy_grads(policy, loss: torch.Tensor) -> List[torch.Tensor]:
+    """∇ of ``loss`` for every parameter of ``policy``, in
+    ``policy.parameters()`` order."""
+    params = list(policy.parameters())
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    # An edge-free graph leaves φ out of the loss: its gradient is 0.
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(params, grads)]
+
+
 class RolloutEngine:
     """Samples and replays rollout windows of one graph for B chains.
 
@@ -126,13 +147,12 @@ class RolloutEngine:
     """
 
     def __init__(self, policy, cfg, *, x0: torch.Tensor, graph: GCNGraph,
-                 population=None, dev_feats: Optional[torch.Tensor] = None,
+                 dev_feats: Optional[torch.Tensor] = None,
                  action_mask: Optional[torch.Tensor] = None):
         self.policy = policy
         self.cfg = cfg
         self.x0 = x0
         self.graph = graph
-        self.population = population
         self.dev_feats = dev_feats
         self.action_mask = action_mask
         self.num_devices = (cfg.num_devices if dev_feats is None
@@ -207,9 +227,17 @@ class RolloutEngine:
         (epochs ≥ 2 of a ``k_epochs`` update) instead of scoring the
         recorded ones.  → one gradient per policy parameter, in
         ``policy.parameters()`` order."""
+        total = self.window_loss(z0, record, weights,
+                                 start_first=start_first, rederive=rederive)
+        return policy_grads(self.policy, total / z0.shape[0])
+
+    def window_loss(self, z0: torch.Tensor, record: WindowRecord,
+                    weights: torch.Tensor, *, start_first: bool,
+                    rederive: bool = False) -> torch.Tensor:
+        """The Eq.-14 loss of the recorded window summed over its steps and
+        chains (see :meth:`window_grads`), differentiable in the policy."""
         B = z0.shape[0]
         x0 = self._x0(B)
-        params = list(self.policy.parameters())
         total = torch.zeros((), device=z0.device)
         z = z0
         for t in range(record.keep.shape[0]):
@@ -228,29 +256,7 @@ class RolloutEngine:
                 - self.cfg.entropy_coef * out.policy.entropy
             total = total + loss.sum()
             z = out.z_next
-        grads = torch.autograd.grad(total / B, params, allow_unused=True)
-        # An edge-free graph leaves φ out of the loss: its gradient is 0.
-        return [torch.zeros_like(p) if g is None else g
-                for p, g in zip(params, grads)]
-
-    # ------------------------------------------------------- population API
-    def init_population(self, generator: torch.Generator, *,
-                        num_chains: int,
-                        temperatures=None) -> popmod.ChainState:
-        """Fresh population state for ``num_chains`` chains; its draws
-        (initial temperatures, then every PBT round) come from
-        ``generator``."""
-        return popmod.init_chain_state(
-            self._population_cfg(), generator, num_chains=num_chains,
-            num_nodes=self.graph.num_nodes, temperatures=temperatures)
-
-    def update_population(self, pop: popmod.ChainState, fines: torch.Tensor,
-                          latencies) -> popmod.ChainState:
-        """Fold a window's (T, B, V) placements and (T, B) latencies into
-        the chain-best records."""
-        lat = torch.as_tensor(np.asarray(latencies), dtype=torch.float32,
-                              device=fines.device)
-        return popmod.update_chain_bests(pop, fines, lat)
+        return total
 
     def greedy_state(self) -> torch.Tensor:
         """The state after one greedy decode of the graph → (V, d): what a
@@ -258,32 +264,123 @@ class RolloutEngine:
         return self.rollout_window(self.x0[None], num_steps=1,
                                    start_first=True, greedy=True)[0][0]
 
-    def pbt_step(self, pop: popmod.ChainState, z: torch.Tensor, *,
-                 use_greedy: bool = False,
-                 draws: Optional[popmod.PBTDraws] = None):
-        """One PBT round (cull + exchange [+ greedy restart]) → (pop, z).
 
-        Culled chains take the best chain's state ``z[jstar]`` (or the
-        greedy decode's) and new temperatures; culled and exchanged chains
-        inherit the best record.  ``draws`` (one row) replaces the draws
-        from ``pop.rng``.
+class MultiRolloutEngine:
+    """Samples and replays (G, B) rollout windows over G graphs.
+
+    ``engines`` holds one :class:`RolloutEngine` a graph, all over one
+    policy (each with its graph's capacity mask, when it has one).  The
+    (G, B) state is a list of G (B, V_g, d) tensors and placements come
+    back per graph as (T, B, V_g).  ``population`` (a ``PopulationConfig``)
+    enables the population methods over the G rows, whose best-placement
+    record is the reference's (G, B, V_max) one (:meth:`pad`).
+    """
+
+    def __init__(self, engines: Sequence[RolloutEngine], population=None):
+        self.engines = list(engines)
+        self.policy = self.engines[0].policy
+        self.population = population
+        self.num_nodes = [e.graph.num_nodes for e in self.engines]
+
+    @property
+    def num_graphs(self) -> int:
+        return len(self.engines)
+
+    def initial_state(self, num_chains: int) -> List[torch.Tensor]:
+        """Every chain of graph g at its initial features → G (B, V_g, d)."""
+        return [e._x0(num_chains) for e in self.engines]
+
+    def rollout_window(self, zs: Sequence[torch.Tensor], *, num_steps: int,
+                       start_first: bool,
+                       streams: Optional[Sequence[ChainStreams]] = None,
+                       noise: Optional[Sequence[WindowNoise]] = None,
+                       temperature: Optional[torch.Tensor] = None):
+        """Sample a window of every graph's B chains, graph g's draws from
+        ``streams[g]`` or ``noise[g]``, at the (G, B) ``temperature`` when
+        given → (zs, records, fines: G × (T, B, V_g), ngroups (T, G, B))."""
+        out = [e.rollout_window(
+            zs[g], num_steps=num_steps, start_first=start_first,
+            streams=None if streams is None else streams[g],
+            noise=None if noise is None else noise[g],
+            temperature=None if temperature is None else temperature[g])
+            for g, e in enumerate(self.engines)]
+        zs, records, fines, ngroups = zip(*out)
+        return list(zs), list(records), list(fines), torch.stack(ngroups, 1)
+
+    def pad(self, fines: Sequence[torch.Tensor]) -> torch.Tensor:
+        """G × (T, B, V_g) placements → (T, G, B, V_max), zero at pads."""
+        T, B = fines[0].shape[:2]
+        out = fines[0].new_zeros(T, len(fines), B, max(self.num_nodes))
+        for g, f in enumerate(fines):
+            out[:, g, :, :f.shape[2]] = f
+        return out
+
+    def window_grads(self, zs: Sequence[torch.Tensor],
+                     records: Sequence[WindowRecord], weights: torch.Tensor,
+                     *, start_first: bool,
+                     rederive: bool = False) -> List[torch.Tensor]:
+        """∇θ of the Eq.-14 loss over every graph's recorded window,
+        averaged over the G·B chains (the reference's ``total / (G·B)``);
+        ``weights`` (T, G, B).  One backward pass over the G replays."""
+        total = None
+        for g, e in enumerate(self.engines):
+            loss = e.window_loss(zs[g], records[g], weights[:, g],
+                                 start_first=start_first, rederive=rederive)
+            total = loss if total is None else total + loss
+        return policy_grads(self.policy,
+                            total / (self.num_graphs * zs[0].shape[0]))
+
+    # ------------------------------------------------------- population API
+    def init_population(self, generator: torch.Generator, *,
+                        num_chains: int,
+                        temperatures=None) -> popmod.ChainState:
+        """Fresh (G, B) population state (best placements padded to the
+        largest graph); its draws come from ``generator``."""
+        return popmod.init_chain_state(
+            self._population_cfg(), generator, num_graphs=self.num_graphs,
+            num_chains=num_chains, num_nodes=max(self.num_nodes),
+            temperatures=temperatures)
+
+    def update_population(self, pop: popmod.ChainState, fines: torch.Tensor,
+                          latencies) -> popmod.ChainState:
+        """Fold a window's (T, G, B, V_max) placements and (T, G, B)
+        latencies into the chain-best records."""
+        lat = torch.as_tensor(np.asarray(latencies), dtype=torch.float32,
+                              device=fines.device)
+        return popmod.update_chain_bests(pop, fines, lat)
+
+    def pbt_step(self, pop: popmod.ChainState, zs: Sequence[torch.Tensor],
+                 *, use_greedy: bool = False,
+                 draws: Optional[popmod.PBTDraws] = None):
+        """One PBT round over the G rows → (pop, zs).
+
+        In row g, culled chains take the state of the row's best chain
+        ``zs[g][jstar[g]]`` (or graph g's greedy decode's) and new
+        temperatures; culled and exchanged chains inherit that chain's best
+        record.  ``draws`` (G rows) replaces the draws from ``pop.rng``.
         """
         cfg = self._population_cfg()
+        G, B = pop.temperature.shape
         if draws is None:
-            draws = popmod.draw_pbt(cfg, pop.rng, 1, z.shape[0])
+            draws = popmod.draw_pbt(cfg, pop.rng, G, B)
         culled, inherit, new_temp, jstar = popmod.pbt_rows(
-            cfg, draws, pop.best_latency[None], pop.temperature[None])
-        culled, inherit, new_temp = culled[0], inherit[0], new_temp[0]
-        j = jstar[0]
-        z_src = self.greedy_state() if use_greedy else z[j]
-        new_z = torch.where(culled[:, None, None], z_src[None], z)
+            cfg, draws, pop.best_latency, pop.temperature)
+        new_zs = []
+        for g, e in enumerate(self.engines):
+            j = jstar[g]
+            z_src = e.greedy_state() if use_greedy else zs[g][j]
+            new_zs.append(torch.where(culled[g][:, None, None], z_src[None],
+                                      zs[g]))
+        rows = torch.arange(G, device=jstar.device)
+        lat_star = pop.best_latency[rows, jstar]                   # (G,)
+        fine_star = pop.best_fine[rows, jstar]                     # (G, V)
         new_pop = pop._replace(
             temperature=new_temp,
-            best_latency=torch.where(inherit, pop.best_latency[j],
+            best_latency=torch.where(inherit, lat_star[:, None],
                                      pop.best_latency),
-            best_fine=torch.where(inherit[:, None], pop.best_fine[j][None],
+            best_fine=torch.where(inherit[..., None], fine_star[:, None],
                                   pop.best_fine))
-        return new_pop, new_z
+        return new_pop, new_zs
 
     def _population_cfg(self):
         if self.population is None:

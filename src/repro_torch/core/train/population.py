@@ -1,9 +1,9 @@
 """Population search over the B chains — PBT culling, elite exchange, greedy
 restarts.
 
-Port of ``repro/core/train/population.py`` for the single-graph search.
-Three mechanisms, all standard population-based-training moves specialised
-to placement search:
+Port of ``repro/core/train/population.py`` for ``search`` and
+``train_multi``.  Three mechanisms, all standard population-based-training
+moves specialised to placement search:
 
 * **Culling** — every ``cull_every`` windows, rank the chains by their
   best-found makespan; the bottom ``cull_fraction`` resample their sampling
@@ -21,13 +21,13 @@ The per-chain knob is the categorical sampling **temperature** (logits / T
 before the Gumbel argmax); the replayed Eq.-14 gradient stays exact because
 the replay runs the same tempered distribution.
 
-The reference's state carries a leading graph axis G for its multi-graph
-trainer; the port's search is single-graph, so :class:`ChainState` holds
-(B,) rows.  :func:`pbt_rows` keeps the reference's (R, B) rows of chains and
-takes its random draws as a :class:`PBTDraws`, so a test can feed the
-reference's own.  At run time they come from one ``torch.Generator`` seeded
-from (``cfg.seed``, ``0x706F70``) apart from the chains' streams, so a search
-without a population draws exactly what it drew before.
+As the reference's, :class:`ChainState` holds (G, B) rows of chains, one
+row a graph (G=1 for the single-graph search).  :func:`pbt_rows` works on
+such rows and takes its random draws as a :class:`PBTDraws`, so a test can
+feed the reference's own.  At run time they come from one
+``torch.Generator`` seeded from (``cfg.seed``, ``0x706F70``) apart from the
+chains' streams, so a search without a population draws exactly what it
+drew before.
 """
 from __future__ import annotations
 
@@ -138,11 +138,11 @@ def chain_counts(cfg: PopulationConfig, num_chains: int) -> Tuple[int, int]:
 
 
 class ChainState(NamedTuple):
-    """Per-chain population state of the B chains."""
+    """Per-chain population state of the B chains of each of G graphs."""
 
-    temperature: torch.Tensor    # (B,) f32 — categorical sampling temp
-    best_latency: torch.Tensor   # (B,) f32 — best makespan each chain found
-    best_fine: torch.Tensor      # (B, V) i64 — the placement that did it
+    temperature: torch.Tensor    # (G, B) f32 — categorical sampling temp
+    best_latency: torch.Tensor   # (G, B) f32 — best makespan each found
+    best_fine: torch.Tensor      # (G, B, V) i64 — the placement that did it
     rng: torch.Generator         # the PBT decisions' stream
 
 
@@ -169,31 +169,32 @@ def init_temperatures(cfg: PopulationConfig, generator: torch.Generator,
 
 
 def init_chain_state(cfg: PopulationConfig, generator: torch.Generator, *,
-                     num_chains: int, num_nodes: int,
+                     num_graphs: int, num_chains: int, num_nodes: int,
                      temperatures=None) -> ChainState:
-    """Fresh population state for B chains over a V-node graph, on the
-    generator's device; ``temperatures`` (B,) overrides the draw."""
+    """Fresh population state for a (G, B) grid of chains over graphs
+    padded to V nodes, on the generator's device; ``temperatures`` (B,) or
+    (G, B) overrides the draw."""
     chain_counts(cfg, num_chains)           # validate B up front
     dev = generator.device
-    B = int(num_chains)
+    rows = (int(num_graphs), int(num_chains))
     if temperatures is None:
-        temp = init_temperatures(cfg, generator, (B,))
+        temp = init_temperatures(cfg, generator, rows)
     else:
         temp = torch.as_tensor(temperatures, dtype=torch.float32,
-                               device=dev).expand(B).clone()
+                               device=dev).expand(rows).clone()
     return ChainState(
         temperature=temp,
-        best_latency=torch.full((B,), float("inf"), device=dev),
-        best_fine=torch.zeros(B, int(num_nodes), dtype=torch.long,
+        best_latency=torch.full(rows, float("inf"), device=dev),
+        best_fine=torch.zeros(*rows, int(num_nodes), dtype=torch.long,
                               device=dev),
         rng=generator)
 
 
 def update_chain_bests(state: ChainState, fines: torch.Tensor,
                        latencies: torch.Tensor) -> ChainState:
-    """Fold one window's (T, B, V) placements and (T, B) latencies into the
-    per-chain records.  Strict-< so earlier bests win ties, and the first
-    minimum over T, as ``jnp.argmin`` takes it."""
+    """Fold one window's (T, G, B, V) placements and (T, G, B) latencies
+    into the per-chain records.  Strict-< so earlier bests win ties, and
+    the first minimum over T, as ``jnp.argmin`` takes it."""
     lat = latencies.to(torch.float32)
     t_star = torch.argmin(lat, dim=0)                         # first minimum
     cand_lat = torch.gather(lat, 0, t_star[None])[0]
@@ -247,12 +248,12 @@ def pbt_rows(cfg: PopulationConfig, draws: PBTDraws, lat_rows: torch.Tensor,
 class PopulationController:
     """Host-side cadence keeper of a population search.
 
-    The port has the reference's persistent-stream mode (``search``): the
-    controller counts windows, and :meth:`note_window` says when a cull
-    round is due and whether it is a greedy-restart round; the state
-    changes in the rollout engine's ``pbt_step``.  The reference's episodic
-    mode belongs to its corpus trainer, which ROADMAP.md 'Modules to port'
-    item 6 ports.
+    The port has the reference's persistent-stream mode (``search`` and
+    ``train_multi``): the controller counts windows, and
+    :meth:`note_window` says when a cull round is due and whether it is a
+    greedy-restart round; the state changes in the rollout engine's
+    ``pbt_step``.  The reference's episodic mode belongs to its corpus
+    trainer, the corpus half of ROADMAP.md 'Modules to port' item 6.
     """
 
     def __init__(self, cfg: PopulationConfig, *, num_chains: int):

@@ -36,7 +36,6 @@ from repro.core.train import PopulationConfig as RefPopulation  # noqa: E402
 
 from repro_torch.checkpoint import tree_from_tensors  # noqa: E402
 from repro_torch.core import HSDAG, HSDAGConfig, extract_features  # noqa: E402
-from repro_torch.core.train import PopulationConfig  # noqa: E402
 
 from conftest import random_dag  # noqa: E402
 from test_torch_hsdag import _noise  # noqa: E402
@@ -113,8 +112,7 @@ def grads(request):
                                         jnp.asarray(w)[:, None],
                                         num_steps=T, start_first=True)
 
-    engine = agent.rollout_engine(
-        arrays, PopulationConfig() if tempered else None)
+    engine = agent.rollout_engine(arrays)
     z0 = engine.x0.expand(B, *engine.x0.shape)
     _, record, port_fines, _ = engine.rollout_window(
         z0, num_steps=T, start_first=True,

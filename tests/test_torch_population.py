@@ -23,7 +23,7 @@ from repro.core.train import population as refpop  # noqa: E402
 from repro_torch.checkpoint import params_to_numpy, tree_from_tensors  # noqa: E402,E501
 from repro_torch.core import (HSDAG, HSDAGConfig, extract_features,  # noqa: E402
                               paper_platform)
-from repro_torch.core.sim import RewardPipeline  # noqa: E402
+from repro_torch.core.sim import MultiRolloutEngine, RewardPipeline  # noqa: E402,E501
 from repro_torch.core.train import (PBTDraws, PopulationConfig,  # noqa: E402
                                     PopulationController, chain_counts,
                                     init_chain_state, pbt_rows,
@@ -95,16 +95,17 @@ def test_update_chain_bests_matches_the_reference():
                           jax.random.PRNGKey(0)),
         jnp.asarray(fines)[:, None], jnp.asarray(lat)[:, None])
     state = init_chain_state(PopulationConfig(), torch.Generator(),
-                             num_chains=6, num_nodes=9,
+                             num_graphs=1, num_chains=6, num_nodes=9,
                              temperatures=torch.ones(6))
-    state = state._replace(best_latency=torch.as_tensor(best),
-                           best_fine=torch.as_tensor(best_fine).long())
-    mine = update_chain_bests(state, torch.as_tensor(fines).long(),
-                              torch.as_tensor(lat, dtype=torch.float64))
+    state = state._replace(best_latency=torch.as_tensor(best)[None],
+                           best_fine=torch.as_tensor(best_fine).long()[None])
+    mine = update_chain_bests(
+        state, torch.as_tensor(fines).long()[:, None],
+        torch.as_tensor(lat, dtype=torch.float64)[:, None])
     np.testing.assert_array_equal(mine.best_latency.numpy(),
-                                  np.asarray(ref.best_latency)[0])
+                                  np.asarray(ref.best_latency))
     np.testing.assert_array_equal(mine.best_fine.numpy(),
-                                  np.asarray(ref.best_fine)[0])
+                                  np.asarray(ref.best_fine))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -176,10 +177,13 @@ def test_two_population_windows_match_the_reference(graph):
     cfg = PopulationConfig.from_json(popcfg.to_json())
     pipe = RewardPipeline.from_platform(g, paper_platform(), "level",
                                         device="cpu")
-    engine = agent.rollout_engine(arrays, cfg)
-    pop = engine.init_population(
+    # the search's engine: one graph, its population a (1, B) row
+    multi = MultiRolloutEngine([agent.rollout_engine(arrays)],
+                               population=cfg)
+    engine = multi.engines[0]
+    pop = multi.init_population(
         torch.Generator(), num_chains=B,
-        temperatures=torch.tensor(np.asarray(ref_pop.temperature)[0]))
+        temperatures=torch.tensor(np.asarray(ref_pop.temperature)))
     ctl = PopulationController(cfg, num_chains=B)
 
     rng = jax.random.PRNGKey(1)
@@ -203,9 +207,10 @@ def test_two_population_windows_match_the_reference(graph):
         z1, record, fines, ngroups = engine.rollout_window(
             z, num_steps=T, start_first=first,
             noise=_noise(np.asarray(keys)[:, 0], arrays, 2),
-            temperature=pop.temperature)
+            temperature=pop.temperature[0])
         rewards, latencies = pipe.score_window(fines)
-        pop = engine.update_population(pop, fines, latencies)
+        pop = multi.update_population(pop, fines[:, None],
+                                      latencies[:, None])
         np.testing.assert_array_equal(fines.numpy(),
                                       np.asarray(ref_fines)[:, 0])
         np.testing.assert_array_equal(ngroups.numpy(),
@@ -214,10 +219,10 @@ def test_two_population_windows_match_the_reference(graph):
         np.testing.assert_allclose(z1.numpy(), np.asarray(ref_z1)[0],
                                    rtol=TOL, atol=TOL)
         np.testing.assert_allclose(pop.best_latency.numpy(),
-                                   np.asarray(ref_pop.best_latency)[0],
+                                   np.asarray(ref_pop.best_latency),
                                    rtol=TOL)
         np.testing.assert_array_equal(pop.best_fine.numpy(),
-                                      np.asarray(ref_pop.best_fine)[0])
+                                      np.asarray(ref_pop.best_fine))
 
         w = step_weights(ref_rew.T, ref.cfg.gamma).T
         ref_grads = ref_engine.window_grads_pop(
@@ -244,16 +249,16 @@ def test_two_population_windows_match_the_reference(graph):
         draws = _ref_draws(popcfg, k_use, [0], B)
         ref_pop, ref_z1 = ref_engine.pbt_step(ref.params, ref_pop, ref_z1,
                                               use_greedy=use_greedy)
-        pop, z1 = engine.pbt_step(pop, z1, use_greedy=use_greedy,
-                                  draws=draws)
+        pop, (z1,) = multi.pbt_step(pop, [z1], use_greedy=use_greedy,
+                                    draws=draws)
         np.testing.assert_allclose(pop.temperature.numpy(),
-                                   np.asarray(ref_pop.temperature)[0],
+                                   np.asarray(ref_pop.temperature),
                                    rtol=1e-6)
         np.testing.assert_allclose(pop.best_latency.numpy(),
-                                   np.asarray(ref_pop.best_latency)[0],
+                                   np.asarray(ref_pop.best_latency),
                                    rtol=TOL)
         np.testing.assert_array_equal(pop.best_fine.numpy(),
-                                      np.asarray(ref_pop.best_fine)[0])
+                                      np.asarray(ref_pop.best_fine))
         np.testing.assert_allclose(z1.numpy(), np.asarray(ref_z1)[0],
                                    rtol=TOL, atol=TOL)
         ref_z, z = ref_z1, z1

@@ -215,8 +215,21 @@ def test_scan_backend_rejects_bad_placements_and_multi_graph_batches():
         backend.simulate_batch(prep, np.zeros((2, g.num_nodes + 1), int))
     with pytest.raises(ValueError, match="unknown schedule"):
         backend.prepare(g, paper_platform(), schedule="nope")
+    # Multi-graph batches, as the reference rejects them
+    # (tests/test_multi_graph.py): a device id out of range at a real slot
+    # raises, one at a pad slot is ignored, and a v_max below the largest
+    # graph raises.
+    small = random_dag(np.random.default_rng(5), 6, p=0.3)
+    for b in (backend, LevelBackend(device="cpu")):
+        preps = b.prepare_batch([small], paper_platform())
+        with pytest.raises(ValueError, match="device ids"):
+            b.simulate_multi(preps, np.full((1, 1, 6), 7))
+        preps = b.prepare_batch([small], paper_platform(), v_max=10)
+        p = np.zeros((1, 1, 10), int)
+        p[0, 0, 6:] = 7
+        assert np.isfinite(b.simulate_multi(preps, p).latency).all()
     for b in (backend, ReferenceBackend()):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            b.prepare_batch([g, g], paper_platform())
-        with pytest.raises(NotImplementedError, match="item 6"):
-            b.simulate_multi(None, np.zeros((2, 1, g.num_nodes), int))
+        with pytest.raises(ValueError, match="v_max"):
+            b.prepare_batch([g, small], paper_platform(), v_max=6)
+        with pytest.raises(ValueError, match="at least one graph"):
+            b.prepare_batch([], paper_platform())

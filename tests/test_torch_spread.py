@@ -70,3 +70,25 @@ def test_reference_topology_spread_is_chip_smokes_table_13():
                        for x in row.values()), (name, part)
             assert all(math.isclose(row[s], doc["results"][name][s],
                                     rel_tol=1e-5) for s in row)
+
+
+def test_reference_multi_spread_is_chip_smokes_contract():
+    """``tools/reference_multi_spread.json``: the joint-training config
+    ``chip_smoke.py`` trains the port with, the three paper graphs' joint
+    bests and BERT-base's zero-shot latency after training on the other
+    two, finite for seeds 0-11."""
+    smoke = _chip_smoke()
+    with open(smoke.MULTI_JSON) as f:
+        doc = json.load(f)
+    assert doc["config"] == smoke.MULTI_CONTRACT_CONFIG
+    assert doc["seeds"] == list(range(12))
+    assert doc["platform"] == "paper_platform()"
+    assert doc["jax_version"] and doc["date"]
+    assert doc["joint"] == ["inception_v3", "resnet50", "bert_base"]
+    assert doc["transfer_from"] == ["inception_v3", "resnet50"]
+    assert doc["transfer_to"] == "bert_base"
+    rows = [doc["results"]["joint"][n] for n in doc["joint"]]
+    rows.append(doc["results"]["transfer"]["bert_base"])
+    for row in rows:
+        assert set(row) == {str(s) for s in doc["seeds"]}
+        assert all(math.isfinite(x) and 0 < x < 1 for x in row.values())

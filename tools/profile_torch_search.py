@@ -2,13 +2,17 @@
 """Where one search episode of the PyTorch port spends its time, on one GPU.
 
     python3 tools/profile_torch_search.py [--graph inception_v3] [--engine E]
+    python3 tools/profile_torch_search.py --multi
 
 Runs the main path's episode (``HSDAG.search``'s loop with the reward of
 ``--engine``, by default the config's default, ``"auto"``: the ``scan``
 backend; ``--engine level`` for the level backend; window rollout → window
 scoring → Eq.-14 replay and Adam update) at the
 Table-6 widths with 16 chains, phase by phase with the host clock around
-synchronised work, median of 3 episodes after one warm-up.  Then profiles
+synchronised work, median of 3 episodes after one warm-up.  ``--multi``
+runs a joint episode of ``train_multi`` instead, at Table 7's config
+(``HSDAGConfig(num_devices=2, batch_chains=8, update_timestep=10)`` over
+Inception-v3, ResNet-50 and BERT-base, the per-graph reward norm).  Then profiles
 one more episode with ``torch.profiler`` and prints the device time by kernel, the number of
 kernel launches, and the device's busy and idle shares of the episode.
 Needs a CUDA device; imports nothing of the JAX package.
@@ -27,6 +31,47 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "src"))
 
 
+def joint_episode(torch, engine_name):
+    """A joint episode of ``train_multi`` at Table 7's config → (a function
+    that runs one and returns seconds per phase, its description)."""
+    from repro_torch import (HSDAG, HSDAGConfig, PAPER_BENCHMARKS,
+                             paper_platform)
+    from repro_torch.core.train import window_weights
+    cfg = HSDAGConfig(num_devices=2, batch_chains=8, update_timestep=10)
+    if engine_name is not None:
+        cfg = dataclasses.replace(cfg, engine=engine_name)
+    graphs = [PAPER_BENCHMARKS[n]()
+              for n in ("inception_v3", "resnet50", "bert_base")]
+    agent = HSDAG(cfg)
+    runner, stream, _ = agent.joint_runner(graphs, platform=paper_platform())
+    engine, pipe = runner.engine, runner.pipeline
+
+    def episode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        z, records, fines, _ = engine.rollout_window(
+            stream.z, num_steps=cfg.update_timestep,
+            start_first=stream.first, streams=stream.streams)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rewards, _ = pipe.score_window(fines)
+        t2 = time.perf_counter()
+        w = window_weights(rewards, cfg, reward_norm="pergraph")
+        agent.apply_grads(engine.window_grads(
+            stream.z, records, torch.as_tensor(w, device=agent.device),
+            start_first=stream.first))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        stream.z, stream.first = z, False
+        return {"rollout": t1 - t0, "score": t2 - t1, "replay+update": t3 - t2,
+                "episode": t3 - t0}
+    what = (f"joint episode over {'+'.join(g.name for g in graphs)} "
+            f"(V {'/'.join(str(g.num_nodes) for g in graphs)}) B="
+            f"{cfg.batch_chains} engine {cfg.engine} T={cfg.update_timestep} "
+            f"hidden={cfg.hidden_channel}")
+    return episode, what
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--graph", default="inception_v3",
@@ -34,6 +79,9 @@ def main() -> int:
     ap.add_argument("--engine", default=None,
                     help="an engine of HSDAGConfig with a platform reward "
                          "(default: the config's default)")
+    ap.add_argument("--multi", action="store_true",
+                    help="a joint episode of train_multi at Table 7's "
+                         "config over the three paper graphs")
     args = ap.parse_args()
     episodes = 3
 
@@ -88,13 +136,17 @@ def main() -> int:
         return {"rollout": t1 - t0, "score": t2 - t1, "replay+update": t3 - t2,
                 "episode": t3 - t0}
 
+    if args.multi:
+        episode, what = joint_episode(torch, args.engine)
+    else:
+        what = (f"{args.graph} V={g.num_nodes} B={cfg.batch_chains} engine "
+                f"{cfg.engine} (reward: the {backend} backend) "
+                f"T={cfg.update_timestep} hidden={cfg.hidden_channel}")
     episode()                                   # warm-up
     runs = [episode() for _ in range(episodes)]
     print(f"card: {card}")
-    print(f"{args.graph} V={g.num_nodes} B={cfg.batch_chains} engine "
-          f"{cfg.engine} (reward: the {backend} backend) "
-          f"T={cfg.update_timestep} hidden={cfg.hidden_channel}; host clock, "
-          f"median of {episodes} episodes after one warm-up:")
+    print(f"{what}; host clock, median of {episodes} episodes after one "
+          f"warm-up:")
     for phase in runs[0]:
         vals = [r[phase] for r in runs]
         print(f"  {phase:14s} {statistics.median(vals) * 1e3:10.3f} ms  "
