@@ -76,6 +76,7 @@ result.  Imports nothing of the JAX package.
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 import subprocess
@@ -138,6 +139,20 @@ MULTI_CONFIG = {"num_devices": 2, "batch_chains": 8, "max_episodes": 12,
                 "update_timestep": 10}
 MULTI_JSON = os.path.join(ROOT, "tools", "reference_multi_spread.json")
 MULTI_CONTRACT_CONFIG = dict(MULTI_CONFIG, max_episodes=3)
+# Table 8 (benchmarks/table8_corpus.py): its corpus less the traced entry,
+# its held-out family, the trainer's config and arguments (the held-out
+# runs take rng=1, as the benchmark's PRNGKey(1)), and the contract's config
+# and record (tools/reference_corpus_spread.py)
+CORPUS_SPEC = ("benchmark:names=inception_v3+resnet50;"
+               "lm:archs=qwen1.5-0.5b+mamba2-130m:seq_len=1024;"
+               "synthetic:family=layered+series_parallel:count=6:size=40"
+               ":seed=0")
+HELD_OUT_SPEC = "synthetic:family=branch_join:count=2:size=40:seed=123"
+CORPUS_CONFIG = {"num_devices": 2, "batch_chains": 8, "max_episodes": 12,
+                 "update_timestep": 10}
+CORPUS_TRAINER = {"max_buckets": 3, "graphs_per_episode": 4}
+CORPUS_JSON = os.path.join(ROOT, "tools", "reference_corpus_spread.json")
+CORPUS_CONTRACT_CONFIG = dict(CORPUS_CONFIG, max_episodes=3)
 # the device head's fleet: two NVLink islands of four GPUs; the capacity
 # phase gives the first island 128 MB a GPU and the second 0.04 of it
 # (5.12 MB), which 8 of Inception-v3's nodes exceed
@@ -1443,7 +1458,8 @@ def contract_phase(graphs, plat):
             check(p >= CONTRACT_P,
                   f"the port's search on {name} (engine={engine}) is worse "
                   f"than the reference's: p = {p:.3g} < {CONTRACT_P}")
-    return min(worst, device_contract(), multi_contract(graphs, plat))
+    return min(worst, device_contract(), multi_contract(graphs, plat),
+               corpus_contract(plat))
 
 
 def multi_contract(graphs, plat):
@@ -1609,6 +1625,332 @@ def multi_phase(torch, graphs, plat):
     print(f"[phase] multi (Table 7): {time.perf_counter() - t_phase:.2f} s")
 
 
+def corpus_graphs():
+    """Table 8's corpus less ``traced`` and its held-out graphs, checked
+    against the reference's record (``tools/reference_corpus_spread.json``:
+    names, sizes, bucket partition, fingerprint) → (corpus, held out, the
+    record)."""
+    from repro_torch.core import plan_buckets
+    from repro_torch.graphs import build_corpus, corpus_fingerprint
+    with open(CORPUS_JSON) as f:
+        doc = json.load(f)
+    check(doc["corpus"] == CORPUS_SPEC and doc["held_out"] == HELD_OUT_SPEC
+          and doc["config"] == CORPUS_CONTRACT_CONFIG
+          and doc["trainer"] == CORPUS_TRAINER,
+          f"{CORPUS_JSON} records another corpus or config than "
+          f"chip_smoke.py's")
+    corpus, held = build_corpus(CORPUS_SPEC), build_corpus(HELD_OUT_SPEC)
+    names = [g.name for g in corpus]
+    sizes = [g.num_nodes for g in corpus]
+    buckets = plan_buckets(sizes, CORPUS_TRAINER["max_buckets"])
+    fp = corpus_fingerprint(corpus)
+    print(f"[corpus] {len(corpus)} graphs: "
+          f"{[(n, v) for n, v in zip(names, sizes)]}; buckets {buckets}; "
+          f"fingerprint {fp}; held out "
+          f"{[(g.name, g.num_nodes) for g in held]}")
+    check(names == doc["graphs"] and sizes == doc["num_nodes"]
+          and buckets == doc["buckets"] and fp == doc["fingerprint"]
+          and [g.name for g in held] == doc["held_out_graphs"],
+          "the port's corpus (graphs, buckets or fingerprint) is not the "
+          "reference's")
+    return corpus, held, doc
+
+
+def corpus_kernel_checks(torch, corpus, held, plat):
+    """The search kernels at the corpus's new shapes (17-602 nodes, the LM
+    layer chains of 26 and 50): level_makespan on each graph's chain tables
+    at a corpus window's B=80 and at B=1, bitwise against its plain
+    version, and gcn_aggregate forward and backward at B=8, F=128 against
+    its plain version at 1e-5, each printing its route → worst max abs
+    errors (level, gcn)."""
+    from repro_torch.core.sim import ScanBackend
+    from repro_torch.kernels import (GCNAggregate, gcn_aggregate,
+                                     gcn_aggregate_ref, gcn_graph)
+    graphs = list(corpus) + list(held)
+    lvl, _ = makespan_checks(
+        torch, "node_scan[corpus]", ScanBackend(device="cuda"),
+        [(g, plat, B) for g in graphs for B in (1, 80)], [],
+        required=("staged",))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst = 0.0
+    routes = dict.fromkeys(gcn_aggregate.route_launches, 0)
+    B, F = 8, 128
+    for g in graphs:
+        V, E = g.num_nodes, g.num_edges
+        graph = gcn_graph(g.edges, V, "cuda")
+        keep = (torch.rand(B, E, generator=gen, device="cuda") < 0.8).float()
+        h = torch.randn(B, V, F, generator=gen, device="cuda")
+        gout = torch.randn(B, V, F, generator=gen, device="cuda")
+        before = dict(gcn_aggregate.route_launches)
+        out_k = gcn_aggregate(graph, keep, h)
+        hk = h.clone().requires_grad_(True)
+        (gk,) = torch.autograd.grad(GCNAggregate.apply(graph, keep, hk), hk,
+                                    gout)
+        out_r = gcn_aggregate_ref(graph, keep, h)
+        hr = h.clone().requires_grad_(True)
+        (gr,) = torch.autograd.grad(gcn_aggregate_ref(graph, keep, hr), hr,
+                                    gout)
+        torch.cuda.synchronize()
+        took = [r for r, n in gcn_aggregate.route_launches.items()
+                if n != before[r]]
+        for r in took:
+            routes[r] += gcn_aggregate.route_launches[r] - before[r]
+        e_f, e_b = rel_err(torch, out_k, out_r), rel_err(torch, gk, gr)
+        abs_err = float(max((out_k - out_r).abs().max(),
+                            (gk - gr).abs().max()))
+        worst = max(worst, abs_err)
+        print(f"[kernels] gcn_aggregate[corpus] {g.name}: B={B} V={V} E={E} "
+              f"F={F} routes {took}, forward rel err {e_f:.3e}, backward "
+              f"rel err {e_b:.3e}, max abs err {abs_err:.3e}")
+        check(e_f <= TOL and e_b <= TOL,
+              f"gcn_aggregate disagrees with its plain version on {g.name}")
+    print(f"[kernels] gcn_aggregate[corpus] launches per route: {routes}")
+    return lvl, worst
+
+
+def corpus_latencies_are_host(g, res, i, plat, label):
+    """Graph ``i``'s best (when sampled) and greedy latency of a corpus
+    run against the host scheduler at 1e-5 → whether it was sampled."""
+    from repro_torch import simulate
+    greedy = res.greedy_latencies[i]
+    host_greedy = simulate(g, res.greedy_placements[i], plat).latency
+    check(abs(greedy - host_greedy) <= TOL * host_greedy,
+          f"{label} greedy latency of {g.name} disagrees with the host "
+          f"scheduler")
+    best = res.best_latencies[i]
+    if not np.isfinite(best):
+        return False
+    host_best = simulate(g, res.best_placements[i], plat).latency
+    check(abs(best - host_best) <= TOL * host_best,
+          f"{label} best latency of {g.name} disagrees with the host "
+          f"scheduler")
+    return True
+
+
+def corpus_phase(torch, plat):
+    """Table 8 on the card (``benchmarks/table8_corpus.py``, its corpus less
+    ``traced``): the corpus and its record, the kernels at the corpus's
+    shapes, ``train_corpus(rng=0)`` at ``CORPUS_CONFIG`` (each episode's
+    wall and batch wait, prefetch hits and misses, Table 8's evals/s, the
+    launches the code implies, every best and greedy latency against the
+    host scheduler), ``save_policy``, then for each held-out graph its
+    zero-shot decode, a scratch run and a warm-started one (``rng=1``);
+    then a 6-episode run with a checkpoint each episode resumed to 12 (the
+    straight run's graph sequence, the restored state bitwise what was
+    saved), and a 3-episode ``stream:`` run whose caches hold at most 2
+    graphs.  → worst kernel errors (level, gcn)."""
+    import tempfile
+    from repro_torch import CurriculumTrainer, HSDAGConfig, simulate
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.baselines import cpu_only
+    from repro_torch.graphs import StreamingCorpus
+    t_phase = time.perf_counter()
+    corpus, held, _ = corpus_graphs()
+    errs = corpus_kernel_checks(torch, corpus, held, plat)
+    cfg = HSDAGConfig(**CORPUS_CONFIG)
+    layers = cfg.layer_gnn
+    g_sub = CORPUS_TRAINER["graphs_per_episode"]
+
+    def implied(episodes, graphs_decoded, slots=g_sub):
+        # a slot's window: one scoring launch, and T steps of the rollout,
+        # then the replay forward and backward, each through every GCN
+        # layer; a greedy decode: one step
+        return {"level_makespan": episodes * slots,
+                "gcn_aggregate": episodes * slots * 3 * cfg.update_timestep
+                * layers + graphs_decoded * layers, "sage_aggregate": 0}
+
+    trainer = CurriculumTrainer(cfg, **CORPUS_TRAINER)
+    res, n = counted(torch, lambda: trainer.train_corpus(
+        corpus, platform=plat, rng=0))
+    for h in res.history:
+        print(f"[corpus] episode {h['episode']} bucket {h['bucket']} "
+              f"{h['graphs']}: wall {h['wall_s']:.3f} s, batch_wait "
+              f"{h['batch_wait_s'] * 1e3:.3f} ms, mean reward "
+              f"{h['mean_reward']:.4f}, mean groups {h['mean_groups']:.1f}")
+    walls = [h["wall_s"] for h in res.history[len(res.buckets):]]
+    rate = (cfg.update_timestep * cfg.batch_chains * g_sub * len(walls)
+            / sum(walls))
+    want = implied(cfg.max_episodes, len(corpus))
+    print(f"[corpus] Table 8 G={g_sub} B={cfg.batch_chains} "
+          f"T={cfg.update_timestep}: {res.num_evaluations} evaluations in "
+          f"{res.wall_time_s:.3f} s ({res.evals_per_sec:.1f} evals/s); "
+          f"Table 8's rate (episodes {len(res.buckets)}-"
+          f"{cfg.max_episodes - 1}) {rate:.1f} evals/s; episode wall median "
+          f"{np.median(walls):.3f} s; prefetch {trainer.prefetch_stats}; "
+          f"launches over train + greedy decodes {n} (the code implies "
+          f"{want})")
+    check(n == want, f"the corpus run's launches {n} are not the {want} "
+                     f"its episodes and decodes imply")
+    sampled = 0
+    for i, g in enumerate(corpus):
+        sampled += corpus_latencies_are_host(g, res, i, plat, "[corpus]")
+        print(f"[corpus] {g.name}: best {res.best_latencies[i] * 1e3:.6f} "
+              f"ms, greedy {res.greedy_latencies[i] * 1e3:.6f} ms")
+    print(f"[corpus] {sampled} of {len(corpus)} graphs sampled; every best "
+          f"and greedy latency equals the host scheduler's to {TOL}")
+
+    with tempfile.TemporaryDirectory() as d:
+        policy = os.path.join(d, "policy")
+        trainer.save_policy(policy)
+        for g in held:
+            cpu = simulate(g, cpu_only(g), plat).latency
+            p, lat = trainer.evaluate_zero_shot(g, platform=plat)
+            host = simulate(g, p, plat).latency
+            check(abs(lat - host) <= TOL * host,
+                  f"the zero-shot decode of {g.name} disagrees with the host "
+                  f"scheduler")
+            one = dict(CORPUS_TRAINER, max_buckets=1, graphs_per_episode=1)
+            scratch = CurriculumTrainer(cfg, **one)
+            rs, ns = counted(torch, lambda: scratch.train_corpus(
+                [g], platform=plat, rng=1))
+            warm = CurriculumTrainer(cfg, **one)
+            warm.warm_start(policy)
+            rw, nw = counted(torch, lambda: warm.train_corpus(
+                [g], platform=plat, rng=1))
+            for r, label in ((rs, "scratch"), (rw, "warm")):
+                corpus_latencies_are_host(g, r, 0, plat,
+                                          f"[corpus] {label}")
+            target = float(rs.best_latencies[0])
+            reach = next((h["episode"] + 1 for h in rw.history
+                          if h["best_latency"] <= target), None)
+            print(f"[corpus] held out {g.name} (V={g.num_nodes}): zero-shot "
+                  f"{lat * 1e3:.6f} ms (vs cpu_only {cpu * 1e3:.6f} ms: "
+                  f"{100 * (cpu - lat) / cpu:.1f}%); scratch best "
+                  f"{target * 1e3:.6f} ms in {rs.episodes_run} episodes; "
+                  f"warm best {rw.best_latencies[0] * 1e3:.6f} ms, warm "
+                  f"episodes to the scratch best "
+                  f"{reach if reach is not None else 'not reached'}; "
+                  f"launches scratch {ns}, warm {nw}")
+            for nk in (ns, nw):
+                check(nk == implied(cfg.max_episodes, 1, slots=1),
+                      f"a held-out run's launches {nk} are not what its "
+                      f"episodes imply")
+
+        # ---- resume: 6 episodes with a checkpoint each, then to 12 ----
+        ckpt = os.path.join(d, "ckpt")
+        half = CurriculumTrainer(cfg, **CORPUS_TRAINER)
+        first = half.train_corpus(corpus, platform=plat, rng=0,
+                                  episodes=cfg.max_episodes // 2,
+                                  checkpoint_dir=ckpt, checkpoint_every=1)
+        mgr = CheckpointManager(ckpt)
+        man = mgr.manifest(mgr.latest_step())
+        probe = CurriculumTrainer(cfg, **CORPUS_TRAINER)
+        run = probe._start(corpus, plat, 0)
+        start = probe._resume(run, mgr)
+        same = (start == cfg.max_episodes // 2
+                and all(torch.equal(a, b) for a, b in zip(
+                    probe.policy.parameters(), half.policy.parameters()))
+                and all(torch.equal(a, b) for a, b in zip(
+                    probe._opt.mu + probe._opt.nu,
+                    half._opt.mu + half._opt.nu))
+                and probe._opt.step == half._opt.step
+                and run.sampler.state_dict() == man["sampler"]
+                and np.array_equal(run.tracker.best_latencies,
+                                   first.best_latencies)
+                and all(np.array_equal(a, b) for a, b in zip(
+                    run.tracker.best_placements, first.best_placements)))
+        print(f"[corpus] resume: checkpoint of episode {start - 1} restores "
+              f"params, Adam moments (step {probe._opt.step}), sampler and "
+              f"tracker bitwise: {same}")
+        check(same, "the restored corpus state is not what was saved")
+        rest = CurriculumTrainer(cfg, **CORPUS_TRAINER)
+        resumed, nr = counted(torch, lambda: rest.train_corpus(
+            corpus, platform=plat, rng=0, checkpoint_dir=ckpt, resume=True))
+        seq = [h["graphs"] for h in first.history + resumed.history]
+        check(seq == [h["graphs"] for h in res.history],
+              "the resumed run drew another graph sequence than the "
+              "straight run")
+        equal = all(torch.equal(a, b) for a, b in zip(
+            rest.policy.parameters(), trainer.policy.parameters()))
+        print(f"[corpus] resumed to episode {cfg.max_episodes - 1}: the "
+              f"straight run's graph sequence; final weights bitwise the "
+              f"straight run's: {equal} (not required on the card: the "
+              f"atomics move the last bits); launches {nr}")
+
+    # ---- stream: the same spec through a StreamingCorpus ----
+    class Watched(StreamingCorpus):
+        peak = 0
+
+        def __getitem__(self, i):
+            g = super().__getitem__(i)
+            self.peak = max(self.peak, len(self._lru))
+            return g
+
+    streamed_corpus = Watched(CORPUS_SPEC, cache_graphs=2)
+    st = CurriculumTrainer(HSDAGConfig(**dict(CORPUS_CONFIG,
+                                              max_episodes=3)),
+                           stream_cache=2, **CORPUS_TRAINER)
+    rst, nst = counted(torch, lambda: st.train_corpus(
+        streamed_corpus, platform=plat, rng=0))
+    print(f"[corpus] stream: {[h['graphs'] for h in rst.history]}; corpus "
+          f"LRU peak {streamed_corpus.peak}, trainer caches "
+          f"{st.cache_peaks}; launches {nst}")
+    check([h["graphs"] for h in rst.history]
+          == [h["graphs"] for h in res.history[:3]],
+          "the streaming run drew another graph sequence than the eager one")
+    check(streamed_corpus.peak <= 2 and max(st.cache_peaks.values()) <= 2,
+          "a streaming run's caches held more than 2 graphs")
+    for i, g in enumerate(corpus):
+        corpus_latencies_are_host(g, rst, i, plat, "[corpus] stream")
+    print(f"[phase] corpus (Table 8): {time.perf_counter() - t_phase:.2f} s")
+    return errs
+
+
+def corpus_contract(plat):
+    """The contract's corpus pairs: for seeds 0-11 at
+    ``CORPUS_CONTRACT_CONFIG``, the port's ``train_corpus`` (the
+    reference's initial weights and graph sequence for each seed) against
+    the reference's (``tools/reference_corpus_spread.json``): each corpus
+    graph's greedy latency, Inception-v3's and ResNet-50's best, and the
+    two held-out graphs' zero-shot latency; the same test and limit as the
+    search pairs.  → the smallest p-value."""
+    from repro_torch import CurriculumTrainer, HSDAGConfig
+    corpus, held, doc = corpus_graphs()
+    names = doc["graphs"]
+    seeds = doc["seeds"]
+    port = collections.defaultdict(list)
+    t0 = time.perf_counter()
+    for s in seeds:
+        trainer = CurriculumTrainer(
+            HSDAGConfig(seed=s, **CORPUS_CONTRACT_CONFIG), **CORPUS_TRAINER)
+        res = trainer.train_corpus(corpus, platform=plat)
+        seq = [[h["bucket"], [names.index(n) for n in h["graphs"]]]
+               for h in res.history]
+        check(seq == doc["results"]["sequence"][str(s)],
+              f"seed {s}: the port drew another graph sequence than the "
+              f"reference")
+        for n, lat in zip(names, res.greedy_latencies):
+            port[("greedy", n)].append(float(lat))
+        for n in doc["results"]["best"]:
+            port[("best", n)].append(float(
+                res.best_latencies[names.index(n)]))
+        for g in held:
+            port[("zero_shot", g.name)].append(
+                trainer.evaluate_zero_shot(g, platform=plat)[1])
+    print(f"[contract] corpus: {len(seeds)} corpus trainings in "
+          f"{time.perf_counter() - t0:.2f} s, each seed the reference's "
+          f"graph sequence")
+    worst = 1.0
+    for (part, name), lat in port.items():
+        ref = np.array([doc["results"][part][name][str(s)] for s in seeds])
+        lat = np.array(lat)
+        p = one_sided_p(lat, ref)
+        worst = min(worst, p)
+        print(f"[contract] corpus {part} {name}: port median "
+              f"{np.median(lat) * 1e3:.6f} ms (range "
+              f"{lat.min() * 1e3:.6f}-{lat.max() * 1e3:.6f}), reference "
+              f"median {np.median(ref) * 1e3:.6f} ms (range "
+              f"{ref.min() * 1e3:.6f}-{ref.max() * 1e3:.6f}), Mann-Whitney "
+              f"p(port worse) = {p:.4g}")
+        print(f"[contract] corpus {part} {name} port ms: "
+              f"{[round(float(x) * 1e3, 6) for x in lat]}")
+        check(p >= CONTRACT_P,
+              f"the port's corpus training ({part} {name}) is worse than "
+              f"the reference's: p = {p:.3g} < {CONTRACT_P}")
+    check(len(port) == 14, f"{len(port)} corpus pairs, not 14")
+    return worst
+
+
 def device_contract():
     """The contract's device-head pairs: on each fleet of
     ``TOPO_CONTRACT``, the host scheduler's latency of the best placement
@@ -1734,9 +2076,11 @@ def main() -> int:
     topology_phase(torch)
     t_phase = time.perf_counter()
     contract_p = contract_phase(graphs, plat)
-    print(f"[phase] contract (96 port searches, 24 joint trainings): "
-          f"{time.perf_counter() - t_phase:.2f} s; smallest p {contract_p:.4g}")
+    print(f"[phase] contract (96 port searches, 24 joint trainings, 12 "
+          f"corpus trainings): {time.perf_counter() - t_phase:.2f} s; "
+          f"smallest p {contract_p:.4g}")
     multi_phase(torch, graphs, plat)
+    corpus_lvl_err, corpus_gcn_err = corpus_phase(torch, plat)
 
     # ---- the LM kernels against their plain versions ----
     t_phase = time.perf_counter()
@@ -1792,13 +2136,15 @@ def main() -> int:
          "source": "src/repro_torch/csrc/levelsim.cu",
          "replaces": "src/repro/core/costmodel.py:498 (simulate_jax, a "
                      "lax.scan; no Pallas source)",
-         "launches": launches["level_makespan"], "max_abs_err": scan_err,
+         "launches": launches["level_makespan"],
+         "max_abs_err": max(scan_err, corpus_lvl_err),
          "ms": scan_t[0], "plain_ms": scan_t[1], "bound_ms": scan_t[2],
          "bound_by": scan_t[3], "library_ms": None},
         {"name": "gcn_aggregate", "route": "cuda",
          "source": "src/repro_torch/csrc/gcn_spmm.cu",
          "replaces": "src/repro/kernels/gcn_spmm.py:31",
-         "launches": launches["gcn_aggregate"], "max_abs_err": gcn_err,
+         "launches": launches["gcn_aggregate"],
+         "max_abs_err": max(gcn_err, corpus_gcn_err),
          "ms": gcn_t[0], "plain_ms": gcn_t[1], "bound_ms": gcn_t[2],
          "bound_by": gcn_t[3], "library_ms": gcn_t[4]},
         {"name": "sage_aggregate", "route": "cuda",

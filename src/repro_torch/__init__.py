@@ -6,12 +6,12 @@ paths (``repro_torch/core/gpn.py`` ports ``repro/core/gpn.py``) and imports
 nothing of it.  Entry points run on the card unless the caller passes
 ``device="cpu"``.
 """
-from .core import (HSDAG, CompGraph, FeatureConfig, HSDAGConfig,
-                   MultiGraphTrainer, extract_features, paper_platform,
-                   simulate)
-from .graphs import PAPER_BENCHMARKS
+from .core import (HSDAG, CompGraph, CurriculumTrainer, FeatureConfig,
+                   HSDAGConfig, MultiGraphTrainer, extract_features,
+                   paper_platform, simulate)
+from .graphs import PAPER_BENCHMARKS, build_corpus
 
-__all__ = ["HSDAG", "CompGraph", "FeatureConfig", "HSDAGConfig",
-           "MultiGraphTrainer",
+__all__ = ["HSDAG", "CompGraph", "CurriculumTrainer", "FeatureConfig",
+           "HSDAGConfig", "MultiGraphTrainer", "build_corpus",
            "extract_features", "paper_platform", "simulate",
            "PAPER_BENCHMARKS"]

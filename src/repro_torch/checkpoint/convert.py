@@ -14,7 +14,7 @@ The LM's parameters keep the reference's tree and layouts in the port, so
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,7 +22,8 @@ import torch
 from ..core.hsdag import HSDAGPolicy
 
 __all__ = ["params_from_numpy", "params_to_numpy", "tree_from_tensors",
-           "load_reference_policy", "lm_params_from_numpy"]
+           "tensors_from_tree", "load_reference_policy",
+           "lm_params_from_numpy"]
 
 
 def _ref_path(name: str) -> Tuple[Tuple, bool]:
@@ -53,6 +54,18 @@ def tree_from_tensors(names: Iterable[str],
             node = node.setdefault(key, {})
         node[path[-1]] = arr.T.copy() if transposed else arr.copy()
     return _lists(tree)
+
+
+def tensors_from_tree(names: Iterable[str], tree: Dict) -> List[np.ndarray]:
+    """The inverse of :func:`tree_from_tensors`: one float32 array a port
+    parameter name, in the port's layout, read from a reference-layout
+    tree (a missing or mis-shaped leaf raises)."""
+    out = []
+    for name in names:
+        path, transposed = _ref_path(name)
+        arr = np.asarray(_get(tree, path), np.float32)
+        out.append(np.ascontiguousarray(arr.T if transposed else arr))
+    return out
 
 
 def _lists(node):

@@ -6,7 +6,16 @@ Port of ``repro/checkpoint/manager.py``: one directory a step,
 ``manifest.json``.  A save writes ``step_%010d.tmp`` and renames it, so a
 crashed save never corrupts the latest checkpoint (a left-over ``.tmp`` is
 removed by the next manager on the directory), and keeps the newest
-``keep`` steps.  The reference's background-thread saves are not ported.
+``keep`` steps.  Saves are synchronous: the reference's background-thread
+saves (``async_save``) are not ported, and :meth:`CheckpointManager.wait`
+and :meth:`CheckpointManager.close` have nothing to wait for.
+
+A corpus run's checkpoint (``CurriculumTrainer``) holds ``{"params",
+"opt"}``, the optimizer state as the reference's ``OptState`` tree
+(``opt/step``, ``opt/mu/...``, ``opt/nu/...``), and its manifest the
+episode, corpus fingerprint, sampler, tracker, population, EMA baseline,
+mesh and stream records under the reference's keys, so either package
+resumes the other's run.
 
 A policy is saved as the reference's parameter tree
 (``checkpoint.convert.params_to_numpy``), so the reference's
@@ -154,6 +163,13 @@ class CheckpointManager:
     def manifest(self, step: int) -> Dict:
         with open(os.path.join(self._step_dir(step), "manifest.json")) as f:
             return json.load(f)
+
+    def wait(self) -> None:
+        """No-op: saves are synchronous (the reference's waits for its
+        background saves)."""
+
+    def close(self) -> None:
+        """No-op: no background worker to stop."""
 
     def _step_or_latest(self, step: Optional[int]) -> int:
         if step is None:

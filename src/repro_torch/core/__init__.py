@@ -13,6 +13,10 @@ from .hsdag import (HSDAG, HSDAGConfig, HSDAGPolicy, MultiGraphTrainer,
                     MultiSearchResult, SearchResult)
 from .sim import (LevelBackend, ReferenceBackend, RefSim, RewardPipeline,
                   ScanBackend, ScanSim, backend_names, get_backend)
+from .train.curriculum import CorpusTrainResult, CurriculumTrainer
+from .train.population import (ChainState, PopulationConfig,
+                               PopulationController)
+from .train.sampler import CurriculumSampler
 
 __all__ = ["BatchSimResult", "DeviceSpec", "Platform", "SimArrays",
            "SimArraysBatch", "SimResult", "critical_path", "pad_sim_arrays",
@@ -23,6 +27,9 @@ __all__ = ["BatchSimResult", "DeviceSpec", "Platform", "SimArrays",
            "check_feature_compat", "extract_features",
            "shared_feature_config", "CompGraph", "OpNode",
            "topological_order", "HSDAG", "HSDAGConfig", "HSDAGPolicy",
-           "MultiGraphTrainer", "MultiSearchResult", "SearchResult", "LevelBackend", "ScanBackend", "ScanSim",
+           "MultiGraphTrainer", "MultiSearchResult", "SearchResult",
+           "LevelBackend", "ScanBackend", "ScanSim",
            "ReferenceBackend", "RefSim", "RewardPipeline", "backend_names",
-           "get_backend"]
+           "get_backend", "CurriculumTrainer", "CorpusTrainResult",
+           "CurriculumSampler", "PopulationConfig", "PopulationController",
+           "ChainState"]

@@ -275,14 +275,18 @@ class HSDAG:
         self._dev_feats = device_feature_table(platform)
 
     # ------------------------------------------------------------------ init
-    def init(self, arrays: GraphArrays) -> HSDAGPolicy:
+    def init(self, arrays: GraphArrays,
+             seed: Optional[int] = None) -> HSDAGPolicy:
         """The weights the reference's search for ``cfg.seed`` starts from,
         for graphs featurized like ``arrays``: its ``init`` on the second
-        key of ``split(PRNGKey(cfg.seed))``, drawn by ``core/prng.py``."""
+        key of ``split(PRNGKey(cfg.seed))``, drawn by ``core/prng.py``.
+        ``seed`` replaces ``cfg.seed`` in that key (the corpus trainer's
+        ``rng=``)."""
         # Local import: platforms imports core.costmodel.
         from ..platforms.topology import DEV_FEATURE_DIM
         cfg = self.cfg
-        k_init = prng.split(prng.key(cfg.seed))[1]
+        k_init = prng.split(prng.key(cfg.seed if seed is None
+                                     else int(seed)))[1]
         k_enc, k_gpn, k_pol = prng.split(k_init, 3)
         tree = {
             "enc": encoder_init(k_enc, arrays.x.shape[1], cfg.hidden_channel,
@@ -329,7 +333,14 @@ class HSDAG:
         (``RewardPipeline.fused``: the ``scan`` backend), and then in
         sampling, every replay and the population's greedy restarts alike.
         """
-        x0 = torch.as_tensor(arrays.x, device=self.device)
+        return self._engine_on(torch.as_tensor(arrays.x, device=self.device),
+                               self._graph(arrays), pipeline)
+
+    def _engine_on(self, x0: torch.Tensor, graph: GCNGraph,
+                   pipeline: Optional[RewardPipeline] = None
+                   ) -> RolloutEngine:
+        """:meth:`rollout_engine` on a graph's features ``x0`` (V, d) and
+        its ``GCNGraph``, already on the agent's device."""
         dev_feats = action_mask = None
         if self.cfg.head == "device":
             if self._dev_feats is None:
@@ -342,9 +353,8 @@ class HSDAG:
             if pipeline is not None and pipeline.fused:
                 action_mask = torch.as_tensor(pipeline.fit_ok,
                                               device=self.device)
-        return RolloutEngine(self.policy, self.cfg, x0=x0,
-                             graph=self._graph(arrays), dev_feats=dev_feats,
-                             action_mask=action_mask)
+        return RolloutEngine(self.policy, self.cfg, x0=x0, graph=graph,
+                             dev_feats=dev_feats, action_mask=action_mask)
 
     # ---------------------------------------------------------------- search
     def search(self, graph: CompGraph, arrays: GraphArrays, *,

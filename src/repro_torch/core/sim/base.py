@@ -55,6 +55,16 @@ class SimulatorBackend:
         """Placement-independent handle for one (graph, platform) pair."""
         raise NotImplementedError
 
+    def prepare_host(self, graph, platform):
+        """The host half of ``prepare`` (numpy only, so a worker thread may
+        build it); ``None`` for a backend with no host tables."""
+        return None
+
+    def prepare_device(self, graph, platform, host):
+        """A handle from :meth:`prepare_host`'s result, on the backend's
+        device, uncached."""
+        return self.prepare(graph, platform)
+
     def simulate(self, prep, placement):
         """One placement → host ``SimResult``."""
         raise NotImplementedError

@@ -78,20 +78,37 @@ class TableBackend(SimulatorBackend):
         # graph → {(costmodel cache key, schedule): prepared handle}
         self._cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
-    def _prepare(self, graph, platform, schedule: str, build, handle):
-        """The cached ``handle`` (a :class:`LevelSim`-shaped tuple) of
-        ``build(sim_arrays(graph, platform, schedule=schedule))``."""
+    #: the schedule and table builder of the backend's handles
+    _schedule = "level"
+    _build = staticmethod(build_level_arrays)
+    _handle = LevelSim
+
+    def prepare_host(self, graph, platform, *, schedule=None):
+        """The host half of ``prepare``, uncached: (SimArrays, tables), numpy
+        only (``schedule`` defaults to the backend's)."""
+        sa = sim_arrays(graph, platform, schedule=schedule or self._schedule)
+        return sa, self._build(sa)
+
+    def prepare_device(self, graph, platform, host):
+        """A handle from :meth:`prepare_host`'s arrays, put on the backend's
+        device; uncached."""
+        sa, la = host
+        tables = level_tensors(la, self.device)
+        sim = {f: torch.as_tensor(np.ascontiguousarray(getattr(sa, f)),
+                                  device=self.device)
+               for f in ("op_time", "bytes_out", "mem_capacity",
+                         "queue_init", "inv_bw", "lat")}
+        return self._handle(graph, platform, sa, tables, sim)
+
+    def _prepare(self, graph, platform, schedule: str):
+        """The cached handle of ``graph`` for ``schedule``."""
         per_graph = self._cache.setdefault(graph, {})
         key = _cache_key(graph, platform) + (schedule,)
         prep = per_graph.get(key)
         if prep is None:
-            sa = sim_arrays(graph, platform, schedule=schedule)
-            tables = level_tensors(build(sa), self.device)
-            sim = {f: torch.as_tensor(np.ascontiguousarray(getattr(sa, f)),
-                                      device=self.device)
-                   for f in ("op_time", "bytes_out", "mem_capacity",
-                             "queue_init", "inv_bw", "lat")}
-            prep = per_graph[key] = handle(graph, platform, sa, tables, sim)
+            prep = per_graph[key] = self.prepare_device(
+                graph, platform,
+                self.prepare_host(graph, platform, schedule=schedule))
         return prep
 
     def _score(self, prep, placements) -> BatchSimResult:
@@ -128,8 +145,7 @@ class LevelBackend(TableBackend):
     name = "level"
 
     def prepare(self, graph, platform) -> LevelSim:
-        return self._prepare(graph, platform, "level", build_level_arrays,
-                             LevelSim)
+        return self._prepare(graph, platform, "level")
 
 
 register_backend(LevelBackend)

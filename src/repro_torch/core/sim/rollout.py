@@ -31,6 +31,17 @@ Random draws come from :class:`ChainStreams` (one ``torch.Generator`` per
 chain) or are injected whole as a :class:`WindowNoise` — the tests feed the
 reference's own masks and Gumbel noise that way.
 
+The corpus trainer's counterpart of the reference's ``DynamicRolloutEngine``
+is this same layout: one :class:`MultiRolloutEngine` an episode over the
+episode's sampled slots, each a :class:`RolloutEngine` of its graph,
+unpadded (a slot may repeat a graph).  The reference passes each episode's
+graphs to its jitted window functions as a ``GraphOperands`` tuple padded to
+the bucket's shape, so that jit compiles once a bucket rather than once a
+subset, and counts the shapes it compiled (``shape_keys_seen``).  The port
+traces nothing and compiles nothing per shape, so it needs neither: an
+engine over the sampled graphs is a few tensor references, and the per-graph
+inputs (``x0``, the ``GCNGraph``) are cached by corpus index in the trainer.
+
 The device head (``dev_feats``) places on the fleet's D devices, so its
 Gumbel noise is (V, D) whatever ``cfg.num_devices`` says.  Its capacity mask
 (``action_mask``) enters every step the engine takes — sampling, both kinds
@@ -307,10 +318,14 @@ class MultiRolloutEngine:
         zs, records, fines, ngroups = zip(*out)
         return list(zs), list(records), list(fines), torch.stack(ngroups, 1)
 
-    def pad(self, fines: Sequence[torch.Tensor]) -> torch.Tensor:
-        """G × (T, B, V_g) placements → (T, G, B, V_max), zero at pads."""
+    def pad(self, fines: Sequence[torch.Tensor],
+            width: Optional[int] = None) -> torch.Tensor:
+        """G × (T, B, V_g) placements → (T, G, B, width), zero at pads;
+        ``width`` defaults to the largest graph (the corpus trainer pads to
+        its bucket's, as the reference's population record is)."""
         T, B = fines[0].shape[:2]
-        out = fines[0].new_zeros(T, len(fines), B, max(self.num_nodes))
+        width = max(self.num_nodes) if width is None else int(width)
+        out = fines[0].new_zeros(T, len(fines), B, width)
         for g, f in enumerate(fines):
             out[:, g, :, :f.shape[2]] = f
         return out
@@ -329,6 +344,13 @@ class MultiRolloutEngine:
             total = loss if total is None else total + loss
         return policy_grads(self.policy,
                             total / (self.num_graphs * zs[0].shape[0]))
+
+    def greedy_decode(self) -> List[torch.Tensor]:
+        """One greedy decode of every graph with the shared policy (no
+        dropout, no noise, as ``place()``) → G × (V_g,) placements."""
+        return [e.rollout_window(e.x0[None], num_steps=1, start_first=True,
+                                 greedy=True)[2][0, 0]
+                for e in self.engines]
 
     # ------------------------------------------------------- population API
     def init_population(self, generator: torch.Generator, *,

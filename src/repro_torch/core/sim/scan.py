@@ -32,13 +32,15 @@ class ScanSim(LevelSim):
 class ScanBackend(TableBackend):
     name = "scan"
     fused = True
+    _schedule = "topo"
+    _build = staticmethod(build_chain_arrays)
+    _handle = ScanSim
 
     def prepare(self, graph, platform, *, schedule: str = "topo") -> ScanSim:
         """``schedule`` picks the retire order: ``"topo"`` (heap-Kahn, the
         host scheduler's default order) or ``"level"`` (then the latencies
         are the ``level`` backend's)."""
-        return self._prepare(graph, platform, schedule, build_chain_arrays,
-                             ScanSim)
+        return self._prepare(graph, platform, schedule)
 
 
 register_backend(ScanBackend)

@@ -1,0 +1,587 @@
+"""CurriculumTrainer — ONE policy over a workload corpus of dozens of DAGs.
+
+Port of ``repro/core/train/curriculum.py``.  Each episode a
+:class:`~repro_torch.core.train.sampler.CurriculumSampler` draws
+``graphs_per_episode`` graphs from one size bucket (``plan_buckets`` bounds
+the bucket count; a bucket smaller than an episode repeats members, so a
+graph may fill several slots), the episode's window runs over those slots
+and the shared policy takes one Eq.-14 update over all of them.
+:meth:`CurriculumTrainer.warm_start` fine-tunes from a saved policy
+(feature layout checked against the new graphs first).
+
+The reference pads each episode to its bucket's shape and passes it to its
+jitted engine as an operand, so that it compiles once a bucket.  The port
+compiles nothing, so it runs each slot unpadded (one
+:class:`~repro_torch.core.sim.rollout.RolloutEngine` a slot in a
+:class:`~repro_torch.core.sim.rollout.MultiRolloutEngine`, an unpadded
+:class:`~repro_torch.core.sim.pipeline.RewardPipeline`), which computes
+what the reference's padded slot computes.  The buckets still decide the
+sampler's strata, the greedy decode's chunks and the width of the
+population's best-placement record (:class:`BucketShape`).
+
+Per-graph data is cached by corpus index, at most ``stream_cache`` graphs
+at once in each cache: the host half (features, the reward backend's
+tables; built on a worker thread by the :class:`EpisodePrefetcher` while
+the previous episode runs) and the device half (``x0``, the
+``GCNGraph``, the backend's tables on the card; built on the main thread).
+Neither cache is keyed on graph identity and both drop an evicted graph
+whole, so a :class:`~repro_torch.graphs.StreamingCorpus` holds only the
+sampled subset and its cached neighbours.
+
+Randomness.  ``train_corpus(rng=s)`` (an int; default ``cfg.seed``) stands
+for the reference's ``PRNGKey(s)``: the initial weights are the
+reference's ``init`` on ``split(PRNGKey(s))[1]`` (``core/prng.py``).  The
+numpy draws are the reference's bit for bit — the sampler's (seeded with
+``cfg.seed``), the episodic population's temperatures and culls, the
+corpus and its fingerprint.  The episode's torch draws are a function of
+(s, episode, slot, chain) alone: slot g, chain b of episode e draws from
+``seeded_generator([s, CORPUS_STREAM, e, g, b])`` and the population state
+of episode e from ``seeded_generator([s, POPULATION_STREAM, e])``, where the
+reference folds the episode into its key.  So an interrupted run resumed
+from a checkpoint replays the episode stream the uninterrupted run draws,
+bit for bit on the CPU.
+
+Checkpoints carry the corpus fingerprint, the sampler's RNG and plateau
+state, the best tracker, the optimizer state, the episodic population and
+the EMA baseline in the reference's format, so a corpus checkpoint of
+either package resumes in the other.  The reference's sharded engine
+(``mesh_shape``) waits with ROADMAP.md 'Modules to port' item 9.
+"""
+from __future__ import annotations
+
+import collections
+import time
+from types import SimpleNamespace
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
+
+import numpy as np
+import torch
+
+from ..._device import seeded_generator
+from ...kernels.gcn_spmm import GCNGraph, gcn_graph
+from ..costmodel import Platform, plan_buckets, simulate
+from ..features import (GraphArrays, check_feature_compat, extract_features,
+                        shared_feature_config)
+from ..graph import CompGraph
+from ..hsdag import HSDAGConfig, MultiGraphTrainer, reward_backend
+from ..reinforce import RunningBaseline
+from ..sim import get_backend
+from ..sim.pipeline import RewardPipeline
+from ..sim.rollout import ChainStreams, MultiRolloutEngine
+from . import population as popmod
+from .loop import BestTracker, EpisodePrefetcher, EpisodeRunner, WindowStream
+from .sampler import CurriculumSampler
+
+__all__ = ["CurriculumTrainer", "CorpusTrainResult", "BucketShape",
+           "CORPUS_STREAM"]
+
+#: the corpus episodes' stream, beside the seed ("corp")
+CORPUS_STREAM = 0x636F7270
+
+
+class BucketShape(NamedTuple):
+    """The padded shape of one size bucket in the reference."""
+
+    v_max: int       # node slots
+    p_max: int       # predecessor slots (sim side)
+    e_max: int       # edge slots (encoder side)
+
+
+class CorpusTrainResult(NamedTuple):
+    """Outcome of one curriculum run over a corpus of N graphs."""
+
+    best_latencies: np.ndarray           # (N,) seconds (inf if never sampled)
+    best_placements: List[np.ndarray]    # per graph: best sampled placement
+    greedy_latencies: np.ndarray         # (N,) greedy decode after training
+    greedy_placements: List[np.ndarray]
+    history: List[dict]                  # per-episode stats (+bucket, graphs)
+    params: object                       # the shared HSDAGPolicy
+    wall_time_s: float
+    num_evaluations: int
+    evals_per_sec: float
+    buckets: List[List[int]]             # the size partition used
+    episodes_run: int
+
+
+class _LRU:
+    """``build(i)`` cached by corpus index, at most ``capacity`` entries,
+    least-recently-used evicted first; ``peak`` is the most it held."""
+
+    def __init__(self, build: Optional[Callable[[int], object]],
+                 capacity: int):
+        self._build = build
+        self.capacity = int(capacity)
+        self._lru: "collections.OrderedDict[int, object]" = \
+            collections.OrderedDict()
+        self.peak = 0
+
+    def __call__(self, i: int):
+        return self.get(i, lambda: self._build(i))
+
+    def get(self, i: int, build: Callable[[], object]):
+        """Entry ``i``, built by ``build()`` on a miss."""
+        v = self._lru.get(i)
+        if v is not None:
+            self._lru.move_to_end(i)
+            return v
+        v = build()
+        self._lru[i] = v
+        while len(self._lru) > self.capacity:
+            self._lru.popitem(last=False)
+        self.peak = max(self.peak, len(self._lru))
+        return v
+
+    def __len__(self) -> int:
+        return len(self._lru)
+
+
+class _HostSlot(NamedTuple):
+    """One corpus graph's host data (numpy only)."""
+
+    graph: CompGraph
+    arrays: GraphArrays
+    tables: object          # the reward backend's ``prepare_host``
+
+
+class _Slot(NamedTuple):
+    """One corpus graph's data on the agent's device."""
+
+    x0: torch.Tensor
+    graph: GCNGraph
+    prep: object            # the reward backend's handle
+    num_nodes: int
+
+
+class CurriculumTrainer(MultiGraphTrainer):
+    """See module docstring.  Example::
+
+        corpus = build_corpus("benchmark;synthetic:family=mixed:count=9")
+        trainer = CurriculumTrainer(HSDAGConfig(batch_chains=8),
+                                    max_buckets=3, graphs_per_episode=4)
+        res = trainer.train_corpus(corpus, platform=paper_platform(),
+                                   checkpoint_dir="ckpt/corpus",
+                                   checkpoint_every=10)
+        trainer.save_policy("ckpt/corpus_policy")     # for warm starts
+
+        ft = CurriculumTrainer(trainer.cfg)
+        ft.warm_start("ckpt/corpus_policy")
+        ft.train_corpus([held_out_graph], platform=paper_platform())
+
+    ``update`` accepts the reference's ``"auto"``, ``"host"`` and
+    ``"fused"`` with its validations; without a mesh the reference's
+    engine has no in-mesh weights kernel and takes the host's float64
+    weights for all three, and so does the port.
+    """
+
+    def __init__(self, cfg: HSDAGConfig = HSDAGConfig(), *,
+                 reward_norm: str = "pergraph", max_buckets: int = 4,
+                 graphs_per_episode: int = 4,
+                 sampler_strategy: str = "stratified",
+                 plateau_patience: int = 5,
+                 mesh_shape: Optional[Tuple[int, int]] = None,
+                 update: str = "auto", stream_cache: int = 64,
+                 population=None, prefetch: str = "auto", device="cuda"):
+        super().__init__(cfg, reward_norm=reward_norm, device=device)
+        if cfg.engine == "scalar":
+            raise ValueError(
+                "the corpus trainer has no scalar loop; use engine='auto' "
+                "or a simulator backend name")
+        if max_buckets < 1:
+            raise ValueError("max_buckets must be >= 1")
+        if update not in ("auto", "host", "fused"):
+            raise ValueError(f"unknown update mode {update!r}; expected "
+                             f"'auto', 'host' or 'fused'")
+        if prefetch not in ("auto", "on", "off"):
+            raise ValueError(f"unknown prefetch mode {prefetch!r}; expected "
+                             f"'auto', 'on' or 'off'")
+        if mesh_shape is not None:
+            mesh_shape = (int(mesh_shape[0]), int(mesh_shape[1]))
+            if min(mesh_shape) < 1:
+                raise ValueError(f"mesh_shape must be positive, got "
+                                 f"{mesh_shape}")
+            raise NotImplementedError(
+                f"mesh_shape={mesh_shape}: the sharded rollout engine is not "
+                f"ported to repro_torch yet (ROADMAP.md 'Modules to port' "
+                f"item 9)")
+        if int(stream_cache) < 1:
+            raise ValueError("stream_cache must be >= 1")
+        if population is not None:
+            if isinstance(population, dict):
+                population = popmod.PopulationConfig.from_json(population)
+            elif not isinstance(population, popmod.PopulationConfig):
+                raise TypeError(
+                    f"population= expects a PopulationConfig or its dict "
+                    f"form, got {type(population).__name__}")
+        self.max_buckets = int(max_buckets)
+        self.graphs_per_episode = int(graphs_per_episode)
+        self.sampler_strategy = sampler_strategy
+        self.plateau_patience = int(plateau_patience)
+        self.mesh_shape = mesh_shape
+        self.update = update
+        self.stream_cache = int(stream_cache)
+        self.population = population
+        self.prefetch = prefetch
+        self._warm_start: Optional[Tuple[str, Optional[int]]] = None
+        #: the last run's prefetch hits and misses, and the most graphs its
+        #: host and device caches held
+        self.prefetch_stats: Dict[str, int] = {}
+        self.cache_peaks: Dict[str, int] = {}
+
+    # ------------------------------------------------------------ warm start
+    def warm_start(self, directory: str, step: Optional[int] = None) -> None:
+        """Fine-tune from a ``save_policy`` checkpoint (either package's).
+
+        The restore happens inside :meth:`train_corpus`, where the new
+        graphs are known: the saved feature layout is validated against
+        them first (mismatched op vocabularies raise, naming the op types).
+        """
+        from ...checkpoint import policy_feature_config
+        if policy_feature_config(directory, step) is None:
+            raise ValueError(
+                f"checkpoint {directory!r} carries no feature_config — it "
+                f"cannot anchor a warm start (the new graphs could not be "
+                f"featurized in the saved layout)")
+        self._warm_start = (directory, step)
+
+    # -------------------------------------------------------------- training
+    def train_corpus(self, graphs: Sequence[CompGraph], *,
+                     platform: Platform, rng: Optional[int] = None,
+                     episodes: Optional[int] = None, verbose: bool = False,
+                     checkpoint_dir: Optional[str] = None,
+                     checkpoint_every: int = 0,
+                     resume: bool = False) -> CorpusTrainResult:
+        """Train the shared policy over ``graphs`` (the corpus).
+
+        ``episodes`` overrides ``cfg.max_episodes``.  With
+        ``checkpoint_dir``, state is saved every ``checkpoint_every``
+        episodes (and at the end); ``resume=True`` continues an interrupted
+        run from the latest checkpoint after validating that the corpus
+        fingerprint matches.  ``graphs`` is a dense graph sequence or a
+        :class:`~repro_torch.graphs.StreamingCorpus`.  ``rng`` is the
+        run's seed (see module docstring).
+        """
+        from ...checkpoint import CheckpointManager
+        cfg = self.cfg
+        run = self._start(graphs, platform, rng)
+        max_eps = episodes if episodes is not None else cfg.max_episodes
+        mgr = (CheckpointManager(checkpoint_dir, keep=3)
+               if checkpoint_dir else None)
+        start_ep = 0
+        if resume:
+            if mgr is None:
+                raise ValueError("resume=True requires checkpoint_dir")
+            start_ep = self._resume(run, mgr)
+
+        # Build episode t+1's host data on a worker thread while episode t
+        # runs; "auto" enables it whenever an overlap can exist.
+        prefetcher = None
+        if self.prefetch == "on" or (self.prefetch == "auto"
+                                     and max_eps - start_ep > 1):
+            prefetcher = EpisodePrefetcher(lambda bi, ids: run.build(ids))
+        history: List[dict] = []
+        try:
+            for episode in range(start_ep, max_eps):
+                bi, ids = run.sampler.sample()
+                if prefetcher is not None:
+                    payload, wait_s = prefetcher.get((bi, tuple(ids)))
+                else:
+                    t0 = time.perf_counter()
+                    payload = run.build(ids)
+                    wait_s = time.perf_counter() - t0
+                if prefetcher is not None and episode + 1 < max_eps:
+                    nbi, nids = run.sampler.peek()
+                    prefetcher.schedule((nbi, tuple(nids)))
+                stats = self._episode(run, episode, bi, ids, payload)
+                stats["batch_wait_s"] = wait_s
+                run.sampler.observe(ids, run.tracker.best_latencies)
+                history.append({"episode": episode, "bucket": bi,
+                                "graphs": [run.meta[i].name for i in ids],
+                                **stats})
+                if verbose:
+                    h = history[-1]
+                    sampled = "/".join(
+                        f"{run.tracker.best_latencies[i] * 1e3:.2f}"
+                        for i in ids)
+                    print(f"ep {episode:3d} bucket {bi} reward "
+                          f"{h['mean_reward']:.4g} sampled-best[ms] "
+                          f"{sampled} groups {h['mean_groups']:.1f}")
+                if mgr is not None and checkpoint_every \
+                        and (episode + 1) % checkpoint_every == 0:
+                    self._save_state(mgr, episode, run)
+        finally:
+            if prefetcher is not None:
+                self.prefetch_stats = {"hits": prefetcher.hits,
+                                       "misses": prefetcher.misses}
+                prefetcher.close()
+            else:
+                self.prefetch_stats = {"hits": 0, "misses": 0}
+        if mgr is not None:
+            if max_eps > start_ep:
+                self._save_state(mgr, max_eps - 1, run)
+            mgr.close()
+
+        greedy_placements, greedy_latencies = self._greedy_corpus(run)
+        self.cache_peaks = {"host": run.host.peak,
+                            "device": run.slots.peak}
+        wall = time.perf_counter() - run.t_start
+        nchains = max(1, cfg.batch_chains)
+        n_evals = max(0, max_eps - start_ep) * cfg.update_timestep \
+            * run.g_sub * nchains
+        return CorpusTrainResult(
+            run.tracker.best_latencies, run.tracker.best_placements,
+            greedy_latencies, greedy_placements, history, self.policy,
+            wall, n_evals, n_evals / max(wall, 1e-9), run.buckets,
+            max(0, max_eps - start_ep))
+
+    # ------------------------------------------------------------ internals
+    def _start(self, graphs, platform: Platform, rng) -> SimpleNamespace:
+        """Everything a run needs before its first episode: features,
+        initial (or warm-started) weights, buckets, sampler, tracker,
+        population, caches and the runner."""
+        from ...checkpoint import policy_feature_config, restore_policy
+        from ...graphs.workloads import StreamingCorpus, corpus_fingerprint
+        cfg = self.cfg
+        t_start = time.perf_counter()
+        streaming = isinstance(graphs, StreamingCorpus)
+        if not streaming:
+            graphs = list(graphs)
+        # ``meta`` answers name/size/vocab for every graph without holding
+        # it dense: the graphs of an eager corpus, the GraphMeta records of
+        # a streaming one.
+        meta: Sequence = graphs.meta if streaming else graphs
+        if not len(meta):
+            raise ValueError("train_corpus needs at least one graph")
+        if cfg.num_devices > platform.num_devices:
+            raise ValueError(
+                f"cfg.num_devices={cfg.num_devices} exceeds the platform's "
+                f"{platform.num_devices} devices")
+        self.bind_platform(platform)
+        backend = get_backend(reward_backend(cfg.engine), device=self.device)
+        nchains = max(1, cfg.batch_chains)
+
+        # ---- feature layout: saved (warm start) or derived (fresh) ----
+        if self._warm_start is not None:
+            directory, wstep = self._warm_start
+            fc = policy_feature_config(directory, wstep)
+            check_feature_compat(fc, meta)
+            self.feature_config = fc
+        elif self.feature_config is not None:
+            fc = self.feature_config
+            check_feature_compat(fc, meta)
+        else:
+            fc = self.feature_config = shared_feature_config(meta)
+        if streaming:
+            # features rebuilt from the (itself LRU-cached) graph on a miss
+            get_arrays = _LRU(lambda i: extract_features(graphs[i], fc),
+                              self.stream_cache)
+        else:
+            arrays = [extract_features(g, fc) for g in graphs]
+            get_arrays = arrays.__getitem__
+
+        seed = cfg.seed if rng is None else int(rng)
+        if self.policy is None:
+            self.init(get_arrays(0), seed=seed)
+        if self._warm_start is not None:
+            tree, _, _, _ = restore_policy(directory, self.policy, step=wstep,
+                                           graphs=meta)
+            self.load_params(tree)
+            self._warm_start = None
+
+        sizes = [m.num_nodes for m in meta]
+        buckets = plan_buckets(sizes, self.max_buckets)
+        shapes = [BucketShape(
+            v_max=max(meta[i].num_nodes for i in members),
+            p_max=max(1, max(int(meta[i].in_degrees().max(initial=0))
+                             for i in members)),
+            e_max=max(1, max(int(meta[i].num_edges) for i in members)))
+            for members in buckets]
+        g_sub = min(self.graphs_per_episode, len(meta))
+        sampler = CurriculumSampler(
+            buckets, graphs_per_episode=g_sub,
+            strategy=self.sampler_strategy, seed=cfg.seed,
+            plateau_patience=self.plateau_patience)
+        # Episodic population: each episode is a fresh one-window stream
+        # over a resampled subset, so chain identity lives in the
+        # controller's persistent per-chain temperatures.
+        controller = (popmod.PopulationController(
+            self.population, num_chains=nchains, in_jit_pbt=False)
+            if self.population is not None else None)
+        tracker = BestTracker(sizes, nchains)
+        baseline = (RunningBaseline()
+                    if cfg.use_baseline and self.reward_norm != "pergraph"
+                    else None)
+        if self.update == "fused":
+            if baseline is not None:
+                raise ValueError(
+                    "update='fused' is incompatible with the EMA baseline "
+                    "(its per-sample update is host-sequential); set "
+                    "use_baseline=False or reward_norm='pergraph'")
+            if not backend.fused:
+                raise ValueError(
+                    f"update='fused' needs a jit-fused simulator backend "
+                    f"(rewards must already live on device); backend "
+                    f"{backend.name!r} is host-side")
+        runner = EpisodeRunner(self, None, pipeline=None, tracker=tracker,
+                               reward_norm=self.reward_norm,
+                               baseline=baseline, controller=controller)
+
+        host = _LRU(lambda i: _HostSlot(
+            graphs[i], get_arrays(i),
+            backend.prepare_host(graphs[i], platform)), self.stream_cache)
+        slots = _LRU(None, self.stream_cache)
+        return SimpleNamespace(
+            graphs=graphs, meta=meta, streaming=streaming, platform=platform,
+            backend=backend, seed=seed, t_start=t_start, buckets=buckets,
+            shapes=shapes, g_sub=g_sub, sampler=sampler,
+            controller=controller, tracker=tracker, baseline=baseline,
+            runner=runner, host=host, slots=slots,
+            fingerprint=corpus_fingerprint(graphs),
+            # the host data of ``ids`` (unique, in slot order): what the
+            # prefetcher's worker builds
+            build=lambda ids: {i: host(i) for i in dict.fromkeys(ids)})
+
+    def _slot(self, run, i: int, hs: _HostSlot) -> _Slot:
+        """Graph ``i``'s device data, from the device cache or built from
+        its host data ``hs`` (main thread only)."""
+        return run.slots.get(i, lambda: _Slot(
+            torch.as_tensor(hs.arrays.x, device=self.device),
+            gcn_graph(hs.arrays.edges, hs.arrays.num_nodes, self.device),
+            run.backend.prepare_device(hs.graph, run.platform, hs.tables),
+            int(hs.graph.num_nodes)))
+
+    def _episode(self, run, episode: int, bi: int, ids: Sequence[int],
+                 payload: Dict[int, _HostSlot], noise=None) -> Dict:
+        """One episode over the slots ``ids`` of bucket ``bi``; ``noise``
+        (one ``WindowNoise`` a slot) replaces the episode's draws."""
+        engine, pipeline, stream = self._episode_parts(run, episode, bi, ids,
+                                                       payload)
+        return run.runner.run_episode(stream, noise=noise, engine=engine,
+                                      pipeline=pipeline)
+
+    def _episode_parts(self, run, episode: int, bi: int,
+                       ids: Sequence[int], payload: Dict[int, _HostSlot]):
+        """The engine, reward pipeline and fresh stream of one episode over
+        the slots ``ids`` → (engine, pipeline, stream)."""
+        nchains = max(1, self.cfg.batch_chains)
+        slots = [self._slot(run, i, payload[i]) for i in ids]
+        pipeline = RewardPipeline(backend=run.backend,
+                                  preps=[s.prep for s in slots],
+                                  num_nodes=[s.num_nodes for s in slots])
+        engine = MultiRolloutEngine(
+            [self._engine_on(s.x0, s.graph, pipeline.graph(g))
+             for g, s in enumerate(slots)], population=self.population)
+        pop = None
+        if run.controller is not None:
+            pop = popmod.init_chain_state(
+                self.population,
+                seeded_generator([run.seed, popmod.POPULATION_STREAM,
+                                  episode], self.device),
+                num_graphs=len(ids), num_chains=nchains,
+                num_nodes=run.shapes[bi].v_max,
+                temperatures=run.controller.temps)
+        streams = [ChainStreams.of([
+            seeded_generator([run.seed, CORPUS_STREAM, episode, g, b],
+                             self.device) for b in range(nchains)])
+            for g in range(len(ids))]
+        stream = WindowStream(z=engine.initial_state(nchains),
+                              streams=streams, first=True, pop=pop,
+                              graph_ids=list(ids))
+        return engine, pipeline, stream
+
+    def _resume(self, run, mgr) -> int:
+        """Restore the latest checkpoint of ``mgr`` into ``run`` → the
+        episode to start from (0 when there is none)."""
+        from ...checkpoint.convert import params_to_numpy
+        last = mgr.latest_step()
+        if last is None:
+            return 0
+        man = mgr.manifest(last)
+        if man.get("corpus_fingerprint") != run.fingerprint:
+            raise ValueError(
+                "checkpoint was written for a different corpus "
+                "(fingerprint mismatch) — resuming would mis-map "
+                "sampler state and per-graph bests")
+        saved_mesh = man.get("mesh")
+        if (saved_mesh or [1, 1]) != [1, 1]:
+            raise ValueError(
+                f"checkpoint was written with mesh={saved_mesh} but this "
+                f"trainer uses mesh=None — a resumed run would not replay "
+                f"the same episode stream; recreate the trainer with the "
+                f"saved mesh_shape")
+        names = [n for n, _ in self.policy.named_parameters()]
+        state = mgr.restore(last, {"params": params_to_numpy(self.policy),
+                                   "opt": self._opt.state_tree(names)})
+        self.load_params(state["params"])
+        self._opt.load_state_tree(state["opt"], names)
+        run.sampler.load_state_dict(man["sampler"])
+        run.tracker.load_state_arrays(
+            {k: np.asarray(v) for k, v in man["tracker"].items()})
+        saved_pop = man.get("population")
+        if (saved_pop is None) != (run.controller is None):
+            raise ValueError(
+                "checkpoint population state does not match this "
+                "trainer's population= setting — a resumed run "
+                "would not replay the same temperature stream")
+        if run.controller is not None:
+            run.controller.load_state_dict(saved_pop)
+        if run.baseline is not None:
+            # the EMA feeds the step weights — without it a resumed run
+            # would diverge from the uninterrupted one
+            saved = man.get("baseline")
+            if saved is None:
+                raise ValueError(
+                    "checkpoint carries no EMA-baseline state but "
+                    "this config uses use_baseline — it was saved "
+                    "by a run with a different reward setup")
+            run.baseline.value = saved["value"]
+            run.baseline.beta = saved["beta"]
+        return int(man["episode"]) + 1
+
+    def _greedy_corpus(self, run):
+        """Greedy-decode every corpus graph, bucket by bucket in chunks of
+        the episode width (on a streaming corpus each chunk materializes
+        at most ``graphs_per_episode`` graphs); each latency is the host
+        scheduler's."""
+        N = len(run.meta)
+        placements: List[Optional[np.ndarray]] = [None] * N
+        latencies = np.empty(N)
+        for members in run.buckets:
+            for lo in range(0, len(members), run.g_sub):
+                chunk = members[lo:lo + run.g_sub]
+                payload = run.build(chunk)
+                slots = [self._slot(run, i, payload[i]) for i in chunk]
+                engine = MultiRolloutEngine(
+                    [self._engine_on(s.x0, s.graph) for s in slots])
+                for gid, fine in zip(chunk, engine.greedy_decode()):
+                    p = fine.cpu().numpy().astype(np.int64)
+                    placements[gid] = p
+                    latencies[gid] = simulate(payload[gid].graph, p,
+                                              run.platform).latency
+        return placements, latencies
+
+    def _save_state(self, mgr, episode: int, run) -> None:
+        from ...checkpoint.convert import params_to_numpy
+        from ...checkpoint.manager import _feature_config_to_meta
+        t = run.tracker.state_arrays()
+        meta = {
+            "episode": int(episode),
+            "corpus_fingerprint": run.fingerprint,
+            "sampler": run.sampler.state_dict(),
+            "tracker": {"latencies": t["latencies"].tolist(),
+                        "placements": t["placements"].tolist(),
+                        "chain_best": t["chain_best"].tolist()},
+            "engine": self.cfg.engine,
+            "feature_config": _feature_config_to_meta(self.feature_config),
+            "mesh": None,
+            "stream": bool(run.streaming),
+        }
+        if run.baseline is not None:
+            meta["baseline"] = {"value": run.baseline.value,
+                                "beta": run.baseline.beta}
+        if run.controller is not None:
+            meta["population"] = run.controller.state_dict()
+        names = [n for n, _ in self.policy.named_parameters()]
+        mgr.save(episode, {"params": params_to_numpy(self.policy),
+                           "opt": self._opt.state_tree(names)}, meta)
+        mgr.wait()

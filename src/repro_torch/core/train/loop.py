@@ -6,14 +6,17 @@ rollout window of every graph's B chains (a
 multi-graph :class:`~repro_torch.core.sim.pipeline.RewardPipeline`, tracked
 by a :class:`BestTracker`, and applied to the shared policy as one exact
 Eq.-14 replay gradient.  ``HSDAG.train_multi`` drives one
-:class:`EpisodeRunner` over a fixed set of graphs, and ``HSDAG.search``
-one over its single graph.  The reference's
-``EpisodePrefetcher`` serves its corpus trainer only, and comes with it
-(ROADMAP.md 'Modules to port' item 6, the corpus half).
+:class:`EpisodeRunner` over a fixed set of graphs, ``HSDAG.search`` one
+over its single graph, and the corpus trainer one over an engine and a
+pipeline built anew for each episode's sampled slots (a slot may repeat a
+graph), with :class:`EpisodePrefetcher` building the next episode's host
+data while the current one runs.
 """
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -23,7 +26,7 @@ import torch
 from ..reinforce import step_weights
 
 __all__ = ["make_chain_streams", "WindowStream", "BestTracker",
-           "EpisodeRunner", "window_weights"]
+           "EpisodeRunner", "EpisodePrefetcher", "window_weights"]
 
 
 def make_chain_streams(seed: int, num_graphs: int, num_chains: int,
@@ -52,13 +55,16 @@ class WindowStream:
 
     ``pop`` (a ``ChainState``, or ``None``: population search off) rides
     the stream so per-chain temperatures and best records persist across
-    windows.
+    windows.  ``graph_ids`` maps the G slots to the tracker's graphs
+    (``None``: slot g is graph g); the corpus trainer's slots may repeat a
+    graph.
     """
 
     z: List[torch.Tensor]         # G × (B, V_g, d) — window-start state
     streams: List[ChainStreams]   # G — each graph's chain streams
     first: bool                   # next window starts with the transform step
     pop: object = None            # Optional[ChainState]
+    graph_ids: Optional[Sequence[int]] = None
 
     @classmethod
     def fresh(cls, engine, seed: int, num_chains: int, device,
@@ -74,7 +80,9 @@ class BestTracker:
 
     The order matters for reproducibility: the EMA baseline update
     interleaves with the strict-< best tie-break exactly as the reference's
-    (and reduces to the single-graph search at G=1).
+    (and reduces to the single-graph search at G=1).  A window's G slots
+    map to the tracked graphs through ``graph_ids``; a graph in several
+    slots takes them in slot order.
     """
 
     def __init__(self, num_nodes: Sequence[int], num_chains: int):
@@ -86,21 +94,44 @@ class BestTracker:
         self.chain_best = np.full((n, num_chains), np.inf)
 
     def update(self, fines: Sequence[np.ndarray], rewards: np.ndarray,
-               latencies: np.ndarray, baseline=None) -> None:
-        """Fold a window in: one (T, B, V_g) placement array a graph and
+               latencies: np.ndarray, baseline=None,
+               graph_ids: Optional[Sequence[int]] = None) -> None:
+        """Fold a window in: one (T, B, V_g) placement array a slot and
         (T, G, B) rewards and latencies; the EMA ``baseline`` takes each
-        reward."""
+        reward.  ``graph_ids`` (default ``range(G)``) names each slot's
+        graph."""
         T, G, B = latencies.shape
+        ids = range(G) if graph_ids is None else [int(i) for i in graph_ids]
         for t in range(T):
-            for g in range(G):
+            for g, gid in enumerate(ids):
                 for b in range(B):
                     if baseline is not None:
                         baseline.update(rewards[t, g, b])
-                    if latencies[t, g, b] < self.best_latencies[g]:
-                        self.best_latencies[g] = float(latencies[t, g, b])
-                        self.best_placements[g] = \
+                    if latencies[t, g, b] < self.best_latencies[gid]:
+                        self.best_latencies[gid] = float(latencies[t, g, b])
+                        self.best_placements[gid] = \
                             fines[g][t, b].astype(np.int64)
-        self.chain_best = np.minimum(self.chain_best, latencies.min(axis=0))
+        lat_min = latencies.min(axis=0)                          # (G, B)
+        for g, gid in enumerate(ids):
+            self.chain_best[gid] = np.minimum(self.chain_best[gid],
+                                              lat_min[g])
+
+    def state_arrays(self) -> Dict[str, np.ndarray]:
+        """Dense view for checkpointing (placements padded to the max V),
+        the reference's."""
+        vm = max(self.num_nodes) if self.num_nodes else 0
+        plc = np.zeros((len(self.num_nodes), vm), np.int64)
+        for i, p in enumerate(self.best_placements):
+            plc[i, :p.shape[0]] = p
+        return {"latencies": self.best_latencies.copy(),
+                "placements": plc, "chain_best": self.chain_best.copy()}
+
+    def load_state_arrays(self, state: Dict[str, np.ndarray]) -> None:
+        self.best_latencies = np.asarray(state["latencies"]).copy()
+        plc = np.asarray(state["placements"])
+        self.best_placements = [plc[i, :n].astype(np.int64).copy()
+                                for i, n in enumerate(self.num_nodes)]
+        self.chain_best = np.asarray(state["chain_best"]).copy()
 
 
 def window_weights(rewards: np.ndarray, cfg, *, reward_norm: str,
@@ -130,9 +161,11 @@ class EpisodeRunner:
     ``agent`` supplies ``cfg`` and ``apply_grads`` (the optimizer step) —
     :class:`~repro_torch.core.hsdag.HSDAG`.  ``engine`` is a
     :class:`~repro_torch.core.sim.rollout.MultiRolloutEngine` and
-    ``pipeline`` a ``RewardPipeline`` over the same graphs.  ``controller``
-    (a ``PopulationController``) runs the population's PBT rounds; it is
-    needed when the stream carries a ``pop``.
+    ``pipeline`` a ``RewardPipeline`` over the same graphs; the corpus
+    trainer passes both to each :meth:`run_episode` instead.
+    ``controller`` (a ``PopulationController``) runs the population's PBT
+    rounds — in the engine (stream mode) or on its own temperature vector
+    (episodic mode); it is needed when the stream carries a ``pop``.
     """
 
     def __init__(self, agent, engine, *, pipeline, tracker: BestTracker,
@@ -146,10 +179,14 @@ class EpisodeRunner:
         self.controller = controller
 
     def run_episode(self, stream: WindowStream, *,
-                    noise: Optional[Sequence] = None) -> Dict:
+                    noise: Optional[Sequence] = None, engine=None,
+                    pipeline=None) -> Dict:
         """One window of every graph; ``noise`` (one ``WindowNoise`` a
-        graph) replaces the draws from ``stream.streams``."""
-        agent, engine = self.agent, self.engine
+        graph) replaces the draws from ``stream.streams``; ``engine`` and
+        ``pipeline`` replace the runner's own for this episode."""
+        agent = self.agent
+        engine = engine if engine is not None else self.engine
+        pipeline = pipeline if pipeline is not None else self.pipeline
         cfg = agent.cfg
         tsteps = cfg.update_timestep
         t_ep = time.perf_counter()
@@ -160,13 +197,13 @@ class EpisodeRunner:
             streams=None if noise is not None else stream.streams,
             noise=noise,
             temperature=pop.temperature if pop is not None else None)
-        rewards, latencies = self.pipeline.score_window(fines)   # (T, G, B)
+        rewards, latencies = pipeline.score_window(fines)        # (T, G, B)
         pop_next = None
         if pop is not None:
-            pop_next = engine.update_population(pop, engine.pad(fines),
-                                                latencies)
+            pop_next = engine.update_population(
+                pop, engine.pad(fines, pop.best_fine.shape[-1]), latencies)
         self.tracker.update([f.cpu().numpy() for f in fines], rewards,
-                            latencies, self.baseline)
+                            latencies, self.baseline, stream.graph_ids)
 
         # ---- shared-policy update over the (T, G, B) window ----
         weights = torch.as_tensor(
@@ -188,10 +225,14 @@ class EpisodeRunner:
         # must see the temperatures the window sampled at) ----
         pop_stats: Dict = {}
         if pop_next is not None:
-            due, use_greedy = self.controller.note_window()
-            if due:
-                pop_next, stream.z = engine.pbt_step(
-                    pop_next, stream.z, use_greedy=use_greedy)
+            ctl = self.controller
+            if ctl.in_jit_pbt:
+                due, use_greedy = ctl.note_window()
+                if due:
+                    pop_next, stream.z = engine.pbt_step(
+                        pop_next, stream.z, use_greedy=use_greedy)
+            else:
+                due = ctl.observe_episode(latencies)
             pop_stats = {
                 "culled": bool(due),
                 "pop_best_latency": float(pop_next.best_latency.min()),
@@ -207,3 +248,85 @@ class EpisodeRunner:
             "wall_s": time.perf_counter() - t_ep,
             **pop_stats,
         }
+
+
+class EpisodePrefetcher:
+    """Overlap host batch assembly of episode t+1 with device work of t.
+
+    One background worker, one-slot request/response queues: the trainer
+    predicts the next episode's (bucket, graph ids) key, :meth:`schedule`\\ s
+    it, runs the current episode, then :meth:`get`\\ s the built payload.
+    The build is host work only (features, tables, numpy arrays): tensors
+    go to the device on the main thread, so no CUDA work races the
+    episode.  Batch construction is deterministic in the key, so a
+    prefetched payload is bitwise the synchronously-built one; a
+    mispredicted key (the plateau sampler may re-weight between peek and
+    draw) falls back to a synchronous build.  The worker touches the
+    trainer's host caches only while the main thread is not building
+    (``get`` always drains the in-flight build before building
+    synchronously), so they need no lock.
+
+    :meth:`get` returns ``(payload, wait_s)`` — ``wait_s`` is the main
+    thread's stall (queue wait + any fallback build).  :meth:`close` is
+    idempotent and joins the worker.
+    """
+
+    def __init__(self, build, *, name: str = "episode-prefetch"):
+        self._build = build
+        self._req: "queue.Queue" = queue.Queue(maxsize=1)
+        self._res: "queue.Queue" = queue.Queue(maxsize=1)
+        self._pending = None
+        self.hits = 0
+        self.misses = 0
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name=name)
+        self._thread.start()
+
+    def _run(self):
+        while True:
+            key = self._req.get()
+            if key is None:
+                return
+            try:
+                self._res.put((key, self._build(*key), None))
+            except BaseException as exc:  # surfaced on the main thread
+                self._res.put((key, None, exc))
+
+    def schedule(self, key) -> None:
+        """Ask the worker to build ``key``; no-op if one is in flight."""
+        if self._thread is None or self._pending is not None:
+            return
+        self._pending = key
+        self._req.put(key)
+
+    def get(self, key):
+        """→ ``(payload, wait_s)`` for ``key`` (prefetched or fallback)."""
+        t0 = time.perf_counter()
+        payload = None
+        if self._pending is not None:
+            built_key, built, err = self._res.get()
+            self._pending = None
+            if err is not None:
+                raise err
+            if built_key == key:
+                self.hits += 1
+                payload = built
+            else:
+                self.misses += 1
+        if payload is None:
+            payload = self._build(*key)
+        return payload, time.perf_counter() - t0
+
+    @property
+    def alive(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
+
+    def close(self) -> None:
+        if self._thread is None:
+            return
+        if self._pending is not None:
+            self._res.get()          # unblock a worker mid-put
+            self._pending = None
+        self._req.put(None)
+        self._thread.join()
+        self._thread = None

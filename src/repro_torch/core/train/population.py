@@ -1,9 +1,9 @@
 """Population search over the B chains — PBT culling, elite exchange, greedy
 restarts.
 
-Port of ``repro/core/train/population.py`` for ``search`` and
-``train_multi``.  Three mechanisms, all standard population-based-training
-moves specialised to placement search:
+Port of ``repro/core/train/population.py`` for ``search``,
+``train_multi`` and the corpus trainer.  Three mechanisms, all standard
+population-based-training moves specialised to placement search:
 
 * **Culling** — every ``cull_every`` windows, rank the chains by their
   best-found makespan; the bottom ``cull_fraction`` resample their sampling
@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Dict, NamedTuple, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -246,24 +246,44 @@ def pbt_rows(cfg: PopulationConfig, draws: PBTDraws, lat_rows: torch.Tensor,
 
 
 class PopulationController:
-    """Host-side cadence keeper of a population search.
+    """Host-side cadence keeper (and episodic-mode temperature owner).
 
-    The port has the reference's persistent-stream mode (``search`` and
-    ``train_multi``): the controller counts windows, and
-    :meth:`note_window` says when a cull round is due and whether it is a
-    greedy-restart round; the state changes in the rollout engine's
-    ``pbt_step``.  The reference's episodic mode belongs to its corpus
-    trainer, the corpus half of ROADMAP.md 'Modules to port' item 6.
+    Two modes, as the reference's:
+
+    * ``in_jit_pbt=True`` (persistent streams: ``search``/``train_multi``):
+      the controller only counts windows — :meth:`note_window` says when a
+      cull round is due and whether it is a greedy-restart round; the state
+      changes in the rollout engine's ``pbt_step``.
+    * ``in_jit_pbt=False`` (the corpus trainer, where every episode is a
+      fresh one-window stream over a resampled graph subset): chain
+      identity lives only in the persistent (B,) ``temps`` vector, drawn
+      from ``numpy.random.default_rng(cfg.seed)``; the controller
+      accumulates per-chain scores from each episode's latencies (per-slot
+      standardized, so graphs of different latency scales vote comparably)
+      and culls the vector on the host every ``cull_every`` episodes with
+      the same donor/perturb scheme.  Its draws and ``state_dict`` are the
+      reference's bit for bit.
     """
 
-    def __init__(self, cfg: PopulationConfig, *, num_chains: int):
+    def __init__(self, cfg: PopulationConfig, *, num_chains: int,
+                 in_jit_pbt: bool = True):
         self.cfg = cfg
         self.num_chains = int(num_chains)
         chain_counts(cfg, self.num_chains)  # fail fast on tiny B
+        self.in_jit_pbt = bool(in_jit_pbt)
         self.windows_seen = 0
         self.rounds = 0
         self.culled_total = 0
+        self._rng = np.random.default_rng(cfg.seed)
+        self.temps: Optional[np.ndarray] = None
+        if not self.in_jit_pbt:
+            lo, hi = np.log(cfg.init_lo), np.log(cfg.init_hi)
+            self.temps = np.exp(self._rng.uniform(
+                lo, hi, size=self.num_chains)).astype(np.float32)
+        self._score = np.zeros(self.num_chains)
+        self._score_n = 0
 
+    # ------------------------------------------------------ stream mode
     def note_window(self) -> Tuple[bool, bool]:
         """Count one window → (cull round due?, greedy-restart round?)."""
         self.windows_seen += 1
@@ -278,15 +298,66 @@ class PopulationController:
                           == 0)
         return due, use_greedy
 
+    # ----------------------------------------------- episodic (corpus) mode
+    def observe_episode(self, latencies) -> bool:
+        """Fold one episode's (T, G, B) latencies into the chain scores;
+        culls ``temps`` when a round comes due.  → True iff it culled."""
+        if self.in_jit_pbt:
+            raise RuntimeError("observe_episode is the episodic-mode hook; "
+                               "stream-mode populations cull in the engine")
+        lat_min = np.asarray(latencies, np.float64).min(axis=0)   # (G, B)
+        mean = lat_min.mean(axis=1, keepdims=True)
+        std = lat_min.std(axis=1, keepdims=True) + 1e-12
+        self._score += (-(lat_min - mean) / std).mean(axis=0)     # (B,)
+        self._score_n += 1
+        self.windows_seen += 1
+        if self.windows_seen % self.cfg.cull_every:
+            return False
+        self._cull_temps()
+        return True
+
+    def _cull_temps(self) -> None:
+        cfg = self.cfg
+        B = self.num_chains
+        n_elite, n_cull = chain_counts(cfg, B)
+        score = self._score / max(1, self._score_n)
+        order = np.argsort(-score, kind="stable")    # best first
+        elites, culled = order[:n_elite], order[B - n_cull:]
+        log_p = np.log(cfg.perturb)
+        for b in culled:
+            donor = elites[self._rng.integers(n_elite)]
+            factor = np.exp(self._rng.uniform(-log_p, log_p))
+            self.temps[b] = np.clip(self.temps[donor] * factor,
+                                    cfg.temp_min, cfg.temp_max)
+        self._score[:] = 0.0
+        self._score_n = 0
+        self.rounds += 1
+        self.culled_total += n_cull
+
+    # ------------------------------------------------------------ transport
     def state_dict(self) -> Dict:
-        """JSON-serialisable counters, under the reference's keys."""
-        return {"windows_seen": self.windows_seen, "rounds": self.rounds,
-                "culled_total": self.culled_total}
+        """JSON-serialisable state under the reference's keys (checkpoint
+        manifests, corpus resume)."""
+        return {
+            "windows_seen": self.windows_seen,
+            "rounds": self.rounds,
+            "culled_total": self.culled_total,
+            "rng": self._rng.bit_generator.state,
+            "temps": (None if self.temps is None
+                      else [float(t) for t in self.temps]),
+            "score": [float(s) for s in self._score],
+            "score_n": self._score_n,
+        }
 
     def load_state_dict(self, state: Dict) -> None:
         self.windows_seen = int(state["windows_seen"])
         self.rounds = int(state["rounds"])
         self.culled_total = int(state["culled_total"])
+        self._rng.bit_generator.state = state["rng"]
+        if state.get("temps") is not None:
+            self.temps = np.asarray(state["temps"], np.float32)
+        self._score = np.asarray(state["score"], np.float64)
+        self._score_n = int(state["score_n"])
 
     def summary(self) -> Dict:
         return {"windows": self.windows_seen, "cull_rounds": self.rounds,

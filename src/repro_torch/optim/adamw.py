@@ -2,11 +2,13 @@
 
 Port of ``repro/optim/adamw.py::adam``: the same moments, bias corrections
 and update, term for term in float32, so one step from the same state lands
-on the reference's parameters.
+on the reference's parameters.  The state crosses to and from the
+reference's ``OptState(step, mu, nu)`` as a tree (:meth:`Adam.state_tree`),
+which is how a corpus checkpoint of either package carries it.
 """
 from __future__ import annotations
 
-from typing import Iterable, Sequence
+from typing import Dict, Iterable, Sequence
 
 import numpy as np
 import torch
@@ -39,3 +41,27 @@ class Adam:
             v.copy_(self.b2 * v + (1 - self.b2) * g * g)
             delta = (m / b1c) / (torch.sqrt(v / b2c) + self.eps)
             p.copy_(p + (-self.learning_rate) * delta)
+
+    def state_tree(self, names: Sequence[str]) -> Dict:
+        """The reference's ``OptState`` as a tree: ``{"step": int32 (),
+        "mu": tree, "nu": tree}``, the moments under the reference's
+        parameter paths and layouts; ``names`` are the parameters' names in
+        order (``policy.named_parameters()``)."""
+        from ..checkpoint.convert import tree_from_tensors
+        return {"step": np.asarray(self.step, np.int32),
+                "mu": tree_from_tensors(names, self.mu),
+                "nu": tree_from_tensors(names, self.nu)}
+
+    @torch.no_grad()
+    def load_state_tree(self, tree: Dict, names: Sequence[str]) -> None:
+        """Adopt a :meth:`state_tree` of either package (the moments
+        bitwise)."""
+        from ..checkpoint.convert import tensors_from_tree
+        for dst, key in ((self.mu, "mu"), (self.nu, "nu")):
+            for t, arr in zip(dst, tensors_from_tree(names, tree[key])):
+                if tuple(arr.shape) != tuple(t.shape):
+                    raise ValueError(f"optimizer state {key}: shape "
+                                     f"{arr.shape} does not fit "
+                                     f"{tuple(t.shape)}")
+                t.copy_(torch.from_numpy(arr))
+        self.step = int(np.asarray(tree["step"]))

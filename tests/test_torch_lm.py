@@ -1,7 +1,8 @@
 """Port parity, the LM serving path: the reference's ``init_params`` weights
 carried across with ``lm_params_from_numpy``, then ``forward`` and
 ``prefill`` + greedy decode of the port against the JAX package on the
-h2o-danube-1.8b and mamba2-130m SMOKE configs, and the serve entry point."""
+h2o-danube-1.8b, mamba2-130m and qwen1.5-0.5b (QKV bias, tied embeddings)
+SMOKE configs, and the serve entry point."""
 import dataclasses
 
 import numpy as np
@@ -23,7 +24,7 @@ from repro_torch.configs import get  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import decode_step, forward, prefill  # noqa: E402
 
-ARCHS = ["h2o-danube-1.8b", "mamba2-130m"]
+ARCHS = ["h2o-danube-1.8b", "mamba2-130m", "qwen1.5-0.5b"]
 # the reference's decode-consistency tolerance (tests/test_models.py:21):
 # float32 weights and activations, sums in another order across frameworks
 ATOL = 2e-5

@@ -92,3 +92,47 @@ def test_reference_multi_spread_is_chip_smokes_contract():
     for row in rows:
         assert set(row) == {str(s) for s in doc["seeds"]}
         assert all(math.isfinite(x) and 0 < x < 1 for x in row.values())
+
+
+def test_reference_corpus_spread_is_chip_smokes_contract():
+    """``tools/reference_corpus_spread.json``: the reference's corpus runs
+    at ``chip_smoke.py``'s contract config — its corpus (graphs, sizes,
+    buckets, fingerprint) is the port's, each seed's graph sequence is
+    what the port's sampler draws for that seed, and every latency of the
+    14 pairs is finite for seeds 0-11."""
+    smoke = _chip_smoke()
+    with open(smoke.CORPUS_JSON) as f:
+        doc = json.load(f)
+    assert doc["config"] == smoke.CORPUS_CONTRACT_CONFIG
+    assert doc["trainer"] == smoke.CORPUS_TRAINER
+    assert doc["corpus"] == smoke.CORPUS_SPEC
+    assert doc["held_out"] == smoke.HELD_OUT_SPEC
+    assert doc["seeds"] == list(range(12))
+    assert doc["platform"] == "paper_platform()"
+    assert doc["jax_version"] and doc["date"]
+    from repro_torch.core import plan_buckets
+    from repro_torch.core.train import CurriculumSampler
+    from repro_torch.graphs import build_corpus, corpus_fingerprint
+    corpus = build_corpus(doc["corpus"])
+    assert [g.name for g in corpus] == doc["graphs"]
+    assert [g.num_nodes for g in corpus] == doc["num_nodes"]
+    assert plan_buckets(doc["num_nodes"], 3) == doc["buckets"]
+    assert corpus_fingerprint(corpus) == doc["fingerprint"]
+    assert [g.name for g in build_corpus(doc["held_out"])] == \
+        doc["held_out_graphs"]
+    res = doc["results"]
+    assert set(res["greedy"]) == set(doc["graphs"])
+    assert set(res["best"]) == {"inception_v3", "resnet50"}
+    assert set(res["zero_shot"]) == set(doc["held_out_graphs"])
+    pairs = [row for part in ("greedy", "best", "zero_shot")
+             for row in res[part].values()]
+    assert len(pairs) == 14
+    for row in pairs:
+        assert set(row) == {str(s) for s in doc["seeds"]}
+        assert all(math.isfinite(x) and x > 0 for x in row.values())
+    for s in doc["seeds"]:
+        sampler = CurriculumSampler(doc["buckets"], graphs_per_episode=4,
+                                    seed=s)
+        want = [sampler.sample() for _ in range(doc["config"]
+                                                ["max_episodes"])]
+        assert [[b, ids] for b, ids in want] == res["sequence"][str(s)]
