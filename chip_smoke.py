@@ -55,13 +55,23 @@ user entry points:
    ``MultiGraphTrainer`` over the three paper graphs (12 episodes, T=10,
    B=8), the three held-out runs (train on two, ``evaluate_zero_shot`` on
    the third) and a ``save_policy`` / ``load_policy`` round trip that must
-   decode the same greedy placements;
+   decode the same greedy placements; then Table 2
+   (``benchmarks/table2_placement.py``: per paper graph the heuristic rows,
+   ``PlacetoBaseline`` and ``RNNBaseline`` for 12 episodes, and the HSDAG
+   row through ``PlacementSession``) and Table 4 (``MeasuredExecutor`` on
+   BERT-base over the CPU and the card, under cpu_only and the Table-2
+   placement); the contract also holds the learned baselines
+   (``tools/reference_baseline_spread.json``) and corpus training over
+   Table 8's full corpus (``tools/reference_corpus_spread_full.json``);
+   Table 8 runs its full corpus, ``traced`` included; then the v1 API
+   (``fit`` in each mode, save/load, ``plan_stages`` of phi3-mini-3.8b);
 2. LM serving: ``repro_torch.launch.serve`` at full width in bf16 with
    random weights, h2o-danube-1.8b (batch 4, prompt 4608 > its 4096 window,
    32 steps: ``rmsnorm``, ``flash_attention``) and mamba2-130m (batch 4,
-   prompt 4096, 32 steps, SSD chunk 32: ``rmsnorm``, ``ssd_scan``), then a
-   float32 check that prefill + greedy decode agrees with ``forward`` for
-   each model.
+   prompt 4096, 32 steps, SSD chunk 32: ``rmsnorm``, ``ssd_scan``) and
+   phi3-mini-3.8b (batch 4, prompt 4064, 32 steps: ``flash_attention`` at
+   head dim 96), then a float32 check that prefill + greedy decode agrees
+   with ``forward`` for each model.
 
 Each path's kernel launch counters (and per-route counters) are zeroed just
 before it and read just after it; every wall time is printed per phase, and
@@ -139,14 +149,22 @@ MULTI_CONFIG = {"num_devices": 2, "batch_chains": 8, "max_episodes": 12,
                 "update_timestep": 10}
 MULTI_JSON = os.path.join(ROOT, "tools", "reference_multi_spread.json")
 MULTI_CONTRACT_CONFIG = dict(MULTI_CONFIG, max_episodes=3)
-# Table 8 (benchmarks/table8_corpus.py): its corpus less the traced entry,
-# its held-out family, the trainer's config and arguments (the held-out
-# runs take rng=1, as the benchmark's PRNGKey(1)), and the contract's config
-# and record (tools/reference_corpus_spread.py)
+# Table 8 (benchmarks/table8_corpus.py): its full corpus, its held-out
+# family, the trainer's config and arguments (the held-out runs take rng=1,
+# as the benchmark's PRNGKey(1)), and the contract's config and records
+# (tools/reference_corpus_spread.py [--full]): one over the full corpus, one
+# over the corpus less its traced entry (its 14 pairs, kept)
+CORPUS_FULL_SPEC = ("benchmark:names=inception_v3+resnet50;"
+                    "traced:archs=qwen1.5-0.5b+phi3-mini-3.8b;"
+                    "lm:archs=qwen1.5-0.5b+mamba2-130m:seq_len=1024;"
+                    "synthetic:family=layered+series_parallel:count=6:"
+                    "size=40:seed=0")
 CORPUS_SPEC = ("benchmark:names=inception_v3+resnet50;"
                "lm:archs=qwen1.5-0.5b+mamba2-130m:seq_len=1024;"
                "synthetic:family=layered+series_parallel:count=6:size=40"
                ":seed=0")
+CORPUS_FULL_JSON = os.path.join(ROOT, "tools",
+                                "reference_corpus_spread_full.json")
 HELD_OUT_SPEC = "synthetic:family=branch_join:count=2:size=40:seed=123"
 CORPUS_CONFIG = {"num_devices": 2, "batch_chains": 8, "max_episodes": 12,
                  "update_timestep": 10}
@@ -158,8 +176,32 @@ CORPUS_CONTRACT_CONFIG = dict(CORPUS_CONFIG, max_episodes=3)
 # (5.12 MB), which 8 of Inception-v3's nodes exceed
 HEAD_FLEET = {"islands": 2, "gpus_per_island": 4}
 CAPACITY_FLEET = dict(HEAD_FLEET, mem_capacity=128e6, island_scale=0.04)
-# the main path's serves: (arch, batch, prompt, steps)
-SERVES = (("h2o-danube-1.8b", 4, 4608, 32), ("mamba2-130m", 4, 4096, 32))
+# the main path's serves: (arch, batch, prompt, steps); phi3-mini's prompt
+# and steps fill its 4096-position context
+SERVES = (("h2o-danube-1.8b", 4, 4608, 32), ("mamba2-130m", 4, 4096, 32),
+          ("phi3-mini-3.8b", 4, 4064, 32))
+# Table 2 (benchmarks/table2_placement.py through benchmarks/common.py): the
+# learned baselines' config, the HSDAG row's (one search-mode session a
+# graph, a host reward), the features every row takes, and the contract's
+# baseline config and record (tools/reference_baseline_spread.py)
+TABLE2_BASELINE = {"num_devices": 2, "episodes": 12,
+                   "samples_per_episode": 10, "seed": 0}
+TABLE2_HSDAG = {"num_devices": 2, "max_episodes": 12, "update_timestep": 10,
+                "use_baseline": True, "normalize_weights": True, "seed": 0,
+                "batch_chains": 1}
+BASELINE_FEATURE = {"d_pos": 16}
+BASELINE_JSON = os.path.join(ROOT, "tools", "reference_baseline_spread.json")
+BASELINE_CONTRACT_CONFIG = {"num_devices": 2, "episodes": 3,
+                            "samples_per_episode": 10}
+# Table 4 (benchmarks/table4_downstream.py): BERT-base's final output under
+# cpu_only and under the HSDAG placement, executed on the CPU and the card
+# (f32, TF32 off, every accumulator started from TABLE4_FILL): normwise
+# distance and the paper's cosine similarity
+TABLE4_FILL = 1.0
+TABLE4_TOL = 1e-4
+TABLE4_CS = 0.999
+# the stage planner's phi3-mini-3.8b plan (examples/placement_search.py)
+PLAN = {"seq_len": 4096, "batch": 256, "num_stages": 2}
 
 
 class CheckFailed(Exception):
@@ -814,8 +856,11 @@ def flash_checks(torch):
     KV=8, S=4608, D=80, window 4096) and at D=64/80/128 with GQA, MHA, a
     window edge inside a tile, a ragged S and causal=False; f32 through the
     SIMT kernel (``csrc/flash_attention.cu``) at batch 1 of danube's shape and
-    the small cases.  Then the bf16 kernel's time beside
-    ``scaled_dot_product_attention`` on the same inputs."""
+    the small cases; both at phi3-mini's head dim 96 (its prefill, B=4,
+    H=KV=32, S=4064, in bf16, at batch 1 in f32).  Then the bf16 kernel's
+    time beside ``scaled_dot_product_attention`` on the same inputs at both
+    prefill shapes → (worst at head dims 64/80/128, danube's timing,
+    worst at head dim 96, phi3-mini's timing)."""
     import torch.nn.functional as F
     from repro_torch.kernels import (flash_attention, flash_attention_ref,
                                      flash_pairs)
@@ -832,7 +877,7 @@ def flash_checks(torch):
                 torch.randn(b, kv, s, d, generator=gen, device="cuda")
                 .to(dtype))
 
-    worst = 0.0
+    worst = {False: 0.0, True: 0.0}     # by "the head dim is 96"
     cases = [((1, 32, 8, 4608, 80), True, 4096, f32),
              ((2, 8, 2, 700, 64), True, 256, f32),
              ((1, 4, 1, 333, 128), True, 0, f32),
@@ -847,7 +892,14 @@ def flash_checks(torch):
              ((2, 8, 8, 640, 80), True, 0, bf16),
              ((1, 4, 2, 300, 80), False, 64, bf16),   # window not applied
              ((1, 4, 1, 1000, 64), False, 0, bf16),
-             ((1, 4, 1, 333, 128), False, 0, bf16)]
+             ((1, 4, 1, 333, 128), False, 0, bf16),
+             # phi3-mini's head dim 96: its prefill at batch 1 in f32, and
+             # the tensor-core kernel's 32-column tail slab
+             ((1, 32, 32, 4064, 96), True, 0, f32),
+             ((1, 4, 2, 300, 96), False, 64, f32),
+             ((2, 8, 8, 700, 96), True, 256, bf16),
+             ((1, 8, 2, 333, 96), True, 100, bf16),
+             ((1, 4, 2, 300, 96), False, 64, bf16)]
     for shape, causal, window, dtype in cases:
         q, k, v = qkv(*shape, dtype)
         before = dict(flash_attention.route_launches)
@@ -856,58 +908,80 @@ def flash_checks(torch):
         check(flash_attention.route_launches[route] == before[route] + 1,
               f"flash_attention {shape} {dtype} did not take the {route} "
               f"kernel")
-        worst = lm_check(
+        d96 = shape[4] == 96
+        worst[d96] = lm_check(
             torch, f"flash_attention[{route}] {shape} causal={causal} "
             f"window={window} {dtype}", got,
             flash_attention_ref(q, k, v, causal=causal, window=window),
-            dtype, worst)
+            dtype, worst[d96])
         del q, k, v, got
-    B, H, KV, S, D, W = 4, 32, 8, 4608, 80, 4096
-    q, k, v = qkv(B, H, KV, S, D, bf16)
-    got = flash_attention(q, k, v, window=W)
-    want = flash_attention_ref(q, k, v, window=W)
-    worst = lm_check(torch, f"flash_attention[wgmma_bf16] {(B, H, KV, S, D)} "
-                     f"causal=True window={W} bf16", got, want, bf16, worst)
-    mask = flash_mask(S, True, W, "cuda")
-    if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
-        def library():
-            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                  enable_gqa=True)
-    else:   # torch < 2.5: the same call on K/V repeated to H heads
-        k_h = k.repeat_interleave(H // KV, dim=1)
-        v_h = v.repeat_interleave(H // KV, dim=1)
+    def timing(B, H, KV, S, D, W, worst):
+        """The bf16 kernel at a prefill shape against the plain version,
+        then its time beside scaled_dot_product_attention's and the
+        plain version's → (worst, (ms, plain, bound, bound_by, library))."""
+        q, k, v = qkv(B, H, KV, S, D, bf16)
+        got = flash_attention(q, k, v, window=W)
+        want = flash_attention_ref(q, k, v, window=W)
+        worst = lm_check(torch, f"flash_attention[wgmma_bf16] "
+                         f"{(B, H, KV, S, D)} causal=True window={W} bf16",
+                         got, want, bf16, worst)
+        mask = flash_mask(S, True, W, "cuda")
+        if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
+            def library():
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True)
+        else:   # torch < 2.5: the same call on K/V repeated to H heads
+            k_h = k.repeat_interleave(H // KV, dim=1)
+            v_h = v.repeat_interleave(H // KV, dim=1)
 
-        def library():
-            return F.scaled_dot_product_attention(q, k_h, v_h, attn_mask=mask)
-    lib_out = library()
-    lib_err = rel_err(torch, lib_out.float(), want.float())
-    del got, want, lib_out
-    ms, host = cuda_ms(torch, lambda: flash_attention(q, k, v, window=W), 20)
-    lib, _ = cuda_ms(torch, library, 10)
-    ms2, _ = cuda_ms(torch, lambda: flash_attention(q, k, v, window=W), 20)
-    plain, _ = cuda_ms(torch, lambda: flash_attention_ref(q, k, v, window=W),
-                       2, 1)
-    # the pair count comes from the kernel's own tile plan
-    pairs, visited = flash_pairs(S, True, W)
-    check(pairs == int(mask.sum()), "flash_pairs disagrees with the mask")
-    nbytes = 2 * (2 * B * H * S * D + 2 * B * KV * S * D)
-    ops = 4 * B * H * D * pairs
-    t = (min(ms, ms2), plain, *bound_ms_bf16(nbytes, ops), lib)
-    print(f"[lm-kernels] flash_attention timing {(B, H, KV, S, D)} window "
-          f"{W} bf16: tensor-core kernel {ms:.4f} / {ms2:.4f} ms on the card "
-          f"(two runs around the library's; {host:.4f} ms of host time to "
-          f"launch), {ops / (t[0] * 1e-3) / 1e12:.1f} TFLOP/s on the "
-          f"unmasked pairs, {100 * t[2] / t[0]:.1f} % of the bound; "
-          f"before: the SIMT kernel {FLASH_SIMT_BF16_MS} ms (PERF.md); "
-          f"scaled_dot_product_attention(mask, enable_gqa) {lib:.4f} ms "
-          f"(rel err vs plain {lib_err:.2e}); plain {plain:.3f} ms; bound "
-          f"{t[2]:.6f} ms ({t[3]}: {nbytes} B, {ops} ops over {pairs} "
-          f"unmasked (query, key) pairs per head; the visited tiles hold "
-          f"{visited}); design goal half the bound "
-          f"({2 * t[2]:.4f} ms): {'met' if t[0] <= 2 * t[2] else 'not met'}")
-    check(t[0] < lib, f"the bf16 flash_attention kernel ({t[0]:.4f} ms) is "
-          f"not faster than scaled_dot_product_attention ({lib:.4f} ms)")
-    return worst, t
+            def library():
+                return F.scaled_dot_product_attention(q, k_h, v_h,
+                                                      attn_mask=mask)
+        lib_out = library()
+        lib_err = rel_err(torch, lib_out.float(), want.float())
+        del got, want, lib_out
+        ms, host = cuda_ms(torch, lambda: flash_attention(q, k, v, window=W),
+                           20)
+        lib, _ = cuda_ms(torch, library, 10)
+        ms2, _ = cuda_ms(torch, lambda: flash_attention(q, k, v, window=W),
+                         20)
+        plain, _ = cuda_ms(torch,
+                           lambda: flash_attention_ref(q, k, v, window=W),
+                           2, 1)
+        # the pair count comes from the kernel's own tile plan
+        pairs, visited = flash_pairs(S, True, W)
+        check(pairs == int(mask.sum()), "flash_pairs disagrees with the mask")
+        nbytes = 2 * (2 * B * H * S * D + 2 * B * KV * S * D)
+        ops = 4 * B * H * D * pairs
+        t = (min(ms, ms2), plain, *bound_ms_bf16(nbytes, ops), lib)
+        print(f"[lm-kernels] flash_attention timing {(B, H, KV, S, D)} "
+              f"window {W} bf16: tensor-core kernel {ms:.4f} / {ms2:.4f} ms "
+              f"on the card (two runs around the library's; {host:.4f} ms "
+              f"of host time to launch), "
+              f"{ops / (t[0] * 1e-3) / 1e12:.1f} TFLOP/s on the unmasked "
+              f"pairs, {100 * t[2] / t[0]:.1f} % of the bound; "
+              f"scaled_dot_product_attention(mask, enable_gqa) {lib:.4f} ms "
+              f"(rel err vs plain {lib_err:.2e}); plain {plain:.3f} ms; "
+              f"bound {t[2]:.6f} ms ({t[3]}: {nbytes} B, {ops} ops over "
+              f"{pairs} unmasked (query, key) pairs per head; the visited "
+              f"tiles hold {visited}); design goal half the bound "
+              f"({2 * t[2]:.4f} ms): "
+              f"{'met' if t[0] <= 2 * t[2] else 'not met'}")
+        check(t[0] < lib, f"the bf16 flash_attention kernel ({t[0]:.4f} ms) "
+              f"is not faster than scaled_dot_product_attention "
+              f"({lib:.4f} ms) at {(B, H, KV, S, D)}")
+        del q, k, v, mask
+        torch.cuda.empty_cache()
+        return worst, t
+
+    # danube's prefill (before the tensor-core kernel: the SIMT
+    # kernel's FLASH_SIMT_BF16_MS), then phi3-mini's, at head dim 96
+    worst80, t = timing(4, 32, 8, 4608, 80, 4096, worst[False])
+    print(f"[lm-kernels] flash_attention at danube's prefill before the "
+          f"tensor-core kernel: the SIMT kernel {FLASH_SIMT_BF16_MS} ms "
+          f"(PERF.md)")
+    worst96, t96 = timing(4, 32, 32, 4064, 96, 0, worst[True])
+    return worst80, t, worst96, t96
 
 
 def ssd_scan_checks(torch):
@@ -1459,7 +1533,9 @@ def contract_phase(graphs, plat):
                   f"the port's search on {name} (engine={engine}) is worse "
                   f"than the reference's: p = {p:.3g} < {CONTRACT_P}")
     return min(worst, device_contract(), multi_contract(graphs, plat),
-               corpus_contract(plat))
+               corpus_contract(plat, CORPUS_SPEC, CORPUS_JSON),
+               corpus_contract(plat, CORPUS_FULL_SPEC, CORPUS_FULL_JSON),
+               baseline_contract(graphs, plat))
 
 
 def multi_contract(graphs, plat):
@@ -1625,21 +1701,21 @@ def multi_phase(torch, graphs, plat):
     print(f"[phase] multi (Table 7): {time.perf_counter() - t_phase:.2f} s")
 
 
-def corpus_graphs():
-    """Table 8's corpus less ``traced`` and its held-out graphs, checked
-    against the reference's record (``tools/reference_corpus_spread.json``:
-    names, sizes, bucket partition, fingerprint) → (corpus, held out, the
-    record)."""
+def corpus_graphs(spec=CORPUS_FULL_SPEC, record=CORPUS_FULL_JSON):
+    """Table 8's corpus (``spec``: the full one, or the one less
+    ``traced``) and its held-out graphs, checked against the reference's
+    ``record`` (names, sizes, bucket partition, fingerprint) → (corpus,
+    held out, the record)."""
     from repro_torch.core import plan_buckets
     from repro_torch.graphs import build_corpus, corpus_fingerprint
-    with open(CORPUS_JSON) as f:
+    with open(record) as f:
         doc = json.load(f)
-    check(doc["corpus"] == CORPUS_SPEC and doc["held_out"] == HELD_OUT_SPEC
+    check(doc["corpus"] == spec and doc["held_out"] == HELD_OUT_SPEC
           and doc["config"] == CORPUS_CONTRACT_CONFIG
           and doc["trainer"] == CORPUS_TRAINER,
-          f"{CORPUS_JSON} records another corpus or config than "
+          f"{record} records another corpus or config than "
           f"chip_smoke.py's")
-    corpus, held = build_corpus(CORPUS_SPEC), build_corpus(HELD_OUT_SPEC)
+    corpus, held = build_corpus(spec), build_corpus(HELD_OUT_SPEC)
     names = [g.name for g in corpus]
     sizes = [g.num_nodes for g in corpus]
     buckets = plan_buckets(sizes, CORPUS_TRAINER["max_buckets"])
@@ -1657,8 +1733,9 @@ def corpus_graphs():
 
 
 def corpus_kernel_checks(torch, corpus, held, plat):
-    """The search kernels at the corpus's new shapes (17-602 nodes, the LM
-    layer chains of 26 and 50): level_makespan on each graph's chain tables
+    """The search kernels at the corpus's shapes (17-602 nodes, the LM
+    layer chains of 26 and 50, the two 40-node traced layers):
+    level_makespan on each graph's chain tables
     at a corpus window's B=80 and at B=1, bitwise against its plain
     version, and gcn_aggregate forward and backward at B=8, F=128 against
     its plain version at 1e-5, each printing its route → worst max abs
@@ -1728,8 +1805,8 @@ def corpus_latencies_are_host(g, res, i, plat, label):
 
 
 def corpus_phase(torch, plat):
-    """Table 8 on the card (``benchmarks/table8_corpus.py``, its corpus less
-    ``traced``): the corpus and its record, the kernels at the corpus's
+    """Table 8 on the card (``benchmarks/table8_corpus.py``, its full
+    corpus): the corpus and its record, the kernels at the corpus's
     shapes, ``train_corpus(rng=0)`` at ``CORPUS_CONFIG`` (each episode's
     wall and batch wait, prefetch hits and misses, Table 8's evals/s, the
     launches the code implies, every best and greedy latency against the
@@ -1876,7 +1953,7 @@ def corpus_phase(torch, plat):
             self.peak = max(self.peak, len(self._lru))
             return g
 
-    streamed_corpus = Watched(CORPUS_SPEC, cache_graphs=2)
+    streamed_corpus = Watched(CORPUS_FULL_SPEC, cache_graphs=2)
     st = CurriculumTrainer(HSDAGConfig(**dict(CORPUS_CONFIG,
                                               max_episodes=3)),
                            stream_cache=2, **CORPUS_TRAINER)
@@ -1896,16 +1973,17 @@ def corpus_phase(torch, plat):
     return errs
 
 
-def corpus_contract(plat):
-    """The contract's corpus pairs: for seeds 0-11 at
+def corpus_contract(plat, spec, record):
+    """The contract's corpus pairs over ``spec``: for seeds 0-11 at
     ``CORPUS_CONTRACT_CONFIG``, the port's ``train_corpus`` (the
     reference's initial weights and graph sequence for each seed) against
-    the reference's (``tools/reference_corpus_spread.json``): each corpus
-    graph's greedy latency, Inception-v3's and ResNet-50's best, and the
-    two held-out graphs' zero-shot latency; the same test and limit as the
-    search pairs.  → the smallest p-value."""
+    the reference's ``record``: each corpus graph's greedy latency,
+    Inception-v3's and ResNet-50's best, and the two held-out graphs'
+    zero-shot latency; the same test and limit as the search pairs.  → the
+    smallest p-value."""
     from repro_torch import CurriculumTrainer, HSDAGConfig
-    corpus, held, doc = corpus_graphs()
+    corpus, held, doc = corpus_graphs(spec, record)
+    label = "full" if spec == CORPUS_FULL_SPEC else "less traced"
     names = doc["graphs"]
     seeds = doc["seeds"]
     port = collections.defaultdict(list)
@@ -1927,7 +2005,7 @@ def corpus_contract(plat):
         for g in held:
             port[("zero_shot", g.name)].append(
                 trainer.evaluate_zero_shot(g, platform=plat)[1])
-    print(f"[contract] corpus: {len(seeds)} corpus trainings in "
+    print(f"[contract] corpus ({label}): {len(seeds)} corpus trainings in "
           f"{time.perf_counter() - t0:.2f} s, each seed the reference's "
           f"graph sequence")
     worst = 1.0
@@ -1936,18 +2014,19 @@ def corpus_contract(plat):
         lat = np.array(lat)
         p = one_sided_p(lat, ref)
         worst = min(worst, p)
-        print(f"[contract] corpus {part} {name}: port median "
+        print(f"[contract] corpus ({label}) {part} {name}: port median "
               f"{np.median(lat) * 1e3:.6f} ms (range "
               f"{lat.min() * 1e3:.6f}-{lat.max() * 1e3:.6f}), reference "
               f"median {np.median(ref) * 1e3:.6f} ms (range "
               f"{ref.min() * 1e3:.6f}-{ref.max() * 1e3:.6f}), Mann-Whitney "
               f"p(port worse) = {p:.4g}")
-        print(f"[contract] corpus {part} {name} port ms: "
+        print(f"[contract] corpus ({label}) {part} {name} port ms: "
               f"{[round(float(x) * 1e3, 6) for x in lat]}")
         check(p >= CONTRACT_P,
               f"the port's corpus training ({part} {name}) is worse than "
               f"the reference's: p = {p:.3g} < {CONTRACT_P}")
-    check(len(port) == 14, f"{len(port)} corpus pairs, not 14")
+    check(len(port) == len(corpus) + 4,
+          f"{len(port)} corpus pairs, not {len(corpus) + 4}")
     return worst
 
 
@@ -1982,6 +2061,252 @@ def device_contract():
               f"the port's device-head search on {name} is worse than the "
               f"reference's: p = {p:.3g} < {CONTRACT_P}")
     return worst
+
+
+def host_reward(g, plat):
+    """The host scheduler's (reward, latency) of a placement of ``g``: the
+    Table-2 drivers' ``reward_fn``."""
+    from repro_torch import simulate
+
+    def reward_fn(p):
+        res = simulate(g, p, plat)
+        return res.reward, res.latency
+    return reward_fn
+
+
+def table2_phase(torch, graphs, plat):
+    """Table 2 on the card as ``benchmarks/table2_placement.py`` runs it:
+    per paper graph, cpu_only, gpu_only, both OpenVINO rows, Placeto and
+    the RNN placer (``TABLE2_BASELINE``, the host scheduler's reward) and
+    the HSDAG row through ``PlacementSession`` (``TABLE2_HSDAG``, a host
+    reward_fn, as ``benchmarks/common.py`` builds it): each row's latency,
+    speedup vs cpu_only and wall time; every learned row's best latency is
+    the host scheduler's for its placement, and Placeto's gcn_aggregate
+    launches are what its episodes imply.  → {graph: HSDAG placement}."""
+    import dataclasses
+    from repro_torch import FeatureConfig, HSDAGConfig, extract_features
+    from repro_torch import simulate
+    from repro_torch.api import PlacementSession, PlacementSpec
+    from repro_torch.core.baselines import (BaselineConfig, PlacetoBaseline,
+                                            RNNBaseline, cpu_only, gpu_only,
+                                            openvino_auto)
+    t_phase = time.perf_counter()
+    fc = FeatureConfig(**BASELINE_FEATURE)
+    feature = {k: v for k, v in dataclasses.asdict(fc).items()
+               if not k.endswith("_vocab")}
+    cfg = BaselineConfig(**TABLE2_BASELINE)
+    placements, placeto_launches = {}, 0
+    for name, g in graphs.items():
+        arrays = extract_features(g, fc)
+        reward_fn = host_reward(g, plat)
+        cpu = simulate(g, cpu_only(g), plat).latency
+
+        def row(method, lat, wall=None):
+            print(f"[table2] {name} {method}: {lat * 1e3:.6f} ms, speedup "
+                  f"vs cpu_only {100 * (cpu - lat) / cpu:.2f}%"
+                  + (f", wall {wall:.3f} s" if wall is not None else ""))
+
+        def learned(method, res):
+            host = simulate(g, res.best_placement, plat).latency
+            check(res.best_latency == host,
+                  f"table2 {name} {method}: best latency "
+                  f"{res.best_latency} is not the host scheduler's {host}")
+            row(method, res.best_latency, res.wall_time_s)
+
+        row("cpu_only", cpu)
+        row("gpu_only", simulate(g, gpu_only(g), plat).latency)
+        for pref, label in ((0, "openvino_cpu"), (1, "openvino_gpu")):
+            p, factor = openvino_auto(g, pref)
+            row(label, simulate(g, p, plat).latency * factor)
+        res, n = counted(torch, lambda: PlacetoBaseline(cfg).search(
+            g, arrays, reward_fn, rng=cfg.seed))
+        # each episode: the sampling pass, then the replay's forward and
+        # backward, each through the two GCN layers
+        want = cfg.episodes * 3 * 2
+        check(n["gcn_aggregate"] == want,
+              f"table2 {name} placeto launched gcn_aggregate "
+              f"{n['gcn_aggregate']} times, not the {want} its episodes "
+              f"imply")
+        placeto_launches += n["gcn_aggregate"]
+        learned("placeto", res)
+        learned("rnn", RNNBaseline(cfg).search(g, arrays, reward_fn,
+                                               rng=cfg.seed))
+        session = PlacementSession(PlacementSpec(
+            workload="", mode="search", feature=feature,
+            config=HSDAGConfig(**TABLE2_HSDAG)))
+        res = session.fit(graphs=[g], arrays=[arrays], reward_fn=reward_fn,
+                          rng=TABLE2_HSDAG["seed"])
+        learned("hsdag", res)
+        placements[name] = res.best_placement
+    print(f"[table2] Placeto's gcn_aggregate launches (B=1): "
+          f"{placeto_launches}, as its episodes imply")
+    print(f"[phase] table2: {time.perf_counter() - t_phase:.2f} s")
+    return placements
+
+
+def baseline_contract(graphs, plat):
+    """The contract's learned-baseline pairs: for each paper graph and
+    method, the port's best latency over seeds 0-11 at
+    ``BASELINE_CONTRACT_CONFIG`` beside the reference's
+    (``tools/reference_baseline_spread.json``); the same test and limit as
+    the search pairs.  → the smallest p-value."""
+    from repro_torch import FeatureConfig, extract_features
+    from repro_torch.core.baselines import (BaselineConfig, PlacetoBaseline,
+                                            RNNBaseline)
+    with open(BASELINE_JSON) as f:
+        doc = json.load(f)
+    check(doc["config"] == BASELINE_CONTRACT_CONFIG
+          and doc["feature"] == BASELINE_FEATURE,
+          f"{BASELINE_JSON} holds config {doc['config']}, not "
+          f"{BASELINE_CONTRACT_CONFIG}")
+    methods = {"placeto": PlacetoBaseline, "rnn": RNNBaseline}
+    seeds, worst = doc["seeds"], 1.0
+    for name in ("inception_v3", "resnet50", "bert_base"):
+        g = graphs[name]
+        arrays = extract_features(g, FeatureConfig(**BASELINE_FEATURE))
+        reward_fn = host_reward(g, plat)
+        for method, cls in methods.items():
+            ref = np.array([doc["results"][name][method][str(s)]
+                            for s in seeds])
+            t0 = time.perf_counter()
+            port = np.array([cls(BaselineConfig(
+                seed=s, **BASELINE_CONTRACT_CONFIG)).search(
+                    g, arrays, reward_fn, rng=s).best_latency
+                for s in seeds])
+            p = one_sided_p(port, ref)
+            worst = min(worst, p)
+            print(f"[contract] {name} {method}: port median "
+                  f"{np.median(port) * 1e3:.6f} ms (range "
+                  f"{port.min() * 1e3:.6f}-{port.max() * 1e3:.6f}), "
+                  f"reference median {np.median(ref) * 1e3:.6f} ms (range "
+                  f"{ref.min() * 1e3:.6f}-{ref.max() * 1e3:.6f}), "
+                  f"Mann-Whitney p(port worse) = {p:.4g}; {len(seeds)} "
+                  f"port searches in {time.perf_counter() - t0:.2f} s")
+            print(f"[contract] {name} {method} port ms: "
+                  f"{[round(float(x) * 1e3, 6) for x in port]}")
+            check(p >= CONTRACT_P,
+                  f"the port's {method} baseline on {name} is worse than "
+                  f"the reference's: p = {p:.3g} < {CONTRACT_P}")
+    return worst
+
+
+def table4_phase(torch, placement):
+    """Table 4's measured half (``benchmarks/table4_downstream.py``):
+    BERT-base executed by ``MeasuredExecutor`` on the CPU and the card
+    (``devices=["cpu", "cuda"]``, warmup 1, timed 1) under cpu_only and
+    under the Table-2 HSDAG placement; the measured latencies and the bytes
+    of proxy weights uploaded.  The reference's accumulators start from 0,
+    so every output is tanh(W·0) = 0 and its comparison cannot fail; here
+    they start from ``TABLE4_FILL``, and the placed run's final output (on
+    the card where the placement says) is held against the cpu_only run's
+    (all on the CPU): the paper's MSE, cosine similarity and L2, at most
+    ``TABLE4_TOL`` normwise and a cosine of at least ``TABLE4_CS``."""
+    from repro_torch.core.executor import MeasuredExecutor
+    from repro_torch.graphs import bert_base
+    t_phase = time.perf_counter()
+    g = bert_base()
+    ex = MeasuredExecutor(g, devices=["cpu", "cuda"], warmup=1, timed=1)
+    last = int(ex.order[-1])
+    cpu_p = np.zeros(g.num_nodes, np.int64)
+    outs, lats = [], []
+    for p in (cpu_p, np.asarray(placement)):
+        _, lat = ex(p)
+        lats.append(lat)
+        outs.append(ex.outputs(p, fill=TABLE4_FILL)[last]
+                    .double().cpu().numpy())
+    a, b = outs
+    mse = float(np.mean((a - b) ** 2))
+    na, nb = np.linalg.norm(a), np.linalg.norm(b)
+    check(na > 0 and nb > 0, f"table4: a final output is zero (norms "
+          f"{na:.3e} / {nb:.3e}); the comparison would measure nothing")
+    cs = float(np.dot(a, b) / (na * nb))
+    l2 = float(np.linalg.norm(a - b))
+    rel = l2 / na
+    on_gpu = int((np.asarray(placement) == 1).sum())
+    print(f"[table4] bert_base executed on cpu + "
+          f"{torch.cuda.get_device_name(0)}: cpu_only {lats[0] * 1e3:.3f} "
+          f"ms, HSDAG placement ({on_gpu} of {g.num_nodes} nodes on the "
+          f"card) {lats[1] * 1e3:.3f} ms (warmup 1, timed 1); accumulators "
+          f"from {TABLE4_FILL}: final output ({a.size} values, norms "
+          f"{na:.6e} / {nb:.6e}) MSE {mse:.3e}, CS {cs:.12f}, L2 {l2:.3e}, "
+          f"normwise {rel:.3e} (paper: MSE 6.8e-07, CS 0.999); proxy "
+          f"weights uploaded {ex.bytes_uploaded} B")
+    check(rel <= TABLE4_TOL and cs >= TABLE4_CS,
+          f"table4: the placed execution's output differs from cpu_only "
+          f"(normwise {rel:.3g}, CS {cs:.6f})")
+    print(f"[phase] table4: {time.perf_counter() - t_phase:.2f} s")
+
+
+def api_phase(torch, plat):
+    """The v1 API on the card: a spec's JSON round trip (equal
+    ``spec_hash``), ``PlacementSession.fit`` in each mode at 2 episodes,
+    each session's ``save`` → ``load`` decoding the same greedy placements
+    with latencies the host scheduler's; then ``plan_stages`` of
+    phi3-mini-3.8b on ``tpu_stage_platform`` beside its even split, its
+    latency the host scheduler's for the projected placement."""
+    import tempfile
+    from repro_torch import HSDAGConfig, simulate
+    from repro_torch.api import PlacementSession, PlacementSpec
+    from repro_torch.configs import get
+    from repro_torch.core import planner, tpu_stage_platform
+    from repro_torch.core.graph import topological_order
+    t_phase = time.perf_counter()
+    cfg = HSDAGConfig(num_devices=2, batch_chains=8, max_episodes=2,
+                      update_timestep=10)
+    specs = [PlacementSpec(workload="benchmark:names=resnet50",
+                           mode="search", config=cfg),
+             PlacementSpec(workload="benchmark", mode="multi", config=cfg),
+             PlacementSpec(workload="benchmark:names=resnet50;synthetic:"
+                           "family=layered:count=3:size=30:seed=0",
+                           mode="corpus", config=cfg, max_buckets=2,
+                           graphs_per_episode=2)]
+    for spec in specs:
+        back = PlacementSpec.from_json(spec.to_json())
+        check(back == spec and back.spec_hash() == spec.spec_hash(),
+              f"spec round trip changed the {spec.mode} document")
+        session = PlacementSession(spec)
+        t0 = time.perf_counter()
+        res = session.fit(rng=0)
+        wall = time.perf_counter() - t0
+        with tempfile.TemporaryDirectory() as d:
+            session.save(d)
+            loaded = PlacementSession.load(d)
+        check(loaded.spec.spec_hash() == spec.spec_hash(),
+              "the loaded session's spec hashes otherwise")
+        lats = []
+        for g in session.graphs:
+            p, lat = session.evaluate(g)
+            check(np.array_equal(loaded.place(g), p),
+                  f"[api] {spec.mode}: the loaded session decodes {g.name} "
+                  f"otherwise")
+            host = simulate(g, p, plat).latency
+            check(abs(lat - host) <= TOL * host,
+                  f"[api] {spec.mode}: {g.name}'s latency is not the host "
+                  f"scheduler's")
+            lats.append(lat)
+        best = getattr(res, "best_latencies", None)
+        best = [res.best_latency] if best is None else list(best)
+        print(f"[api] mode={spec.mode} spec_hash {spec.spec_hash()[:16]}: "
+              f"fit {wall:.2f} s over {len(session.graphs)} graphs, best "
+              f"{[round(float(x) * 1e3, 6) for x in best]} ms, greedy "
+              f"{[round(x * 1e3, 6) for x in lats]} ms; save/load decodes "
+              f"the same placements")
+    t0 = time.perf_counter()
+    plan = planner.plan_stages(get("phi3-mini-3.8b").config, **PLAN)
+    stages = tpu_stage_platform(num_stages=PLAN["num_stages"])
+    order = topological_order(plan.graph)
+    proj = planner._monotone_projection(plan.stage_of_node, order,
+                                        PLAN["num_stages"])
+    host = simulate(plan.graph, proj, stages, order=order).latency
+    print(f"[api] plan_stages phi3-mini-3.8b {PLAN}: plan "
+          f"{plan.latency * 1e3:.6f} ms vs even split "
+          f"{plan.baseline_latency * 1e3:.6f} ms; boundaries "
+          f"{plan.boundaries}; host scheduler {host * 1e3:.6f} ms "
+          f"({time.perf_counter() - t0:.2f} s)")
+    check(np.array_equal(proj, plan.stage_of_node) and plan.latency == host,
+          "plan_stages' latency is not the host scheduler's for its "
+          "projected placement")
+    print(f"[phase] api: {time.perf_counter() - t_phase:.2f} s")
 
 
 def main() -> int:
@@ -2074,18 +2399,24 @@ def main() -> int:
     device_head_phase(torch, g, arrays)
     capacity_phase(torch, g, arrays)
     topology_phase(torch)
+    # ---- Table 2 (its learned baselines and the HSDAG row through the
+    # session), Table 4 on its BERT-base placement ----
+    table2_placements = table2_phase(torch, graphs, plat)
+    table4_phase(torch, table2_placements["bert_base"])
     t_phase = time.perf_counter()
     contract_p = contract_phase(graphs, plat)
-    print(f"[phase] contract (96 port searches, 24 joint trainings, 12 "
-          f"corpus trainings): {time.perf_counter() - t_phase:.2f} s; "
-          f"smallest p {contract_p:.4g}")
+    print(f"[phase] contract (96 port searches, 24 joint trainings, 24 "
+          f"corpus trainings, 72 learned-baseline searches): "
+          f"{time.perf_counter() - t_phase:.2f} s; smallest p "
+          f"{contract_p:.4g}")
     multi_phase(torch, graphs, plat)
     corpus_lvl_err, corpus_gcn_err = corpus_phase(torch, plat)
+    api_phase(torch, plat)
 
     # ---- the LM kernels against their plain versions ----
     t_phase = time.perf_counter()
     rms_err, rms_t, rms_shapes = rmsnorm_checks(torch)
-    flash_err, flash_t = flash_checks(torch)
+    flash_err, flash_t, flash96_err, flash96_t = flash_checks(torch)
     ssd_err, ssd_t = ssd_scan_checks(torch)
     torch.cuda.empty_cache()
     print(f"[phase] LM kernel checks: {time.perf_counter() - t_phase:.2f} s")
@@ -2116,6 +2447,7 @@ def main() -> int:
               f"{served[arch]['rmsnorm_routes']} are not the plan's "
               f"{want_routes}")
     danube, mamba = served["h2o-danube-1.8b"], served["mamba2-130m"]
+    phi3 = served["phi3-mini-3.8b"]
     print(f"[phase] serve: {time.perf_counter() - t_phase:.2f} s")
 
     # ---- decode consistency at full width, float32, TF32 off ----
@@ -2123,6 +2455,8 @@ def main() -> int:
     decode_consistency(torch, "h2o-danube-1.8b", 200, 8)
     torch.cuda.empty_cache()
     decode_consistency(torch, "mamba2-130m", 200, 8)
+    torch.cuda.empty_cache()
+    decode_consistency(torch, "phi3-mini-3.8b", 200, 8)
     print(f"[phase] decode consistency: {time.perf_counter() - t_phase:.2f} s")
 
     kernels = [
@@ -2158,7 +2492,7 @@ def main() -> int:
         {"name": "rmsnorm", "route": "cuda",
          "source": "src/repro_torch/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm.py:24",
-         "launches": danube["rmsnorm"] + mamba["rmsnorm"],
+         "launches": danube["rmsnorm"] + mamba["rmsnorm"] + phi3["rmsnorm"],
          "max_abs_err": rms_err, "ms": rms_t[0], "plain_ms": rms_t[1],
          "bound_ms": rms_t[2], "bound_by": rms_t[3], "library_ms": rms_t[4]},
         {"name": "flash_attention", "route": "cuda",
@@ -2168,10 +2502,19 @@ def main() -> int:
          "max_abs_err": flash_err, "ms": flash_t[0], "plain_ms": flash_t[1],
          "bound_ms": flash_t[2], "bound_by": flash_t[3],
          "library_ms": flash_t[4]},
+        {"name": "flash_attention (D=96, phi3-mini prefill)",
+         "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:35",
+         "launches": phi3["wgmma_bf16"],
+         "max_abs_err": flash96_err, "ms": flash96_t[0],
+         "plain_ms": flash96_t[1], "bound_ms": flash96_t[2],
+         "bound_by": flash96_t[3], "library_ms": flash96_t[4]},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:27",
-         "launches": danube["ssd_scan"] + mamba["ssd_scan"],
+         "launches": danube["ssd_scan"] + mamba["ssd_scan"]
+         + phi3["ssd_scan"],
          "max_abs_err": ssd_err, "ms": ssd_t[0], "plain_ms": ssd_t[1],
          "bound_ms": ssd_t[2], "bound_by": ssd_t[3], "library_ms": ssd_t[4]},
     ]

@@ -9,6 +9,11 @@ The reference keeps its parameters as a nested tree of arrays,
 This module maps between the two; ``checkpoint/manager.py`` reads and
 writes the reference's checkpoint format.
 
+The learned baselines' trees map the same way: Placeto's
+``{"enc": ..., "head": [...]}`` and the RNN's ``{"enc": {"wx", "wh", "b"},
+"dec": {...}, "attn": [...], "head": [...]}`` (``placeto_from_numpy``,
+``rnn_from_numpy``; ``params_to_numpy`` reads any of these modules back).
+
 The LM's parameters keep the reference's tree and layouts in the port, so
 ``lm_params_from_numpy`` copies them leaf for leaf.
 """
@@ -23,7 +28,7 @@ from ..core.hsdag import HSDAGPolicy
 
 __all__ = ["params_from_numpy", "params_to_numpy", "tree_from_tensors",
            "tensors_from_tree", "load_reference_policy",
-           "lm_params_from_numpy"]
+           "placeto_from_numpy", "rnn_from_numpy", "lm_params_from_numpy"]
 
 
 def _ref_path(name: str) -> Tuple[Tuple, bool]:
@@ -77,8 +82,9 @@ def _lists(node):
     return {k: _lists(v) for k, v in node.items()}
 
 
-def params_to_numpy(policy: HSDAGPolicy) -> Dict:
-    """The policy's parameters as a reference-layout tree."""
+def params_to_numpy(policy: torch.nn.Module) -> Dict:
+    """A policy's (or a learned baseline's) parameters as a
+    reference-layout tree."""
     names, tensors = zip(*policy.named_parameters())
     return tree_from_tensors(names, tensors)
 
@@ -98,8 +104,14 @@ def params_from_numpy(tree: Dict) -> HSDAGPolicy:
         layer_parsingnet=len(gpn["phi"]), policy_layers=len(pol["mlp"]),
         head="device" if device else "dense",
         dev_feat_dim=np.shape(pol["dev"][0]["w"])[0] if device else None)
+    return _fill(policy, tree)
+
+
+def _fill(module: torch.nn.Module, tree: Dict) -> torch.nn.Module:
+    """Copy the reference tree's leaves into ``module``'s parameters (a
+    missing or mis-shaped leaf raises)."""
     with torch.no_grad():
-        for name, p in policy.named_parameters():
+        for name, p in module.named_parameters():
             path, transposed = _ref_path(name)
             arr = np.asarray(_get(tree, path), np.float32)
             if transposed:
@@ -108,7 +120,25 @@ def params_from_numpy(tree: Dict) -> HSDAGPolicy:
                 raise ValueError(f"{'/'.join(map(str, path))}: shape "
                                  f"{arr.shape} does not fit {tuple(p.shape)}")
             p.copy_(torch.from_numpy(arr.copy()))
-    return policy
+    return module
+
+
+def placeto_from_numpy(tree: Dict):
+    """A CPU ``PlacetoModel`` holding the reference Placeto tree's values;
+    sizes are read off the tree."""
+    from ..core.baselines import PlacetoModel
+    d_in, hidden = np.shape(tree["enc"]["trans"][0]["w"])
+    return _fill(PlacetoModel(d_in, hidden,
+                              np.shape(tree["head"][-1]["w"])[1]), tree)
+
+
+def rnn_from_numpy(tree: Dict):
+    """A CPU ``RNNModel`` holding the reference RNN tree's values; sizes
+    are read off the tree."""
+    from ..core.baselines import RNNModel
+    d_in, gates = np.shape(tree["enc"]["wx"])
+    return _fill(RNNModel(d_in, gates // 4,
+                          np.shape(tree["head"][-1]["w"])[1]), tree)
 
 
 def load_reference_policy(directory: str,

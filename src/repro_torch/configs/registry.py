@@ -47,4 +47,5 @@ def all_archs() -> Tuple[str, ...]:
 
 
 def _load_all() -> None:
-    from . import h2o_danube_1_8b, mamba2_130m, qwen1_5_0_5b  # noqa: F401
+    from . import (h2o_danube_1_8b, mamba2_130m,  # noqa: F401
+                   phi3_mini_3_8b, qwen1_5_0_5b)

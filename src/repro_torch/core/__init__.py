@@ -3,7 +3,7 @@ from .costmodel import (BatchSimResult, DeviceSpec, Platform, SimArrays,
                         SimArraysBatch, SimResult, critical_path,
                         pad_sim_arrays, paper_platform, plan_buckets,
                         sim_arrays, sim_arrays_batch, sim_arrays_bucketed,
-                        simulate)
+                        simulate, tpu_stage_platform)
 from .features import (FeatureConfig, GraphArrays, GraphArraysBatch,
                        batch_graph_arrays, batch_graph_arrays_bucketed,
                        check_feature_compat, extract_features,
@@ -21,7 +21,7 @@ from .train.sampler import CurriculumSampler
 __all__ = ["BatchSimResult", "DeviceSpec", "Platform", "SimArrays",
            "SimArraysBatch", "SimResult", "critical_path", "pad_sim_arrays",
            "paper_platform", "plan_buckets", "sim_arrays", "sim_arrays_batch",
-           "sim_arrays_bucketed", "simulate",
+           "sim_arrays_bucketed", "simulate", "tpu_stage_platform",
            "FeatureConfig", "GraphArrays", "GraphArraysBatch",
            "batch_graph_arrays", "batch_graph_arrays_bucketed",
            "check_feature_compat", "extract_features",

@@ -31,7 +31,7 @@ __all__ = [
     "DeviceSpec", "Platform", "simulate", "SimResult", "paper_platform",
     "SimArrays", "sim_arrays", "BatchSimResult", "SimArraysBatch",
     "pad_sim_arrays", "sim_arrays_batch", "plan_buckets",
-    "sim_arrays_bucketed", "critical_path",
+    "sim_arrays_bucketed", "critical_path", "tpu_stage_platform",
 ]
 
 
@@ -181,6 +181,26 @@ def paper_platform() -> Platform:
                    dispatch_per_class=(("conv", 60e-6), ("eltwise", 6e-6))),
     )
     bw, lat = _uniform_links(2, bw=22e9, lat=8e-6)
+    return Platform(devices, bw, lat)
+
+
+def tpu_stage_platform(num_stages: int = 2, chips_per_stage: int = 256,
+                       inter_stage_bw: float = 25e9) -> Platform:
+    """TPU pods as placement targets for the production planner.
+
+    Each "device" is one pod/pipeline stage (aggregate v5e chips); inter-stage
+    links are the slower cross-pod DCI (vs ~50 GB/s/link intra-pod ICI).  A
+    simulated platform, copied from the reference with its constants, so a
+    plan scores the same in both packages.
+    """
+    devices = tuple(
+        DeviceSpec(f"pod{i}", "tpu-stage",
+                   peak_flops=197e12 * chips_per_stage,
+                   mem_bw=819e9 * chips_per_stage,
+                   dispatch_overhead=2e-6,
+                   mem_capacity=16e9 * chips_per_stage)
+        for i in range(num_stages))
+    bw, lat = _uniform_links(num_stages, bw=inter_stage_bw, lat=4e-6)
     return Platform(devices, bw, lat)
 
 

@@ -1,19 +1,31 @@
-"""Layer-granularity LM computation graphs.
+"""Production planner: HSDAG placement of LM layer graphs onto stages.
 
-Port of ``repro/core/planner.py::layer_graph``: the graph of an
+Port of ``repro/core/planner.py``.  :func:`layer_graph` is the graph of an
 architecture's layers (embed, one node per mixer and FFN, unembed) with
 flops and bytes derived analytically from its :class:`ModelConfig` and input
-shape.  The corpus's ``lm`` workload provider places these graphs.  The
+shape; the corpus's ``lm`` workload provider places these graphs.  The
 port's ``ModelConfig`` carries no MoE fields, so a pattern with an ``"moe"``
-FFN raises; the stage planner (``plan_stages``) and its TPU-stage platform
-wait with the pipeline slice (ROADMAP.md 'Modules to port' item 10).
+FFN raises.
+
+:func:`plan_stages` is the paper's technique in its production slot: the
+"devices" are pipeline stages (``tpu_stage_platform``, the reference's
+simulated pods), the reward is the host scheduler's makespan of the
+placement projected to contiguous stages, and the search is the unchanged
+HSDAG loop, on the card unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
-from ..models.config import ModelConfig
-from .graph import CompGraph
+import dataclasses
+from typing import List, Optional
 
-__all__ = ["layer_graph"]
+import numpy as np
+
+from ..models.config import ModelConfig
+from .costmodel import simulate, tpu_stage_platform
+from .features import FeatureConfig, extract_features
+from .graph import CompGraph, topological_order
+
+__all__ = ["layer_graph", "plan_stages", "PlacementPlan"]
 
 _BYTES = {"bfloat16": 2, "float32": 4}
 
@@ -75,3 +87,61 @@ def layer_graph(cfg: ModelConfig, seq_len: int, batch: int,
              flops=2.0 * tokens * d * cfg.vocab_size * mult,
              bytes_out=tokens * cfg.vocab_size * dt)
     return g
+
+
+@dataclasses.dataclass
+class PlacementPlan:
+    stage_of_node: np.ndarray       # per layer-graph node
+    boundaries: List[int]           # layer indices where stages switch
+    latency: float                  # cost-model makespan of the plan
+    baseline_latency: float         # even-split baseline makespan
+    graph: CompGraph
+
+
+def _monotone_projection(placement: np.ndarray, order: np.ndarray,
+                         num_stages: int) -> np.ndarray:
+    """Project an arbitrary placement to a non-decreasing stage assignment
+    along the topological order (pipeline contiguity constraint)."""
+    proj = placement.copy()
+    cur = 0
+    for v in order:
+        s = int(np.clip(proj[v], cur, num_stages - 1))
+        proj[v] = s
+        cur = s
+    return proj
+
+
+def plan_stages(cfg: ModelConfig, *, seq_len: int, batch: int,
+                num_stages: int = 2, kind: str = "train",
+                hsdag_cfg=None, seed: int = 0,
+                device="cuda") -> PlacementPlan:
+    """HSDAG search for a pipeline-stage assignment of ``cfg``'s layers."""
+    from .hsdag import HSDAG, HSDAGConfig
+
+    g = layer_graph(cfg, seq_len, batch, kind)
+    platform = tpu_stage_platform(num_stages=num_stages)
+    arrays = extract_features(g, FeatureConfig(d_pos=16))
+    order = topological_order(g)
+
+    def reward_fn(placement):
+        mono = _monotone_projection(placement, order, num_stages)
+        res = simulate(g, mono, platform, order=order)
+        return res.reward, res.latency
+
+    agent = HSDAG(hsdag_cfg or HSDAGConfig(
+        num_devices=num_stages, max_episodes=20, update_timestep=10,
+        hidden_channel=64, seed=seed), device=device)
+    result = agent.search(g, arrays, reward_fn=reward_fn)
+    best = _monotone_projection(result.best_placement, order, num_stages)
+
+    # even-split baseline for comparison
+    even = np.minimum((np.arange(g.num_nodes) * num_stages) // g.num_nodes,
+                      num_stages - 1)
+    even = _monotone_projection(even, order, num_stages)
+    base = simulate(g, even, platform, order=order).latency
+
+    boundaries = [int(i) for i in range(1, g.num_nodes)
+                  if best[order[i]] != best[order[i - 1]]]
+    return PlacementPlan(best, boundaries,
+                         simulate(g, best, platform, order=order).latency,
+                         base, g)

@@ -17,7 +17,15 @@ for seed ``s`` starts from.  It follows the *partitionable* layout of
   number u in [1, 2), subtracts 1, takes ``(u - 1)·(maxval − minval) +
   minval`` as one fused multiply-add (XLA's CPU backend fuses it; a
   separate product and sum differ in the last bit about half the time) and
-  clamps below at ``minval``.
+  clamps below at ``minval``;
+* a float32 standard normal is ``sqrt(2)·erf_inv(u)`` of a uniform u on
+  ``[nextafter(-1, 0), 1)``.  ``erf_inv`` is XLA's single-precision
+  polynomial (``w = -log1p(-u²)``, one branch of 9 coefficients below
+  ``w = 5`` and one above), each Horner step one fused multiply-add, and
+  ``log1p`` is XLA's own CPU expansion: a Cephes rational function below
+  ``|x| = sqrt(2) - 1`` and XLA's Cephes ``log`` of ``1 + x`` above, with
+  the multiply-adds the CPU backend fuses.  Scipy's double ``erfinv``
+  rounded to float32 is up to 82 ulp off; this is bitwise.
 
 Only the draws the initialisers need are here.  The search's per-chain draws
 stay on torch generators.
@@ -29,7 +37,7 @@ from typing import Sequence
 import numpy as np
 
 __all__ = ["threefry2x32", "key", "split", "random_bits", "uniform",
-           "glorot"]
+           "glorot", "normal"]
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -82,15 +90,17 @@ def random_bits(k: np.ndarray, shape: Sequence[int]) -> np.ndarray:
     return (b0 ^ b1).reshape(tuple(shape))
 
 
-def _fma_f32(a: np.ndarray, b: np.float32, c: np.float32) -> np.ndarray:
-    """float32 ``a * b + c`` rounded once, as XLA's CPU backend fuses it.
+def _fma_f32(a, b, c) -> np.ndarray:
+    """float32 ``a * b + c`` rounded once, as XLA's CPU backend fuses it
+    (scalars or arrays of one shape).
 
     The float32 product is exact in float64; the float64 sum is rounded to
     odd (kept odd when inexact), so its rounding to float32 is the rounding
     of the exact value.
     """
-    p = a.astype(np.float64) * np.float64(b)
-    c64 = np.float64(c)
+    p = np.asarray(a, np.float32).astype(np.float64) * np.asarray(
+        b, np.float32).astype(np.float64)
+    c64 = np.asarray(c, np.float32).astype(np.float64)
     s = p + c64
     bv = s - p
     err = (p - (s - bv)) + (c64 - bv)
@@ -114,3 +124,84 @@ def glorot(k: np.ndarray, shape: Sequence[int]) -> np.ndarray:
     ``jnp.sqrt`` of a Python float takes it."""
     lim = np.sqrt(np.float32(6.0 / (shape[0] + shape[-1])))
     return uniform(k, shape, -lim, lim)
+
+
+_F32 = np.float32
+#: XLA's CPU ``log`` (Cephes): the polynomial's coefficients p0..p8, and
+#: ln 2 split in two
+_LOG_P = tuple(_F32(v) for v in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+    3.3333331174e-1))
+_LOG_Q1, _LOG_Q2 = _F32(-2.12194440e-4), _F32(0.693359375)
+#: XLA's ``log1p`` below sqrt(2) - 1 (Cephes), highest power last
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+              6.5787325942061044846969e0, 2.9911919328553073277375e1,
+              6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+              2.2176239823732856465394e2, 3.0909872225312059774938e2,
+              2.1642788614495947685003e2, 6.0118660497603843919306e1)
+#: XLA's single-precision ``erf_inv``, below and above w = 5
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def _log_f32(x: np.ndarray) -> np.ndarray:
+    """XLA's CPU float32 ``log`` of positive normal ``x`` (Cephes ``logf``
+    with its multiply-adds fused)."""
+    bits = np.maximum(x, np.uint32(0x00800000).view(_F32)).view(np.uint32)
+    e = (bits >> np.uint32(23)).astype(np.int32) - 0x7F
+    m = ((bits & np.uint32(0x807FFFFF))
+         | np.uint32(0x3F000000)).view(_F32)            # mantissa in [.5, 1)
+    e = _F32(1) + e.astype(_F32)
+    low = m < _F32(0.707106781186547524)
+    t = (m - _F32(1)) + np.where(low, m, _F32(0))
+    e = e - np.where(low, _F32(1), _F32(0))
+    x2 = t * t
+    x3 = x2 * t
+    p = _LOG_P
+    y = _fma_f32(_fma_f32(t, p[0], p[1]), t, p[2])
+    y1 = _fma_f32(_fma_f32(t, p[3], p[4]), t, p[5])
+    y2 = _fma_f32(_fma_f32(t, p[6], p[7]), t, p[8])
+    y = _fma_f32(_fma_f32(y, x3, y1), x3, y2)
+    y = _fma_f32(y, x3, _LOG_Q1 * e)
+    t = _fma_f32(_F32(-0.5), x2, t) + y
+    return _fma_f32(_LOG_Q2, e, t)
+
+
+def _log1p_f32(x: np.ndarray) -> np.ndarray:
+    """XLA's CPU float32 ``log1p`` of ``x`` in (-1, 0]."""
+    xs = x * x
+    num = np.zeros_like(x)
+    den = np.zeros_like(x)
+    for cn, cd in zip(_LOG1P_NUM, _LOG1P_DEN):
+        num = _fma_f32(num, x, _F32(cn))
+        den = _fma_f32(den, x, _F32(cd))
+    small = x + _fma_f32(_F32(-0.5), xs, (x * xs) * (num / den))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        large = _log_f32(x + _F32(1))
+    return np.where(np.abs(x) < _F32(0.41421356237309504880), small, large)
+
+
+def _erf_inv_f32(x: np.ndarray) -> np.ndarray:
+    """XLA's float32 ``erf_inv`` of ``x`` in (-1, 1)."""
+    w = -_log1p_f32(x * -x)
+    lt = w < _F32(5)
+    with np.errstate(invalid="ignore"):
+        w = np.where(lt, w - _F32(2.5), np.sqrt(w) - _F32(3))
+    p = np.where(lt, _F32(_ERFINV_LT5[0]), _F32(_ERFINV_GE5[0]))
+    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = _fma_f32(p, w, np.where(lt, _F32(a), _F32(b)))
+    return p * x
+
+
+def normal(k: np.ndarray, shape: Sequence[int]) -> np.ndarray:
+    """``jax.random.normal(k, shape)`` (float32), bitwise on XLA's CPU."""
+    lo = np.nextafter(np.float32(-1), np.float32(0))
+    u = uniform(k, shape, lo, 1.0)
+    return _F32(np.sqrt(2)) * _erf_inv_f32(u)

@@ -1,7 +1,7 @@
 // Causal (optionally sliding-window) GQA attention with an online softmax on
 // Hopper, in float32.  q is (B, H, S, D), k and v are (B, KV, S, D), head h
-// reads KV head h / (H / KV); the output is (B, H, S, D).  D is 64, 80 or
-// 128.  bf16 attention runs flash_attention_sm90.cu on the tensor cores;
+// reads KV head h / (H / KV); the output is (B, H, S, D).  D is 64, 80, 96
+// or 128.  bf16 attention runs flash_attention_sm90.cu on the tensor cores;
 // this kernel keeps f32 exact to 1e-5 (TF32 tensor cores could not), for
 // the float32 prefill.
 //
@@ -207,7 +207,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 }  // namespace
 
 // One launch on `stream`; all tensors contiguous.  H must be a multiple of
-// KV and D one of 64, 80, 128 (else cudaErrorInvalidValue).  Allocates
+// KV and D one of 64, 80, 96, 128 (else cudaErrorInvalidValue).  Allocates
 // nothing; returns the launch's cudaError_t (0 on success).
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* out, int B, int H,
@@ -219,6 +219,8 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
       return launch<64>(q, k, v, out, B, H, KV, S, scale, causal, window, s);
     case 80:
       return launch<80>(q, k, v, out, B, H, KV, S, scale, causal, window, s);
+    case 96:
+      return launch<96>(q, k, v, out, B, H, KV, S, scale, causal, window, s);
     case 128:
       return launch<128>(q, k, v, out, B, H, KV, S, scale, causal, window,
                          s);

@@ -1,8 +1,8 @@
 // Causal (optionally sliding-window) GQA attention for bf16 on Hopper's
 // tensor cores.  q is (B, H, S, D), k and v are (B, KV, S, D), head h reads
-// KV head h / (H / KV); the output is (B, H, S, D) bf16.  D is 64, 80 or 128.
-// The f32 entry stays on the SIMT kernel of flash_attention.cu, which is
-// exact to 1e-5; this file takes bf16 only.
+// KV head h / (H / KV); the output is (B, H, S, D) bf16.  D is 64, 80, 96
+// or 128.  The f32 entry stays on the SIMT kernel of flash_attention.cu,
+// which is exact to 1e-5; this file takes bf16 only.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::_flash_kernel
 // (via flash_attention).  The Pallas grid walks the key blocks as its
@@ -20,13 +20,14 @@
 //     for K and for V (TMA completes them) and an "empty" one the 256
 //     computing threads arrive on when they are done with the tile.
 //   * A tile is stored as slabs of 64 bf16 columns (128-byte rows, the
-//     128-byte swizzle of TMA and wgmma) and, for D = 80, a slab of the last
-//     16 columns (32-byte rows, 32-byte swizzle).  A second 64-column box
-//     whose columns 80..127 TMA fills with zeros loaded slower on the card
-//     (PERF.md); the 16-column slab reads exactly the row's 160 bytes.
+//     128-byte swizzle of TMA and wgmma) and, for D = 80 and 96, a tail slab
+//     of the last 16 or 32 columns (32- or 64-byte rows, the 32- or 64-byte
+//     swizzle).  A second 64-column box whose columns past D TMA fills with
+//     zeros loaded slower on the card (PERF.md); the tail slab reads
+//     exactly the row's bytes.
 //   * S = Q·Kᵀ is wgmma m64n128k16 with both operands in shared memory,
-//     K-major: D/16 k16 steps (four per 64-column slab, one on the 16-column
-//     slab).  The softmax runs on the f32 accumulator in registers: a row
+//     K-major: D/16 k16 steps (four per 64-column slab, one or two on the
+//     tail slab, each 32 bytes further along its rows).  The softmax runs on the f32 accumulator in registers: a row
 //     lives in the 4 threads of a quad, its max is reduced with two
 //     shuffles, exp2 takes s·c − m·c (c = log2(e)/sqrt(D)) as one fused
 //     multiply-add, and each thread keeps its share of the row sum until the
@@ -34,8 +35,8 @@
 //   * O += P·V takes P from registers: the m64n128 accumulator has the layout
 //     of the A fragment, so P is the probabilities converted to bf16 pairs
 //     in place (FlashAttention-3 does the same).  V is the B operand,
-//     MN-major (the transpose flag): one m64n64k16 per 64-column slab and,
-//     for D = 80, one m64n16k16 on the 16-column slab.
+//     MN-major (the transpose flag): one m64n64k16 per 64-column slab and
+//     one m64n16k16 (D = 80) or m64n32k16 (D = 96) on the tail slab.
 //   * Tiles wholly above the diagonal or older than the window are never
 //     loaded, and only the tiles that hold a masked pair (the diagonal, the
 //     window's lower edge, the ragged last tile) apply the in-tile mask.
@@ -73,21 +74,27 @@ constexpr int kStages = 2;         // K/V ring depth
 constexpr int kComputeThreads = 256;
 constexpr int kThreads = 384;      // + the loading warpgroup
 constexpr int kSlabBytes = 128;    // one row of a 64-column bf16 slab
-constexpr int kTailBytes = 32;     // one row of D = 80's 16-column slab
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // A tile of `rows` rows of D columns in shared memory: kFull slabs of 64
-// columns (128-byte rows, 128-byte swizzle), then for D = 80 a slab of the
-// last 16 columns (32-byte rows, 32-byte swizzle).
+// columns (128-byte rows, 128-byte swizzle), then for D = 80 and 96 a tail
+// slab of the last kTailCols = 16 or 32 columns (rows of kTailBytes = 32 or
+// 64 bytes, the swizzle of that width).
 template <int D>
 struct Shape {
-  static_assert(D == 64 || D == 80 || D == 128, "D must be 64, 80 or 128");
+  static_assert(D == 64 || D == 80 || D == 96 || D == 128,
+                "D must be 64, 80, 96 or 128");
   static constexpr int kFull = D / 64;            // 64-column slabs
-  static constexpr bool kTail = D % 64 == 16;     // D = 80's 16 columns
+  static constexpr int kTailCols = D % 64;        // 0, 16 or 32
+  static constexpr bool kTail = kTailCols != 0;
+  static constexpr int kTailBytes = 2 * kTailCols;
+  // wgmma's layout type of the tail slab: 3 is the 32-byte swizzle, 2 the
+  // 64-byte one
+  static constexpr uint64_t kTailSwizzle = kTailCols == 16 ? 3 : 2;
   static constexpr int kOAcc = D / 2;             // O floats per thread
   static constexpr int kRowBytes =
-      kFull * kSlabBytes + (kTail ? kTailBytes : 0);
+      kFull * kSlabBytes + kTailBytes;
   static constexpr int kQBytes = kBQ * kRowBytes;
   static constexpr int kKVBytes = kBK * kRowBytes;   // one K or V stage
   static constexpr int kBarriers = 1 + 4 * kStages;
@@ -155,7 +162,7 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
 }
 
 // Rows [row, row + rows) of head `head` into a tile at `dst`: one box per
-// 64-column slab from `full`, and D = 80's last 16 columns from `tail`.
+// 64-column slab from `full`, and the tail columns from `tail`.
 template <int D>
 __device__ __forceinline__ void tma_tile(uint32_t dst, int rows,
                                          const CUtensorMap* full,
@@ -172,12 +179,12 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, int rows,
 }
 
 // wgmma shared-memory descriptors: start address, leading and stride byte
-// offsets (each >> 4) and the swizzle (layout type 1: 128 bytes, 3: 32).
+// offsets (each >> 4) and the swizzle (layout type 1: 128 bytes, 2: 64,
+// 3: 32).
 // K-major (Q, K): rows at the swizzle width, 8-row groups at 8 rows.
 // MN-major (V): 8-key groups at 8 rows; the leading offset steps across
 // 64-column atoms, which no product here does.
 constexpr uint64_t kSwizzle128 = 1;
-constexpr uint64_t kSwizzle32 = 3;
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
                                               uint32_t sbo, uint64_t layout) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
@@ -284,8 +291,25 @@ __device__ __forceinline__ void wgmma_m64n16k16_rs(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d[0:16] += A·B for m64n32k16: A (bf16 pairs) in registers, B in
+// shared memory MN-major (the transpose flag set).
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float* d, const uint32_t* a,
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15}"
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // Start S = Q·Kᵀ for warpgroup wg's 64 query rows: D/16 k16 steps, four
-// per 64-column slab and one on D = 80's 16-column slab.
+// per 64-column slab and kTailCols/16 on the tail slab.
 template <int D>
 __device__ __forceinline__ void start_qk(float (&s)[kBK / 2], uint32_t q_s,
                                          int wg, uint32_t k_st) {
@@ -300,17 +324,19 @@ __device__ __forceinline__ void start_qk(float (&s)[kBK / 2], uint32_t q_s,
                         smem_desc(k, 16, 8 * kSlabBytes, kSwizzle128),
                         kk > 0);
   }
-  if constexpr (P::kTail) {
-    const uint32_t q =
-        q_s + P::kFull * kBQ * kSlabBytes + 64 * wg * kTailBytes;
-    const uint32_t k = k_st + P::kFull * kBK * kSlabBytes;
-    wgmma_m64n128k16_ss(s, smem_desc(q, 16, 8 * kTailBytes, kSwizzle32),
-                        smem_desc(k, 16, 8 * kTailBytes, kSwizzle32), 1);
+#pragma unroll
+  for (int kk = 0; kk < P::kTailCols / 16; ++kk) {
+    const uint32_t q = q_s + P::kFull * kBQ * kSlabBytes +
+                       64 * wg * P::kTailBytes + 32 * kk;
+    const uint32_t k = k_st + P::kFull * kBK * kSlabBytes + 32 * kk;
+    wgmma_m64n128k16_ss(
+        s, smem_desc(q, 16, 8 * P::kTailBytes, P::kTailSwizzle),
+        smem_desc(k, 16, 8 * P::kTailBytes, P::kTailSwizzle), 1);
   }
 }
 
-// Start O += P·V: per 16 keys, one n64 product per 64-column slab of V and,
-// for D = 80, one n16 product on the 16-column slab.
+// Start O += P·V: per 16 keys, one n64 product per 64-column slab of V and
+// one n16 (D = 80) or n32 (D = 96) product on the tail slab.
 template <int D>
 __device__ __forceinline__ void start_pv(float (&o)[Shape<D>::kOAcc],
                                          uint32_t (&p)[kBK / 4],
@@ -327,9 +353,14 @@ __device__ __forceinline__ void start_pv(float (&o)[Shape<D>::kOAcc],
     }
     if constexpr (P::kTail) {
       const uint32_t v =
-          v_st + P::kFull * kBK * kSlabBytes + kb * 16 * kTailBytes;
-      wgmma_m64n16k16_rs(o + 32 * P::kFull, p + 4 * kb,
-                         smem_desc(v, 16, 8 * kTailBytes, kSwizzle32));
+          v_st + P::kFull * kBK * kSlabBytes + kb * 16 * P::kTailBytes;
+      const uint64_t desc =
+          smem_desc(v, 16, 8 * P::kTailBytes, P::kTailSwizzle);
+      if constexpr (P::kTailCols == 16) {
+        wgmma_m64n16k16_rs(o + 32 * P::kFull, p + 4 * kb, desc);
+      } else {
+        wgmma_m64n32k16_rs(o + 32 * P::kFull, p + 4 * kb, desc);
+      }
     }
   }
 }
@@ -590,8 +621,8 @@ EncodeTiled encode_tiled() {
 }
 
 // A (D, S, heads) bf16 tensor read in boxes of `cols` columns × `rows` rows
-// of one head: 64 columns with the 128-byte swizzle, 16 with the 32-byte
-// one.  Rows past S read as zeros.
+// of one head, with the swizzle of the box's row width: 64 columns (128
+// bytes), 32 (64 bytes) or 16 (32 bytes).  Rows past S read as zeros.
 bool tensor_map(CUtensorMap* map, EncodeTiled encode, const void* base,
                 int D, int S, int heads, int rows, int cols) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
@@ -605,8 +636,9 @@ bool tensor_map(CUtensorMap* map, EncodeTiled encode, const void* base,
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                 const_cast<void*>(base), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE,
-                cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                           : CU_TENSOR_MAP_SWIZZLE_32B,
+                cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                : cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                             : CU_TENSOR_MAP_SWIZZLE_32B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -622,8 +654,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   if (err != cudaSuccess) return static_cast<int>(err);
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  // the tail maps (16 columns) are read only at D = 80
-  const int tail = Shape<D>::kTail ? 16 : 64;
+  // the tail maps are read only at D = 80 (16 columns) and 96 (32)
+  const int tail = Shape<D>::kTail ? Shape<D>::kTailCols : 64;
   CUtensorMap tq, tq_tail, tk, tk_tail, tv, tv_tail;
   if (!tensor_map(&tq, encode, q, D, S, B * H, kBQ, 64) ||
       !tensor_map(&tq_tail, encode, q, D, S, B * H, kBQ, tail) ||
@@ -644,7 +676,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 }  // namespace
 
 // One launch on `stream`; all tensors contiguous bf16, 16-byte aligned.  H
-// must be a multiple of KV and D one of 64, 80, 128 (else
+// must be a multiple of KV and D one of 64, 80, 96, 128 (else
 // cudaErrorInvalidValue).  Allocates nothing; returns the launch's
 // cudaError_t (0 on success).
 extern "C" int flash_attention_bf16_sm90(const void* q, const void* k,
@@ -658,6 +690,8 @@ extern "C" int flash_attention_bf16_sm90(const void* q, const void* k,
       return launch<64>(q, k, v, out, B, H, KV, S, scale, causal, window, s);
     case 80:
       return launch<80>(q, k, v, out, B, H, KV, S, scale, causal, window, s);
+    case 96:
+      return launch<96>(q, k, v, out, B, H, KV, S, scale, causal, window, s);
     case 128:
       return launch<128>(q, k, v, out, B, H, KV, S, scale, causal, window,
                          s);
@@ -674,6 +708,8 @@ extern "C" int flash_attention_bf16_sm90_smem(int D) {
       return Shape<64>::kSmem;
     case 80:
       return Shape<80>::kSmem;
+    case 96:
+      return Shape<96>::kSmem;
     case 128:
       return Shape<128>::kSmem;
     default:

@@ -23,12 +23,11 @@ for the same spec, and a corpus checkpoint of either package resumes in
 the other.
 
 The reference's ``traced`` provider (``trace_to_graph`` of a transformer
-layer written in ``jax.numpy``) is registered, so a spec naming it parses
-as there, but it builds nothing yet: a torch trace yields aten ops, not
-jaxpr primitives, and matching the reference's nodes and edges is the work
-of ROADMAP.md 'Modules to port' item 6 step 7.  ``lm`` builds the archs the
-port has configs for; ``archs=all`` (and an arch the port lacks) raises,
-naming item 11, rather than build a smaller corpus than the reference's.
+layer written in ``jax.numpy``) builds the same graphs here from a numpy
+description of the layer's jaxpr (``graphs/traced.py``).  ``lm`` and
+``traced`` build the archs the port has configs for; ``archs=all`` (and an
+arch the port lacks) raises, naming ROADMAP.md 'Modules to port' item 11,
+rather than build a smaller corpus than the reference's.
 
 Streaming corpora
 -----------------
@@ -202,18 +201,47 @@ class LMLayerWorkloads(WorkloadProvider):
 
 
 class TracedLayerWorkloads(WorkloadProvider):
-    """The reference's traced transformer-layer graphs: registered so that
-    a spec naming them parses, not built yet (see module docstring)."""
+    """The reference's ``trace_to_graph``-derived transformer-layer graphs.
+
+    One attention + FFN layer at each named arch's *smoke* dimensions, with
+    jaxpr-primitive op types (``dot_general``, ``exp``, ``reduce_sum``,
+    ...) rather than the OpenVINO-style builders'.  The reference traces the
+    layer with JAX; the port builds the same graph in numpy
+    (:func:`~repro_torch.graphs.traced.traced_layer_graph`).  ``archs=all``
+    raises, naming ROADMAP item 11, as ``lm:archs=all`` does: until all the
+    reference's archs are ported it would be a smaller corpus.
+    """
 
     name = "traced"
 
     def lazy_build(self, archs: Union[str, Sequence[str]] = "all",
                    seq_len: int = 32, **params) -> List[GraphThunk]:
         _reject_unknown(self.name, params)
-        raise NotImplementedError(
-            "the 'traced' workload provider needs a torch.fx counterpart of "
-            "the reference's jaxpr tracer giving the same nodes and edges "
-            "(ROADMAP.md 'Modules to port' item 6 step 7)")
+        from ..configs import all_archs, get
+        from .traced import traced_layer_graph
+        ported = all_archs()
+        if archs == "all":
+            raise NotImplementedError(
+                f"traced:archs=all names the reference's "
+                f"{len(REFERENCE_ARCHS)} archs; the port lacks "
+                f"{sorted(set(REFERENCE_ARCHS) - set(ported))} (ROADMAP.md "
+                f"'Modules to port' item 11) — name the ported ones "
+                f"instead: {list(ported)}")
+        if isinstance(archs, str):
+            archs = [archs]
+        for a in archs:
+            if a not in ported and a in REFERENCE_ARCHS:
+                raise NotImplementedError(
+                    f"arch {a!r} is not ported to repro_torch yet (ROADMAP.md "
+                    f"'Modules to port' item 11); ported: {list(ported)}")
+
+        def build(a: str) -> CompGraph:
+            cfg = get(a).smoke_config
+            return traced_layer_graph(
+                int(seq_len), cfg.d_model, max(1, cfg.n_heads),
+                cfg.head_dim_, cfg.d_ff, name=f"{cfg.name}/traced_layer")
+
+        return [(lambda a=a: build(a)) for a in archs]
 
 
 class SyntheticWorkloads(WorkloadProvider):

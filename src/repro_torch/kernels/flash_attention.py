@@ -30,7 +30,7 @@ __all__ = ["flash_attention", "flash_attention_ref", "flash_mask",
            "BLOCK_Q", "BLOCK_K"]
 
 #: head dims the CUDA kernels are compiled for
-HEAD_DIMS = (64, 80, 128)
+HEAD_DIMS = (64, 80, 96, 128)
 #: query rows and keys per tile of the bf16 kernel (kBQ, kBK in
 #: ``csrc/flash_attention_sm90.cu``)
 BLOCK_Q = 128

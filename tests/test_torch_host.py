@@ -94,8 +94,12 @@ def test_port_imports_without_jax():
         "import repro_torch.core.train.curriculum\n"
         "import repro_torch.configs.qwen1_5_0_5b\n"
         "from repro_torch.core.train import CurriculumTrainer\n"
+        "import repro_torch.core.baselines, repro_torch.core.executor\n"
+        "import repro_torch.graphs.traced, repro_torch.api\n"
+        "assert repro_torch.PlacementSession.__module__ =="
+        " 'repro_torch.api.session'\n"
         "assert repro_torch.configs.all_archs() == ('h2o-danube-1.8b',"
-        " 'mamba2-130m', 'qwen1.5-0.5b')\n"
+        " 'mamba2-130m', 'phi3-mini-3.8b', 'qwen1.5-0.5b')\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and"

@@ -24,7 +24,7 @@ from repro_torch.configs import get  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import decode_step, forward, prefill  # noqa: E402
 
-ARCHS = ["h2o-danube-1.8b", "mamba2-130m", "qwen1.5-0.5b"]
+ARCHS = ["h2o-danube-1.8b", "mamba2-130m", "qwen1.5-0.5b", "phi3-mini-3.8b"]
 # the reference's decode-consistency tolerance (tests/test_models.py:21):
 # float32 weights and activations, sums in another order across frameworks
 ATOL = 2e-5

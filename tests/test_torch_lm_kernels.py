@@ -150,8 +150,12 @@ def test_flash_attention_argument_checks_and_routes():
     kv = torch.zeros(1, 2, 8, 80, dtype=torch.bfloat16)
     assert _check_args(q, kv, kv, 0) == "wgmma_bf16"
     assert _check_args(q.float(), kv.float(), kv.float(), 0) == "simt_f32"
-    with pytest.raises(ValueError, match="head dim 96"):
-        _check_args(*(torch.zeros(1, 2, 8, 96, dtype=torch.bfloat16),) * 3,
+    # phi3-mini's head dim, on both routes
+    d96 = torch.zeros(1, 2, 8, 96, dtype=torch.bfloat16)
+    assert _check_args(d96, d96, d96, 0) == "wgmma_bf16"
+    assert _check_args(*(d96.float(),) * 3, 0) == "simt_f32"
+    with pytest.raises(ValueError, match="head dim 112"):
+        _check_args(*(torch.zeros(1, 2, 8, 112, dtype=torch.bfloat16),) * 3,
                     0)
     with pytest.raises(ValueError, match="k must be a contiguous"):
         _check_args(q, kv.float(), kv, 0)

@@ -73,3 +73,19 @@ def test_init_is_the_reference_init_bitwise(arrays, seed, gnn_model, head):
         b = np.asarray(b)
         assert a.dtype == b.dtype and a.shape == b.shape, path
         assert a.tobytes() == b.tobytes(), jax.tree_util.keystr(path)
+
+
+@pytest.mark.parametrize("shape", [(1,), (4, 5), (128, 512), (230, 512),
+                                   (64, 1)])
+def test_normal_is_jax_random_normal_bitwise(shape):
+    """XLA's float32 ``erf_inv`` with its own ``log1p`` and ``log``: every
+    draw bit for bit, over both of ``erf_inv``'s branches and both of
+    ``log1p``'s."""
+    for seed in (0, 7, 2 ** 31 + 3):
+        k = prng.split(prng.key(seed), 4)[2]
+        mine = prng.normal(k, shape)
+        ref = np.asarray(jax.random.normal(
+            jax.random.split(jax.random.PRNGKey(seed), 4)[2], shape))
+        assert mine.dtype == np.float32 and mine.shape == shape
+        np.testing.assert_array_equal(mine.view(np.uint32),
+                                      ref.view(np.uint32))

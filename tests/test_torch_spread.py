@@ -94,18 +94,15 @@ def test_reference_multi_spread_is_chip_smokes_contract():
         assert all(math.isfinite(x) and 0 < x < 1 for x in row.values())
 
 
-def test_reference_corpus_spread_is_chip_smokes_contract():
-    """``tools/reference_corpus_spread.json``: the reference's corpus runs
-    at ``chip_smoke.py``'s contract config — its corpus (graphs, sizes,
-    buckets, fingerprint) is the port's, each seed's graph sequence is
-    what the port's sampler draws for that seed, and every latency of the
-    14 pairs is finite for seeds 0-11."""
-    smoke = _chip_smoke()
-    with open(smoke.CORPUS_JSON) as f:
+def _check_corpus_record(smoke, path, spec):
+    """A corpus spread JSON at ``chip_smoke.py``'s contract config over
+    ``spec``: the port's corpus, graph sequences and finite latencies of
+    one greedy pair a graph, two bests and two zero-shot pairs."""
+    with open(path) as f:
         doc = json.load(f)
     assert doc["config"] == smoke.CORPUS_CONTRACT_CONFIG
     assert doc["trainer"] == smoke.CORPUS_TRAINER
-    assert doc["corpus"] == smoke.CORPUS_SPEC
+    assert doc["corpus"] == spec
     assert doc["held_out"] == smoke.HELD_OUT_SPEC
     assert doc["seeds"] == list(range(12))
     assert doc["platform"] == "paper_platform()"
@@ -126,7 +123,7 @@ def test_reference_corpus_spread_is_chip_smokes_contract():
     assert set(res["zero_shot"]) == set(doc["held_out_graphs"])
     pairs = [row for part in ("greedy", "best", "zero_shot")
              for row in res[part].values()]
-    assert len(pairs) == 14
+    assert len(pairs) == len(corpus) + 4
     for row in pairs:
         assert set(row) == {str(s) for s in doc["seeds"]}
         assert all(math.isfinite(x) and x > 0 for x in row.values())
@@ -136,3 +133,48 @@ def test_reference_corpus_spread_is_chip_smokes_contract():
         want = [sampler.sample() for _ in range(doc["config"]
                                                 ["max_episodes"])]
         assert [[b, ids] for b, ids in want] == res["sequence"][str(s)]
+    return doc
+
+
+def test_reference_corpus_spread_is_chip_smokes_contract():
+    """``tools/reference_corpus_spread.json``: the reference's corpus runs
+    at ``chip_smoke.py``'s contract config — its corpus (graphs, sizes,
+    buckets, fingerprint) is the port's, each seed's graph sequence is
+    what the port's sampler draws for that seed, and every latency of the
+    14 pairs is finite for seeds 0-11."""
+    smoke = _chip_smoke()
+    doc = _check_corpus_record(smoke, smoke.CORPUS_JSON, smoke.CORPUS_SPEC)
+    assert len(doc["graphs"]) + 4 == 14
+
+
+def test_reference_full_corpus_spread_is_chip_smokes_contract():
+    """``tools/reference_corpus_spread_full.json``: the same over Table 8's
+    full corpus, ``traced`` included (16 pairs), whose fingerprint is the
+    one ROADMAP records."""
+    smoke = _chip_smoke()
+    doc = _check_corpus_record(smoke, smoke.CORPUS_FULL_JSON,
+                               smoke.CORPUS_FULL_SPEC)
+    assert doc["fingerprint"] == ("9e4ccd26d9574549f9eec9ceb2505e56"
+                                  "2d16d0d59993868095c719bcd6b1f2d7")
+    assert len(doc["graphs"]) + 4 == 16
+
+
+def test_reference_baseline_spread_is_chip_smokes_contract():
+    """``tools/reference_baseline_spread.json``: the reference's Placeto and
+    RNN searches over seeds 0-11 on the three paper graphs at
+    ``chip_smoke.py``'s contract config, every best latency finite."""
+    smoke = _chip_smoke()
+    with open(smoke.BASELINE_JSON) as f:
+        doc = json.load(f)
+    assert doc["config"] == smoke.BASELINE_CONTRACT_CONFIG
+    assert doc["feature"] == smoke.BASELINE_FEATURE
+    assert doc["seeds"] == list(range(12))
+    assert doc["platform"] == "paper_platform()"
+    assert doc["jax_version"] and doc["date"]
+    assert set(doc["results"]) == {"inception_v3", "resnet50", "bert_base"}
+    for name, row in doc["results"].items():
+        assert set(row) == {"placeto", "rnn"}, name
+        for method, by_seed in row.items():
+            assert set(by_seed) == {str(s) for s in doc["seeds"]}
+            assert all(math.isfinite(x) and 0 < x < 1
+                       for x in by_seed.values()), (name, method)

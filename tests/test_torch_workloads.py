@@ -3,8 +3,8 @@ reference's (benchmark, synthetic, ``lm`` for each kind), the corpus
 fingerprint of Table 8's corpus (less ``traced``) eager and streaming, the
 spec parser's errors, the stream markers, the streaming LRU and its
 nondeterministic-thunk check, ``GraphMeta`` against
-``shared_feature_config``, the ``traced`` stub, ``lm:archs=all`` and
-``layer_graph``."""
+``shared_feature_config``, the ``traced`` graphs against the reference's
+jaxpr trace, Table 8's full corpus, ``lm:archs=all`` and ``layer_graph``."""
 import dataclasses
 
 import numpy as np
@@ -31,6 +31,15 @@ TABLE8 = ("benchmark:names=inception_v3+resnet50;"
 TABLE8_FINGERPRINT = ("0bd992a6aa5692cdf61d67480cc504ab"
                       "5b591f4007af0a2afcf35c024d97ed3f")
 TABLE8_BUCKETS = [[6, 3, 4, 9, 8, 2, 5, 7], [1], [0]]
+#: Table 8's full corpus, its traced entry included
+TABLE8_FULL = ("benchmark:names=inception_v3+resnet50;"
+               "traced:archs=qwen1.5-0.5b+phi3-mini-3.8b;"
+               "lm:archs=qwen1.5-0.5b+mamba2-130m:seq_len=1024;"
+               "synthetic:family=layered+series_parallel:count=6:size=40:"
+               "seed=0")
+TABLE8_FULL_FINGERPRINT = ("9e4ccd26d9574549f9eec9ceb2505e56"
+                           "2d16d0d59993868095c719bcd6b1f2d7")
+TABLE8_FULL_BUCKETS = [[8, 5, 6, 11, 10, 2, 3, 4, 7, 9], [1], [0]]
 
 
 def _assert_graphs_equal(mine, ref):
@@ -182,17 +191,17 @@ def test_registry_and_the_ports_missing_providers_raise():
     spec = wl.parse_corpus_spec("traced:archs=qwen1.5-0.5b")
     assert spec.entries == refwl.parse_corpus_spec(
         "traced:archs=qwen1.5-0.5b").entries
-    with pytest.raises(NotImplementedError, match="item 6 step 7"):
-        wl.build_corpus(spec)
-    with pytest.raises(NotImplementedError, match="item 6 step 7"):
-        wl.StreamingCorpus("traced")
-    with pytest.raises(NotImplementedError, match="item 11") as err:
-        wl.build_corpus("lm:archs=all")
-    assert "mixtral-8x22b" in str(err.value)
-    assert "qwen1.5-0.5b" not in str(err.value).split("lacks")[1] \
-        .split("(")[0]
+    _assert_graphs_equal(wl.build_corpus(spec), refwl.build_corpus(spec))
+    for provider in ("lm", "traced"):
+        with pytest.raises(NotImplementedError, match="item 11") as err:
+            wl.build_corpus(f"{provider}:archs=all")
+        assert "mixtral-8x22b" in str(err.value)
+        assert "phi3-mini-3.8b" not in str(err.value).split("lacks")[1] \
+            .split("(")[0]
+        with pytest.raises(NotImplementedError, match="item 11"):
+            wl.build_corpus(f"{provider}:archs=mixtral-8x22b")
     with pytest.raises(NotImplementedError, match="item 11"):
-        wl.build_corpus("lm:archs=phi3-mini-3.8b")
+        wl.StreamingCorpus("traced")
     with pytest.raises(KeyError):
         wl.build_corpus("lm:archs=no-such-arch")
 
@@ -213,7 +222,7 @@ def test_registry_and_the_ports_missing_providers_raise():
 
 
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "mamba2-130m",
-                                  "h2o-danube-1.8b"])
+                                  "h2o-danube-1.8b", "phi3-mini-3.8b"])
 def test_layer_graph_matches_the_reference(arch):
     for kind in ("train", "prefill", "decode"):
         for cfg, ref_cfg in ((get(arch).config, ref_arch(arch).config),
@@ -225,3 +234,33 @@ def test_layer_graph_matches_the_reference(arch):
                               block_pattern=(("attn", "moe"),))
     with pytest.raises(NotImplementedError, match="item 11"):
         layer_graph(moe, 64, 1)
+
+
+@pytest.mark.parametrize("seq", [32, 64])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "phi3-mini-3.8b"])
+def test_traced_graphs_match_the_references_jaxpr_trace(arch, seq):
+    """The numpy layer graph bitwise the reference's ``trace_to_graph``:
+    names, op types, shapes, FLOPs, bytes and edges (a JAX release that
+    traces the layer otherwise fails here)."""
+    spec = f"traced:archs={arch}:seq_len={seq}"
+    mine, ref = wl.build_corpus(spec), refwl.build_corpus(spec)
+    _assert_graphs_equal(mine, ref)
+    g = mine[0]
+    assert (g.num_nodes, g.num_edges, len(set(g.op_types()))) == \
+        (40, 47, 16)
+
+
+def test_the_full_table8_corpus_matches_the_reference():
+    """Table 8's full corpus, ``traced`` included: graphs, buckets and the
+    fingerprint the reference's, eager and streaming."""
+    eager = wl.build_corpus(TABLE8_FULL)
+    ref = refwl.build_corpus(TABLE8_FULL)
+    _assert_graphs_equal(eager, ref)
+    sizes = [g.num_nodes for g in eager]
+    assert sizes == [602, 341, 40, 40, 50, 26, 35, 56, 17, 56, 38, 36]
+    assert plan_buckets(sizes, 3) == refcm.plan_buckets(sizes, 3) \
+        == TABLE8_FULL_BUCKETS
+    assert wl.corpus_fingerprint(eager) == refwl.corpus_fingerprint(ref) \
+        == TABLE8_FULL_FINGERPRINT
+    stream = wl.build_corpus("stream:" + TABLE8_FULL, cache_graphs=2)
+    assert wl.corpus_fingerprint(stream) == TABLE8_FULL_FINGERPRINT

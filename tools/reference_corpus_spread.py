@@ -27,12 +27,17 @@ partition and its ``corpus_fingerprint``, which the card (no JAX there)
 checks the port's corpus against.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/reference_corpus_spread.py \
-        [--seeds 0-11] [--out piece.json]
+        [--full] [--seeds 0-11] [--out piece.json]
+
+``--full`` runs Table 8's full corpus, its ``traced`` entry included, into
+``tools/reference_corpus_spread_full.json`` (the merge target too); without
+it the corpus is the one above and the JSON
+``tools/reference_corpus_spread.json``.
 
 Each finished seed is merged into the JSON at once, and a seed already there
 is skipped, so a cut run resumes where it stopped.  Pieces run side by side
 write files of their own (``--out``); ``--merge A.json B.json ...`` folds
-them into ``tools/reference_corpus_spread.json``.  It runs on the CPU (about
+them into the JSON.  It runs on the CPU (about
 45 s a seed).  It imports the JAX package; the port does not import it, and
 ``chip_smoke.py`` reads only the JSON.
 """
@@ -53,6 +58,13 @@ SEEDS = tuple(range(12))
 CORPUS = ("benchmark:names=inception_v3+resnet50;"
           "lm:archs=qwen1.5-0.5b+mamba2-130m:seq_len=1024;"
           "synthetic:family=layered+series_parallel:count=6:size=40:seed=0")
+#: Table 8's full corpus (``--full``), its ``traced`` entry included
+FULL_CORPUS = ("benchmark:names=inception_v3+resnet50;"
+               "traced:archs=qwen1.5-0.5b+phi3-mini-3.8b;"
+               "lm:archs=qwen1.5-0.5b+mamba2-130m:seq_len=1024;"
+               "synthetic:family=layered+series_parallel:count=6:size=40:"
+               "seed=0")
+FULL_OUT = os.path.join(HERE, "reference_corpus_spread_full.json")
 #: Table 8's held-out family
 HELD_OUT = "synthetic:family=branch_join:count=2:size=40:seed=123"
 #: the HSDAGConfig of every run but the seed (``chip_smoke.py`` reads it)
@@ -99,10 +111,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seeds", type=_seeds, default=SEEDS,
                     help="a seed or a range, e.g. 0-11")
-    ap.add_argument("--out", default=OUT)
+    ap.add_argument("--full", action="store_true",
+                    help="Table 8's full corpus, its traced entry included "
+                         "(default --out tools/reference_corpus_spread_"
+                         "full.json)")
+    ap.add_argument("--out")
     ap.add_argument("--merge", nargs="+", metavar="JSON",
                     help="fold these pieces' results into --out and exit")
     args = ap.parse_args(argv)
+    args.out = args.out or (FULL_OUT if args.full else OUT)
+    spec = FULL_CORPUS if args.full else CORPUS
     if args.merge:
         doc = load(args.out) or _empty()
         for piece in map(load, args.merge):
@@ -124,14 +142,14 @@ def main(argv=None) -> int:
     from repro.graphs import build_corpus, corpus_fingerprint
 
     plat = paper_platform()
-    corpus = build_corpus(CORPUS)
+    corpus = build_corpus(spec)
     held = build_corpus(HELD_OUT)
     names = [g.name for g in corpus]
     sizes = [g.num_nodes for g in corpus]
     doc = load(args.out) or _empty()
     doc.update(config=dict(CONFIG), trainer=dict(TRAINER),
                platform="paper_platform()", jax_version=jax.__version__,
-               corpus=CORPUS, held_out=HELD_OUT, graphs=names,
+               corpus=spec, held_out=HELD_OUT, graphs=names,
                num_nodes=sizes,
                buckets=plan_buckets(sizes, TRAINER["max_buckets"]),
                fingerprint=corpus_fingerprint(corpus),
