@@ -65,6 +65,16 @@ user entry points:
    Table 8's full corpus (``tools/reference_corpus_spread_full.json``);
    Table 8 runs its full corpus, ``traced`` included; then the v1 API
    (``fit`` in each mode, save/load, ``plan_stages`` of phi3-mini-3.8b);
+   then the placement service (``[service]``: a corpus policy at hidden 128
+   over the paper graphs and six synthetics, saved and served from the
+   checkpoint by ``PlacementService`` one request at a time, as one
+   ``place_many`` burst and through ``AsyncPlacementServer``, each
+   placement the session's exactly, ``gcn_aggregate`` launched
+   ``layer_gnn`` times a request, and a second service on the same AOT
+   directory with no cold bucket), Table 9
+   (``benchmarks/table9_serving.py``'s cold, warm and batched rows) and
+   Table 11 (``benchmarks/table11_server.py``'s two-tenant replay, cold on
+   an empty AOT directory within the recompile bound, warm with none);
 2. LM serving: ``repro_torch.launch.serve`` at full width in bf16 with
    random weights, h2o-danube-1.8b (batch 4, prompt 4608 > its 4096 window,
    32 steps: ``rmsnorm``, ``flash_attention``) and mamba2-130m (batch 4,
@@ -202,6 +212,26 @@ TABLE4_TOL = 1e-4
 TABLE4_CS = 0.999
 # the stage planner's phi3-mini-3.8b plan (examples/placement_search.py)
 PLAN = {"seq_len": 4096, "batch": 256, "num_stages": 2}
+# the placement service at full width: a corpus policy over the three
+# paper graphs and six synthetics, saved, loaded and served; each training
+# graph three times in a shuffled stream
+SERVICE_SPEC = "benchmark;synthetic:family=mixed:count=6:size=24:seed=0"
+SERVICE_CONFIG = {"num_devices": 2, "batch_chains": 8, "max_episodes": 2,
+                  "update_timestep": 10}
+SERVICE_TRAINER = {"max_buckets": 3, "graphs_per_episode": 2}
+SERVICE_KW = {"batch_slots": 4, "size_granularity": 16}
+SERVICE_REPEATS = 3
+# Tables 9 and 11 (benchmarks/table9_serving.py, table11_server.py) at
+# benchmarks/common.py's defaults (REPRO_BENCH_EPISODES=12, timestep 10)
+BENCH_EPISODES, BENCH_TIMESTEP = 12, 10
+T9_TRAIN = "synthetic:family=mixed:count=6:size=24:seed=0"
+T9_REQUESTS = 24
+T11_TENANTS = {"a": ("synthetic:family=mixed:count=6:size=24:seed=0", 32),
+               "b": ("synthetic:family=mixed:count=6:size=24:seed=1", 16)}
+T11_REQUESTS = 100
+SERVE_STREAM = ("synthetic:family=layered:count=3:size=12:seed=7;"
+                "synthetic:family=layered:count=3:size=28:seed=8;"
+                "synthetic:family=series_parallel:count=3:size=44:seed=9")
 
 
 class CheckFailed(Exception):
@@ -2309,6 +2339,282 @@ def api_phase(torch, plat):
     print(f"[phase] api: {time.perf_counter() - t_phase:.2f} s")
 
 
+def replay(server, stream):
+    """Open-loop replay of ``(tenant, graph)`` requests → (placements,
+    submit→settled seconds a request), as ``table11_server.py``'s."""
+    done = [None] * len(stream)
+
+    def mark(i):
+        def cb(_fut):
+            done[i] = time.perf_counter()
+        return cb
+
+    t_submit, futures = [], []
+    for i, (tenant, g) in enumerate(stream):
+        t_submit.append(time.perf_counter())
+        f = server.submit(g, tenant=tenant)
+        f.add_done_callback(mark(i))
+        futures.append(f)
+    out = [f.result(timeout=600) for f in futures]
+    return out, [d - t for d, t in zip(done, t_submit)]
+
+
+def service_phase(torch, plat):
+    """The placement service at full width on the card: a corpus session
+    (``SERVICE_CONFIG``, hidden 128) over the paper graphs and six
+    synthetics, saved, then served from the checkpoint one request at a
+    time (cold and warm timed apart by graph), as one ``place_many`` burst
+    and through ``AsyncPlacementServer``; every placement the session's
+    exactly, every ``evaluate`` latency the host scheduler's, the cold
+    buckets at most the distinct buckets, ``gcn_aggregate`` launched
+    ``layer_gnn`` times a request, and a second service on the same AOT
+    directory with no cold bucket."""
+    import tempfile
+    from repro_torch import HSDAGConfig, simulate
+    from repro_torch.api import (AsyncPlacementServer, PlacementService,
+                                 PlacementSession, PlacementSpec)
+    t_phase = time.perf_counter()
+    cfg = HSDAGConfig(**SERVICE_CONFIG)
+    session = PlacementSession(PlacementSpec(
+        workload=SERVICE_SPEC, mode="corpus", config=cfg, **SERVICE_TRAINER))
+    t0 = time.perf_counter()
+    session.fit(rng=0)
+    fit_s = time.perf_counter() - t0
+    graphs = list(session.graphs)
+    want = {g.name: session.place(g) for g in graphs}
+    order = np.random.RandomState(0).permutation(SERVICE_REPEATS * len(graphs))
+    stream = [graphs[i % len(graphs)] for i in order]
+    per_request = cfg.layer_gnn       # one greedy step through each layer
+
+    def same(placements, label):
+        for g, p in zip(stream, placements):
+            check(np.array_equal(p, want[g.name]),
+                  f"[service] {label}: {g.name}'s placement is not the "
+                  f"session's")
+
+    def launches(n, label):
+        check(n == {"level_makespan": 0, "sage_aggregate": 0,
+                    "gcn_aggregate": per_request * len(stream)},
+              f"[service] {label} launched {n}, not {per_request} "
+              f"gcn_aggregate a request over {len(stream)} requests")
+
+    with tempfile.TemporaryDirectory() as d:
+        ckpt, aot_dir = os.path.join(d, "policy"), os.path.join(d, "aot")
+        session.save(ckpt)
+        service = PlacementService(ckpt, aot_cache=aot_dir, **SERVICE_KW)
+        check(service.session.graphs == [],
+              "[service] loading the checkpoint rebuilt the corpus")
+        walls = {"cold": collections.defaultdict(list),
+                 "warm": collections.defaultdict(list)}
+
+        def one_at_a_time():
+            out = []
+            for g in stream:
+                misses = service.cache_misses
+                t0 = time.perf_counter()
+                out.append(service.place(g))
+                wall = time.perf_counter() - t0
+                kind = "cold" if service.cache_misses > misses else "warm"
+                walls[kind][g.name].append(wall)
+            return out
+
+        out, n = counted(torch, one_at_a_time)
+        same(out, "place")
+        launches(n, "one request at a time")
+        for g in graphs:
+            p, lat = service.evaluate(g)
+            host = simulate(g, want[g.name], plat).latency
+            check(np.array_equal(p, want[g.name])
+                  and abs(lat - host) <= TOL * host,
+                  f"[service] evaluate({g.name}) is not the session's "
+                  f"placement at the host scheduler's latency")
+        buckets = {service._bucket_shape(service._prepared(g).arrays)
+                   for g in graphs}
+        cold = len(service.shape_keys_seen)
+        check(cold <= len(buckets), f"[service] {cold} cold buckets > "
+                                    f"{len(buckets)} distinct buckets")
+        for g in graphs:
+            c, w = walls["cold"][g.name], walls["warm"][g.name]
+            print(f"[service] {g.name[:28]:28s} V={g.num_nodes:4d}: cold "
+                  f"{c[0] * 1e3:.3f} ms, warm {np.mean(w) * 1e3:.3f} ms "
+                  f"(median {np.median(w) * 1e3:.3f}, n={len(w)})")
+        all_warm = [x for w in walls["warm"].values() for x in w]
+        all_cold = [x for c in walls["cold"].values() for x in c]
+        print(f"[service] one at a time: {len(stream)} requests, cold mean "
+              f"{np.mean(all_cold) * 1e3:.3f} ms (n={len(all_cold)}), warm "
+              f"mean {np.mean(all_warm) * 1e3:.3f} ms, p50 "
+              f"{np.percentile(all_warm, 50) * 1e3:.3f} ms (n="
+              f"{len(all_warm)}); {n['gcn_aggregate'] / len(stream):.0f} "
+              f"gcn_aggregate launches a request; cold buckets {cold} of "
+              f"{len(buckets)}; fit {fit_s:.2f} s")
+
+        t0 = time.perf_counter()
+        out, n = counted(torch, lambda: service.place_many(stream))
+        batched = (time.perf_counter() - t0) / len(stream)
+        same(out, "place_many")
+        launches(n, "place_many")
+        print(f"[service] place_many: {batched * 1e3:.3f} ms a request "
+              f"(batch_slots {service.batch_slots}); stats "
+              f"{service.stats()}")
+
+        with AsyncPlacementServer(batch_slots=4, max_delay_ms=5.0) as server:
+            tenant = server.register(service.session)
+            (out, lat), n = counted(torch, lambda: replay(
+                server, [(tenant, g) for g in stream]))
+            stats = server.stats()
+        same(out, "AsyncPlacementServer")
+        launches(n, "AsyncPlacementServer")
+        print(f"[service] AsyncPlacementServer: p50 "
+              f"{np.percentile(lat, 50) * 1e3:.3f} ms, p99 "
+              f"{np.percentile(lat, 99) * 1e3:.3f} ms submit to settled; "
+              f"batches full {stats['batches_full']}, deadline "
+              f"{stats['batches_deadline']}, cold buckets "
+              f"{stats['recompiles']}")
+
+        fresh = PlacementService(ckpt, aot_cache=aot_dir, **SERVICE_KW)
+        out = fresh.place_many(stream)
+        same(out, "a fresh service on the AOT directory")
+        fs = fresh.stats()
+        check(fs["shape_keys_seen"] == 0 and fs["aot_decodes"] > 0,
+              f"[service] a fresh service on the AOT directory decoded "
+              f"cold: {fs}")
+        print(f"[service] fresh service on the AOT directory: {fs}")
+    print(card_line())
+    print(f"[phase] service: {time.perf_counter() - t_phase:.2f} s")
+
+
+def table9_phase(torch):
+    """Table 9 (``benchmarks/table9_serving.py``) on the card: a policy
+    fit on one synthetic mix serves another, mixed-size stream one request
+    at a time (cold: a request that decoded a new bucket), then whole
+    through ``place_many``; its three rows as that script derives them."""
+    from repro_torch import HSDAGConfig
+    from repro_torch.api import (PlacementService, PlacementSession,
+                                 PlacementSpec)
+    from repro_torch.graphs import build_corpus
+    t_phase = time.perf_counter()
+    spec = PlacementSpec(
+        workload=T9_TRAIN, mode="corpus",
+        config=HSDAGConfig(num_devices=2, hidden_channel=32,
+                           max_episodes=min(BENCH_EPISODES, 4),
+                           update_timestep=BENCH_TIMESTEP, batch_chains=4),
+        max_buckets=2, graphs_per_episode=2)
+    session = PlacementSession(spec)
+    session.fit(rng=0)
+    service = PlacementService(session, batch_slots=2, size_granularity=16)
+    pool = build_corpus(SERVE_STREAM)
+    stream = [pool[i % len(pool)] for i in range(T9_REQUESTS)]
+    cold_walls, warm_walls, placed = [], [], []
+    shapes_before = 0
+    for g in stream:
+        t0 = time.perf_counter()
+        placed.append(service.place(g))
+        wall = time.perf_counter() - t0
+        shapes_now = len(service.shape_keys_seen)
+        (cold_walls if shapes_now > shapes_before else warm_walls).append(
+            wall)
+        shapes_before = shapes_now
+    recompiles = len(service.shape_keys_seen)
+    cold = float(np.mean(cold_walls))
+    warm = float(np.mean(warm_walls))
+    buckets = sorted({service._bucket_shape(service._prepared(g).arrays)
+                      for g in pool})
+    check(recompiles <= len(buckets), f"[table9] {recompiles} cold buckets "
+                                      f"> {len(buckets)} bucket shapes")
+    print(f"[table9] serving_place_cold,{cold * 1e6:.1f},"
+          f"recompiles={recompiles};bucket_shapes={len(buckets)};"
+          f"buckets={'/'.join(f'{v}v{e}e' for v, e in buckets)}")
+    print(f"[table9] serving_place_warm,{warm * 1e6:.1f},"
+          f"speedup_vs_cold={cold / warm:.1f}x;requests={T9_REQUESTS};"
+          f"cache_hits={service.cache_hits};"
+          f"cache_misses={service.cache_misses}")
+    t0 = time.perf_counter()
+    out = service.place_many(stream)
+    batched = (time.perf_counter() - t0) / len(stream)
+    print(f"[table9] serving_place_batched,{batched * 1e6:.1f},"
+          f"batch_slots={service.batch_slots};vs_warm={warm / batched:.1f}x;"
+          f"recompiles_total={len(service.shape_keys_seen)}")
+    for g, a, b in zip(stream, placed, out):
+        check(np.array_equal(a, b) and np.array_equal(a, session.place(g)),
+              f"[table9] {g.name}: place, place_many and the session "
+              f"disagree")
+    print(f"[phase] table9: {time.perf_counter() - t_phase:.2f} s")
+
+
+def table11_phase(torch):
+    """Table 11 (``benchmarks/table11_server.py``) on the card: two
+    tenants' 100-request open-loop replay through ``AsyncPlacementServer``
+    on an empty AOT directory (cold buckets ≤ distinct (tenant, bucket)
+    pairs), then with fresh servers on that directory (no cold bucket);
+    p50/p99 submit→settled and the batch occupancy."""
+    import shutil
+    import tempfile
+    from repro_torch import HSDAGConfig
+    from repro_torch.api import (AsyncPlacementServer, PlacementSession,
+                                 PlacementSpec)
+    from repro_torch.graphs import build_corpus
+    t_phase = time.perf_counter()
+    sessions = {}
+    for t, (workload, hidden) in T11_TENANTS.items():
+        sessions[t] = PlacementSession(PlacementSpec(
+            workload=workload, mode="corpus",
+            config=HSDAGConfig(num_devices=2, hidden_channel=hidden,
+                               max_episodes=min(BENCH_EPISODES, 3),
+                               update_timestep=BENCH_TIMESTEP,
+                               batch_chains=2),
+            max_buckets=2, graphs_per_episode=2))
+        sessions[t].fit(rng=0)
+    pool = build_corpus(SERVE_STREAM)
+    rng = np.random.RandomState(0)
+    names = sorted(sessions)
+    stream_ix = [(names[rng.randint(len(names))], int(rng.randint(len(pool))))
+                 for _ in range(T11_REQUESTS)]
+    aot_dir = tempfile.mkdtemp(prefix="repro-torch-table11-aot-")
+    replays = {}
+    try:
+        for label in ("cold", "warm"):
+            with AsyncPlacementServer(batch_slots=4, max_delay_ms=5.0,
+                                      size_granularity=16,
+                                      aot_cache=aot_dir) as server:
+                ids = {t: server.register(sessions[t]) for t in names}
+                stream = [(ids[t], pool[i]) for t, i in stream_ix]
+                pairs = len({(tid, server._tenants[tid]._bucket_shape(
+                    server._tenants[tid].session.featurize(g)))
+                    for tid, g in stream})
+                out, walls = replay(server, stream)
+                replays[label] = (out, walls, server.stats(), pairs)
+    finally:
+        shutil.rmtree(aot_dir, ignore_errors=True)
+    out, walls, stats, pairs = replays["cold"]
+    p50, p99 = np.percentile(walls, 50), np.percentile(walls, 99)
+    check(stats["recompiles"] <= pairs,
+          f"[table11] recompile bound violated: {stats['recompiles']} cold "
+          f"buckets > {pairs} distinct (tenant, bucket) pairs")
+    print(f"[table11] server_replay_cold,{p50 * 1e6:.1f},"
+          f"p99_us={p99 * 1e6:.0f};requests={T11_REQUESTS};"
+          f"tenants={len(names)};recompiles={stats['recompiles']};"
+          f"tenant_bucket_pairs={pairs}")
+    warm_out, walls, stats, _ = replays["warm"]
+    w50, w99 = np.percentile(walls, 50), np.percentile(walls, 99)
+    check(stats["recompiles"] == 0,
+          f"[table11] warm replay decoded {stats['recompiles']} buckets cold "
+          f"— the AOT preload should have served every bucket")
+    print(f"[table11] server_replay_warm_aot,{w50 * 1e6:.1f},"
+          f"p99_us={w99 * 1e6:.0f};recompiles=0;"
+          f"aot_decodes={stats['aot_decodes']};"
+          f"p99_speedup_vs_cold={p99 / w99:.1f}x")
+    flushes = stats["batches_full"] + stats["batches_deadline"]
+    print(f"[table11] server_batching,{stats['requests'] / max(1, flushes)},"
+          f"batch_slots=4;batches_full={stats['batches_full']};"
+          f"batches_deadline={stats['batches_deadline']}")
+    for (t, i), a, b in zip(stream_ix, out, warm_out):
+        check(np.array_equal(a, b)
+              and np.array_equal(a, sessions[t].place(pool[i])),
+              f"[table11] tenant {t}, {pool[i].name}: the replays and the "
+              f"session disagree")
+    print(f"[phase] table11: {time.perf_counter() - t_phase:.2f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2412,6 +2718,10 @@ def main() -> int:
     multi_phase(torch, graphs, plat)
     corpus_lvl_err, corpus_gcn_err = corpus_phase(torch, plat)
     api_phase(torch, plat)
+    # ---- the placement service, Tables 9 and 11 ----
+    service_phase(torch, plat)
+    table9_phase(torch)
+    table11_phase(torch)
 
     # ---- the LM kernels against their plain versions ----
     t_phase = time.perf_counter()

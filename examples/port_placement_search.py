@@ -12,6 +12,8 @@ whose three modes map onto the three trainers::
         --workload "benchmark;synthetic:family=mixed:count=9:size=30:seed=0"
     python examples/port_placement_search.py --device cpu --episodes 2 \\
         --checkpoint /tmp/policy          # anywhere, with save/load
+    python examples/port_placement_search.py --device cpu --episodes 2 \\
+        --serve                           # then serve the graphs
 
 Each run prints its spec's hash, fits, evaluates every graph of the
 workload with the greedy decode, and with ``--checkpoint`` saves the session
@@ -19,10 +21,11 @@ workload with the greedy decode, and with ``--checkpoint`` saves the session
 back, checking that the loaded policy decodes the same placements.  Search
 mode then runs the paper's technique in its production slot:
 ``plan_stages`` splits phi3-mini-3.8b's layer graph over two pipeline
-stages (``tpu_stage_platform``) beside the even split.
-
-The warm placement service and its server (the reference example's serving
-half) are not ported yet (ROADMAP.md 'Modules to port' item 8).
+stages (``tpu_stage_platform``) beside the even split.  With ``--serve``
+the fitted session's graphs are then served twice (cold, then warm) through
+a :class:`repro_torch.api.PlacementService` and once through an
+:class:`repro_torch.api.AsyncPlacementServer`, each checked against the
+session's own placements, and both ``stats()`` are printed.
 """
 import argparse
 import os
@@ -33,8 +36,10 @@ import numpy as np
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "src"))
 
-from repro_torch.api import (PlacementSession, PlacementSpec,  # noqa: E402
-                             build_platform, parse_platform_spec)
+from repro_torch.api import (AsyncPlacementServer,  # noqa: E402
+                             PlacementService, PlacementSession,
+                             PlacementSpec, build_platform,
+                             parse_platform_spec)
 from repro_torch.configs import get  # noqa: E402
 from repro_torch.core import HSDAGConfig, simulate  # noqa: E402
 from repro_torch.core.baselines import cpu_only  # noqa: E402
@@ -66,6 +71,24 @@ def build_spec(args) -> PlacementSpec:
                            seed=args.seed, **extras))
 
 
+def serve(session: PlacementSession, placements) -> bool:
+    """Serve the session's graphs through the warm service (twice: cold,
+    then warm) and the async server; → every placement the session's."""
+    graphs = list(session.graphs)
+    service = PlacementService(session)
+    served = service.place_many(graphs) + service.place_many(graphs)
+    with AsyncPlacementServer(batch_slots=4, max_delay_ms=5.0) as server:
+        server.register(session)
+        served += server.place_many(graphs, timeout=600)
+        stats = server.stats()
+    print(f"\nservice stats: {service.stats()}")
+    print(f"server stats:  {stats}")
+    same = all(np.array_equal(p, want)
+               for p, want in zip(served, placements * 3))
+    print(f"served placements equal the session's: {same}")
+    return same
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mode", default="search",
@@ -82,6 +105,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--checkpoint", default="",
                     help="save the session here and load it back")
+    ap.add_argument("--serve", action="store_true",
+                    help="after fit, serve the graphs through the service "
+                         "and the async server")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
@@ -110,6 +136,8 @@ def main(argv=None) -> int:
               f"{same}")
         if not same:
             return 1
+    if args.serve and not serve(session, placements):
+        return 1
     if spec.mode == "search":
         cfg = get("phi3-mini-3.8b").config
         plan = plan_stages(cfg, seq_len=4096, batch=256, num_stages=2,

@@ -5,6 +5,7 @@ The JAX package ``repro`` is the reference; this package mirrors its module
 paths (``repro_torch/core/gpn.py`` ports ``repro/core/gpn.py``) and imports
 nothing of it.  Entry points run on the card unless the caller passes
 ``device="cpu"``.  The v1 API (``PlacementSpec``, ``PlacementSession``,
+``PlacementService``, ``AsyncPlacementServer``, ``AotExecutableCache``,
 the platform registry) loads on first use, from ``repro_torch.api``.
 """
 from .core import (HSDAG, CompGraph, CurriculumTrainer, FeatureConfig,
@@ -13,7 +14,9 @@ from .core import (HSDAG, CompGraph, CurriculumTrainer, FeatureConfig,
 from .graphs import PAPER_BENCHMARKS, build_corpus
 
 #: names loaded from ``repro_torch.api`` on first use
-_API = ("PlacementSpec", "PlacementSession", "SPEC_VERSION", "MODES",
+_API = ("PlacementSpec", "PlacementSession", "PlacementService",
+        "AsyncPlacementServer", "AotExecutableCache", "PlacementRequestError",
+        "SPEC_VERSION", "MODES",
         "register_platform", "platform_names", "build_platform",
         "parse_platform_spec")
 

@@ -1,10 +1,12 @@
 """repro_torch.api — the v1 public API, PyTorch port.
 
-One declarative document (:class:`PlacementSpec`) and one session object
-(:class:`PlacementSession`) in front of the engine/workload/trainer
-registries::
+One declarative document (:class:`PlacementSpec`), one session object
+(:class:`PlacementSession`) and one warm server (:class:`PlacementService`,
+with :class:`AsyncPlacementServer` batching requests that arrive one at a
+time) in front of the engine/workload/trainer registries::
 
-    from repro_torch.api import PlacementSpec, PlacementSession
+    from repro_torch.api import (PlacementService, PlacementSession,
+                                 PlacementSpec)
     from repro_torch.core import HSDAGConfig
 
     spec = PlacementSpec(
@@ -14,17 +16,25 @@ registries::
     session.fit()                        # dispatches to the right trainer
     session.save("ckpt/policy")          # params + features + spec + hash
 
+    service = PlacementService("ckpt/policy")   # device="cpu" here
+    placement = service.place(new_graph)  # warm: cached device inputs
+
 The spec document and its hash are the reference's (``repro/api``), and
-either package's session loads the other's checkpoints.  The warm service,
-its server and the exported executables (``service.py``, ``server.py``,
-``aot.py``) are not ported yet (ROADMAP.md 'Modules to port' item 8).
+either package's session loads the other's checkpoints.  The service's
+persistent AOT cache stores what a fresh process checks and loads before
+a bucket's decode, not a compiled executable (``aot.py``).
 """
+from .aot import AotExecutableCache
+from .server import AsyncPlacementServer
+from .service import PlacementRequestError, PlacementService
 from .session import PlacementSession
 from .spec import (MODES, SPEC_VERSION, PlacementSpec, build_platform,
                    parse_platform_spec, platform_names, register_platform)
 
 __all__ = [
-    "PlacementSpec", "PlacementSession", "SPEC_VERSION", "MODES",
+    "PlacementSpec", "PlacementSession", "PlacementService",
+    "AsyncPlacementServer", "AotExecutableCache", "PlacementRequestError",
+    "SPEC_VERSION", "MODES",
     "register_platform", "platform_names", "build_platform",
     "parse_platform_spec",
 ]

@@ -119,11 +119,17 @@ def build_all() -> Dict[str, float]:
     return seconds
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``name`` (built on first use)."""
+def library(name: str, *, build: bool = True) -> ctypes.CDLL:
+    """The loaded kernel library ``name``: built on first use, or with
+    ``build=False`` loaded only if already built (else FileNotFoundError)."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            build_all()
-            lib = _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
+            path = _lib_path(name)
+            if build:
+                build_all()
+            elif not path.exists():
+                raise FileNotFoundError(f"kernel library {name!r} is not "
+                                        f"built: no {path}")
+            lib = _LIBS[name] = ctypes.CDLL(str(path))
         return lib
