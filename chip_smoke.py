@@ -75,6 +75,15 @@ user entry points:
    (``benchmarks/table9_serving.py``'s cold, warm and batched rows) and
    Table 11 (``benchmarks/table11_server.py``'s two-tenant replay, cold on
    an empty AOT directory within the recompile bound, warm with none);
+   then the sharded corpus trainer (``[sharded]``: a child process on an
+   NCCL group of one rank trains Table 8's full corpus at hidden 128 for 3
+   episodes unsharded and at ``mesh_shape=(1, 1)`` under deterministic
+   algorithms, bit for bit, with equal kernel launches; then at 1×1 with
+   the episodic population, the host's replay weights against
+   ``update="fused"``, within 1e-5; the sharded PBT round bit for bit) and
+   Table 10 (``[table10]``: ``tools/port_table10.py``'s throughput row on
+   the card at mesh 1×1 on the child's NCCL group, and its memory rows at
+   24 graphs);
 2. LM serving: ``repro_torch.launch.serve`` at full width in bf16 with
    random weights, h2o-danube-1.8b (batch 4, prompt 4608 > its 4096 window,
    32 steps: ``rmsnorm``, ``flash_attention``) and mamba2-130m (batch 4,
@@ -232,6 +241,18 @@ T11_REQUESTS = 100
 SERVE_STREAM = ("synthetic:family=layered:count=3:size=12:seed=7;"
                 "synthetic:family=layered:count=3:size=28:seed=8;"
                 "synthetic:family=series_parallel:count=3:size=44:seed=9")
+# the sharded corpus trainer (core/sim/sharded.py) at Table 8's width, 3
+# episodes, trained at mesh_shape=(1, 1) under an NCCL group of one rank and
+# unsharded, then at 1×1 with the episodic population under either replay
+# weights, in a child process under deterministic algorithms
+SHARDED_CONFIG = dict(CORPUS_CONFIG, hidden_channel=128, max_episodes=3)
+# Table 10 (tools/port_table10.py): the card's throughput row at mesh 1×1
+# (measured episodes after a warm-up run, in [sharded]'s child) and the
+# memory rows at 24 graphs (the
+# 240-graph rows take about a minute of tracemalloc on the host: the tool
+# runs them)
+TABLE10_EPISODES = 2
+TABLE10_COUNTS = (24,)
 
 
 class CheckFailed(Exception):
@@ -2615,6 +2636,241 @@ def table11_phase(torch):
     print(f"[phase] table11: {time.perf_counter() - t_phase:.2f} s")
 
 
+def sharded_child() -> int:
+    """The ``[sharded]`` phase's child (``chip_smoke.py --sharded``): one
+    NCCL rank on card 0 trains Table 8's corpus at ``SHARDED_CONFIG``
+    unsharded, then with ``mesh_shape=(1, 1)``, each with the kernels'
+    counts zeroed before and read after; the two runs must agree bit for bit
+    (params, bests, greedy placements and latencies) and launch the kernels
+    as often, and every best and greedy latency must be the host
+    scheduler's.  Then two 1×1 runs with the episodic population, one with
+    the host's float64 replay weights and one with ``update="fused"`` (the
+    sharded engine's float32 weights, its PBT round and population
+    gather), must agree to 1e-5 on params and launch as often.  Last, Table
+    10's card row (``tools/port_table10.py``) at mesh 1×1 on this group.
+    Deterministic algorithms are on, as warnings: an op without a
+    deterministic CUDA version is named, and the params are then held to
+    1e-5 instead."""
+    import tempfile
+    import warnings
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, SRC)
+    from repro_torch import CurriculumTrainer, HSDAGConfig, paper_platform
+    from repro_torch.core.sim import ShardedRolloutEngine
+    from repro_torch.core.train import PopulationConfig
+    from repro_torch.graphs import build_corpus
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.cuda.set_device(0)
+    plat = paper_platform()
+    corpus = build_corpus(CORPUS_FULL_SPEC)
+    cfg = HSDAGConfig(**SHARDED_CONFIG)
+    pop = PopulationConfig(cull_every=1)
+    # (label, mesh, update, population)
+    plan = [("None", None, "auto", None), ("(1, 1)", (1, 1), "auto", None),
+            ("(1, 1) pop host", (1, 1), "host", pop),
+            ("(1, 1) pop fused", (1, 1), "fused", pop)]
+    runs = {}
+    real_weights = ShardedRolloutEngine.window_weights
+    fused_calls = [0]
+
+    def weights(self, *a, **k):
+        fused_calls[0] += 1
+        return real_weights(self, *a, **k)
+
+    ShardedRolloutEngine.window_weights = weights
+    with tempfile.TemporaryDirectory() as d, \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(d, "store"), 1),
+            rank=0, world_size=1)
+        print(f"[sharded] NCCL group of {dist.get_world_size()} rank on "
+              f"{torch.cuda.get_device_name(0)} in "
+              f"{time.perf_counter() - t0:.2f} s")
+        try:
+            for label, mesh, update, population in plan:
+                trainer = CurriculumTrainer(cfg, mesh_shape=mesh,
+                                            update=update,
+                                            population=population,
+                                            **CORPUS_TRAINER)
+                fused_calls[0] = 0
+                t0 = time.perf_counter()
+                res, n = counted(torch, lambda: trainer.train_corpus(
+                    corpus, platform=plat, rng=0))
+                wall = time.perf_counter() - t0
+                runs[label] = (trainer, res, n, fused_calls[0])
+                walls = [round(h["wall_s"], 4) for h in res.history]
+                print(f"[sharded] mesh {label}: train_corpus {wall:.3f} s, "
+                      f"episode walls {walls} s, launches {n}, in-mesh "
+                      f"weights {fused_calls[0]}, mesh "
+                      f"{type(trainer.mesh).__name__}")
+            ShardedRolloutEngine.window_weights = real_weights
+            sharded_pbt_check(torch, corpus[:2], cfg, "cuda")
+            torch.use_deterministic_algorithms(False)
+            t10 = table10_tool()
+            pps, rss_mb, wall = t10.throughput(1, 1, TABLE10_EPISODES,
+                                               "cuda")
+            check(np.isfinite(pps) and pps > 0,
+                  f"[table10] throughput {pps} is not a positive rate")
+            print(f"[table10] "
+                  f"{t10.throughput_line('cuda', 1, pps, pps, rss_mb)}; "
+                  f"measured wall {wall:.3f} s on an NCCL group of 1 rank")
+        finally:
+            ShardedRolloutEngine.window_weights = real_weights
+            dist.destroy_process_group()
+    nondet = sorted({str(w.message).split(" does not have")[0]
+                     for w in caught if "deterministic" in str(w.message)})
+
+    def max_diff(a, b):
+        with torch.no_grad():
+            return max(float((x - y).abs().max()) for x, y in zip(
+                a.params.parameters(), b.params.parameters()))
+
+    (ts, rs, ns, ws), (_, ru, nu, wu) = runs["(1, 1)"], runs["None"]
+    check(type(ts.mesh).__name__ == "DeviceMesh",
+          "[sharded] the 1x1 run did not build a DeviceMesh")
+    diff = max_diff(rs, ru)
+    bitwise = (diff == 0.0
+               and np.array_equal(rs.best_latencies, ru.best_latencies)
+               and np.array_equal(rs.greedy_latencies, ru.greedy_latencies)
+               and all(np.array_equal(a, b) for a, b in zip(
+                   rs.greedy_placements, ru.greedy_placements)))
+    print(f"[sharded] mesh (1, 1) against None: max |dparam| {diff!r}, "
+          f"bit for bit {bitwise}; ops without a deterministic CUDA "
+          f"version: {nondet or 'none'}")
+    if nondet:
+        check(diff <= TOL, f"[sharded] params differ by {diff} > {TOL}")
+    else:
+        check(bitwise, "[sharded] mesh (1, 1) did not train bit for bit "
+                       "like the unsharded run")
+    check(ns == nu, f"[sharded] launches {ns} differ from the unsharded "
+                    f"run's {nu}")
+    check(ns["level_makespan"] > 0 and ns["gcn_aggregate"] > 0,
+          f"[sharded] the kernels were not launched: {ns}")
+    check(ws == wu == 0, f"[sharded] update='auto' ran the in-mesh weights "
+                         f"({ws}, {wu} calls)")
+    for i, g in enumerate(corpus):
+        corpus_latencies_are_host(g, rs, i, plat, "[sharded]")
+    print(f"[sharded] every best and greedy latency of the 1x1 run equals "
+          f"the host scheduler's to {TOL}")
+    (_, rh, nh, wh), (_, rf, nf, wf) = (runs["(1, 1) pop host"],
+                                        runs["(1, 1) pop fused"])
+    diff = max_diff(rf, rh)
+    print(f"[sharded] population, update='fused' against the host weights: "
+          f"max |dparam| {diff!r}, in-mesh weights {wf} calls")
+    check(wf == SHARDED_CONFIG["max_episodes"] and wh == 0,
+          f"[sharded] the in-mesh weights ran {wf} times with "
+          f"update='fused' and {wh} with update='host'")
+    check(diff <= TOL, f"[sharded] update='fused' params differ from the "
+                       f"host weights' by {diff} > {TOL}")
+    check(nf == nh, f"[sharded] update='fused' launches {nf} differ from "
+                    f"the host weights' {nh}")
+    check(all(h["culled"] for h in rf.history),
+          "[sharded] the population did not cull every episode")
+    for i, g in enumerate(corpus):
+        corpus_latencies_are_host(g, rf, i, plat, "[sharded]")
+    return 0
+
+
+def sharded_pbt_check(torch, graphs, cfg, device):
+    """The sharded engine's PBT round, which the corpus trainer's episodic
+    population does not run: ``pbt_step`` (both restarts) and
+    ``update_population`` on the 1×1 NCCL mesh against
+    ``MultiRolloutEngine``'s, bit for bit, at ``cfg``'s width over
+    ``graphs``, on the process group's ``device``."""
+    from repro_torch._device import seeded_generator
+    from repro_torch.core import HSDAG, extract_features
+    from repro_torch.core.features import shared_feature_config
+    from repro_torch.core.sim import (MultiRolloutEngine,
+                                      ShardedRolloutEngine,
+                                      make_rollout_mesh)
+    from repro_torch.core.train import PopulationConfig
+    from repro_torch.core.train.loop import make_chain_streams
+    fc = shared_feature_config(graphs)
+    arrays = [extract_features(g, fc) for g in graphs]
+    agent = HSDAG(cfg, device=device)
+    agent.init(arrays[0])
+    engines = [agent.rollout_engine(a) for a in arrays]
+    pop_cfg = PopulationConfig(cull_every=1)
+    full = MultiRolloutEngine(engines, population=pop_cfg)
+    eng = ShardedRolloutEngine(engines, num_nodes=full.num_nodes,
+                               mesh=make_rollout_mesh(1, 1, device),
+                               population=pop_cfg)
+    B, dev = cfg.batch_chains, engines[0].x0.device
+    pop = full.init_population(seeded_generator([1], dev), num_chains=B)
+    zs, _, fines, _ = full.rollout_window(
+        full.initial_state(B), num_steps=cfg.update_timestep,
+        start_first=True, streams=make_chain_streams(3, len(graphs), B, dev))
+    lat = np.random.default_rng(0).uniform(
+        1, 2, (cfg.update_timestep, len(graphs), B))
+    pop = full.update_population(pop, full.pad(fines), lat)
+    same = torch.equal(eng.update_population(
+        pop, full.pad(fines), lat).best_fine,
+        full.update_population(pop, full.pad(fines), lat).best_fine)
+    for greedy in (False, True):
+        want_pop, want_zs = full.pbt_step(
+            pop._replace(rng=seeded_generator([9], dev)), zs,
+            use_greedy=greedy)
+        got_pop, got_zs = eng.pbt_step(
+            pop._replace(rng=seeded_generator([9], dev)), zs,
+            use_greedy=greedy)
+        same = same and all(torch.equal(getattr(got_pop, k),
+                                        getattr(want_pop, k))
+                            for k in ("temperature", "best_latency",
+                                      "best_fine")) \
+            and all(torch.equal(a, b) for a, b in zip(got_zs, want_zs))
+    print(f"[sharded] pbt_step and update_population on the NCCL mesh "
+          f"against MultiRolloutEngine's: bit for bit {same}")
+    check(same, "[sharded] the sharded PBT round differs from "
+                "MultiRolloutEngine's")
+
+
+def sharded_phase():
+    """``[sharded]``: :func:`sharded_child` in a child process, with
+    ``CUBLAS_WORKSPACE_CONFIG`` set before any CUDA work; its failure fails
+    the script."""
+    t_phase = time.perf_counter()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--sharded"], env=env, capture_output=True,
+                         text=True, timeout=600)
+    for line in out.stdout.splitlines():
+        print(line)
+    check(out.returncode == 0, f"[sharded] the child exited "
+                               f"{out.returncode}:\n{out.stderr[-3000:]}")
+    print(f"[phase] sharded: {time.perf_counter() - t_phase:.2f} s")
+
+
+def table10_tool():
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import port_table10
+    return port_table10
+
+
+def table10_phase(memory):
+    """``[table10]``: ``tools/port_table10.py``'s memory rows at
+    ``TABLE10_COUNTS`` graphs, whose host-only processes ``memory`` started
+    before ``[sharded]``; streaming must hold less heap than the eager
+    corpus.  (The card's throughput row runs in ``[sharded]``'s child, on
+    its NCCL group.)"""
+    t_phase = time.perf_counter()
+    rows = table10_tool().collect_memory(memory)
+    for (c, stream), (kb, _) in sorted(rows.items()):
+        # the children's peak RSS holds this process's: the tool measures it
+        print(f"[table10] {'stream' if stream else 'eager'} corpus of {c} "
+              f"graphs: peak heap {kb!r} KB")
+    for c in TABLE10_COUNTS:
+        check(rows[(c, True)][0] < rows[(c, False)][0],
+              f"[table10] the stream corpus of {c} graphs held no less "
+              f"heap than the eager one")
+    print(f"[phase] table10: {time.perf_counter() - t_phase:.2f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2722,6 +2978,19 @@ def main() -> int:
     service_phase(torch, plat)
     table9_phase(torch)
     table11_phase(torch)
+    # ---- the sharded corpus trainer and Table 10 (its memory rows are
+    # host-only processes, run beside [sharded]'s child) ----
+    t_phase = time.perf_counter()
+    memory = table10_tool().start_memory(TABLE10_COUNTS)
+    try:
+        sharded_phase()
+        table10_phase(memory)
+    finally:
+        for proc in memory.values():
+            if proc.poll() is None:
+                proc.kill()
+    print(f"[phase] sharded + table10: {time.perf_counter() - t_phase:.2f} "
+          f"s")
 
     # ---- the LM kernels against their plain versions ----
     t_phase = time.perf_counter()
@@ -2839,7 +3108,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(sharded_child() if sys.argv[1:] == ["--sharded"]
+                 else main())
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         sys.exit(1)

@@ -14,6 +14,8 @@ whose three modes map onto the three trainers::
         --checkpoint /tmp/policy          # anywhere, with save/load
     python examples/port_placement_search.py --device cpu --episodes 2 \\
         --serve                           # then serve the graphs
+    torchrun --nproc-per-node=4 examples/port_placement_search.py \\
+        --mode corpus --mesh 2,2          # a 2x2 mesh: one rank a card
 
 Each run prints its spec's hash, fits, evaluates every graph of the
 workload with the greedy decode, and with ``--checkpoint`` saves the session
@@ -26,12 +28,19 @@ the fitted session's graphs are then served twice (cold, then warm) through
 a :class:`repro_torch.api.PlacementService` and once through an
 :class:`repro_torch.api.AsyncPlacementServer`, each checked against the
 session's own placements, and both ``stats()`` are printed.
+
+``--mesh G,B`` (corpus mode) tiles each episode's chain grid over a
+("graphs", "chains") mesh of G·B ranks: launch it with ``torchrun
+--nproc-per-node=G*B`` (NCCL, one card a rank; ``--device cpu``: gloo),
+which the script joins before fitting; only rank 0 prints and writes.
+``--mesh 1,1`` runs without torchrun, bit for bit the unsharded run.
 """
 import argparse
 import os
 import sys
 
 import numpy as np
+import torch.distributed as dist
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "src"))
@@ -65,6 +74,7 @@ def build_spec(args) -> PlacementSpec:
         workload=args.workload or DEFAULT_WORKLOADS[args.mode],
         mode=args.mode, platform=name, platform_args=pargs,
         head=args.head or None,
+        mesh=[int(x) for x in args.mesh.split(",")] if args.mesh else None,
         config=HSDAGConfig(num_devices=num_devices,
                            max_episodes=args.episodes, update_timestep=10,
                            batch_chains=args.chains, engine=args.engine,
@@ -109,8 +119,25 @@ def main(argv=None) -> int:
                     help="after fit, serve the graphs through the service "
                          "and the async server")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--mesh", default="",
+                    help="corpus mode: G,B, the ('graphs', 'chains') mesh "
+                         "(run under torchrun --nproc-per-node=G*B)")
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
+    if args.mesh and args.mode != "corpus":
+        ap.error("--mesh tiles the corpus trainer: pass --mode corpus")
+    if "WORLD_SIZE" in os.environ:       # launched by torchrun
+        dist.init_process_group("nccl" if args.device == "cuda" else "gloo")
+        if dist.get_rank():
+            sys.stdout = open(os.devnull, "w")
+    try:
+        return run(args)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run(args) -> int:
 
     spec = build_spec(args)
     print(f"spec_hash {spec.spec_hash()} mode={spec.mode} "

@@ -245,6 +245,11 @@ class PlacementSession:
         }
         if self.graphs:
             meta["corpus_fingerprint"] = corpus_fingerprint(self.graphs)
+        if isinstance(self.trainer, CurriculumTrainer):
+            # the same files; on a mesh of several ranks rank 0 writes them
+            # and the others wait
+            self.trainer.save_policy(directory, step, meta)
+            return
         save_policy(directory, self.trainer.policy, step=step,
                     feature_config=self.feature_config, meta=meta)
 

@@ -60,7 +60,7 @@ from ...kernels.gcn_spmm import GCNGraph
 from ..train import population as popmod
 
 __all__ = ["ChainStreams", "WindowNoise", "WindowRecord", "RolloutEngine",
-           "MultiRolloutEngine"]
+           "MultiRolloutEngine", "pad_placements"]
 
 
 class WindowNoise(NamedTuple):
@@ -135,6 +135,16 @@ class ChainStreams:
         parse_keep = (self.draw_parse_keep(num_edges, cfg.dropout_parsing)
                       if cfg.dropout_parsing > 0 else None)
         return keep, gumbel, parse_keep
+
+
+def pad_placements(fines: Sequence[torch.Tensor],
+                   width: int) -> torch.Tensor:
+    """G × (T, B, V_g) placements → (T, G, B, width), zero at pads."""
+    T, B = fines[0].shape[:2]
+    out = fines[0].new_zeros(T, len(fines), B, width)
+    for g, f in enumerate(fines):
+        out[:, g, :, :f.shape[2]] = f
+    return out
 
 
 def policy_grads(policy, loss: torch.Tensor) -> List[torch.Tensor]:
@@ -323,12 +333,8 @@ class MultiRolloutEngine:
         """G × (T, B, V_g) placements → (T, G, B, width), zero at pads;
         ``width`` defaults to the largest graph (the corpus trainer pads to
         its bucket's, as the reference's population record is)."""
-        T, B = fines[0].shape[:2]
-        width = max(self.num_nodes) if width is None else int(width)
-        out = fines[0].new_zeros(T, len(fines), B, width)
-        for g, f in enumerate(fines):
-            out[:, g, :, :f.shape[2]] = f
-        return out
+        return pad_placements(
+            fines, max(self.num_nodes) if width is None else int(width))
 
     def window_grads(self, zs: Sequence[torch.Tensor],
                      records: Sequence[WindowRecord], weights: torch.Tensor,
@@ -337,13 +343,23 @@ class MultiRolloutEngine:
         """∇θ of the Eq.-14 loss over every graph's recorded window,
         averaged over the G·B chains (the reference's ``total / (G·B)``);
         ``weights`` (T, G, B).  One backward pass over the G replays."""
+        total = self.window_loss(zs, records, weights,
+                                 start_first=start_first, rederive=rederive)
+        return policy_grads(self.policy,
+                            total / (self.num_graphs * zs[0].shape[0]))
+
+    def window_loss(self, zs: Sequence[torch.Tensor],
+                    records: Sequence[WindowRecord], weights: torch.Tensor,
+                    *, start_first: bool,
+                    rederive: bool = False) -> torch.Tensor:
+        """The Eq.-14 loss of every graph's recorded window, summed over
+        graphs, steps and chains (see :meth:`window_grads`)."""
         total = None
         for g, e in enumerate(self.engines):
             loss = e.window_loss(zs[g], records[g], weights[:, g],
                                  start_first=start_first, rederive=rederive)
             total = loss if total is None else total + loss
-        return policy_grads(self.policy,
-                            total / (self.num_graphs * zs[0].shape[0]))
+        return total
 
     def greedy_decode(self) -> List[torch.Tensor]:
         """One greedy decode of every graph with the shared policy (no
@@ -354,14 +370,17 @@ class MultiRolloutEngine:
 
     # ------------------------------------------------------- population API
     def init_population(self, generator: torch.Generator, *,
-                        num_chains: int,
-                        temperatures=None) -> popmod.ChainState:
-        """Fresh (G, B) population state (best placements padded to the
-        largest graph); its draws come from ``generator``."""
+                        num_chains: int, temperatures=None,
+                        num_nodes: Optional[int] = None
+                        ) -> popmod.ChainState:
+        """Fresh (G, B) population state, best placements padded to
+        ``num_nodes`` (default: the largest graph); its draws come from
+        ``generator``."""
         return popmod.init_chain_state(
             self._population_cfg(), generator, num_graphs=self.num_graphs,
-            num_chains=num_chains, num_nodes=max(self.num_nodes),
-            temperatures=temperatures)
+            num_chains=num_chains,
+            num_nodes=max(self.num_nodes) if num_nodes is None
+            else num_nodes, temperatures=temperatures)
 
     def update_population(self, pop: popmod.ChainState, fines: torch.Tensor,
                           latencies) -> popmod.ChainState:

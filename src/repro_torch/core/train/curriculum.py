@@ -44,8 +44,20 @@ bit for bit on the CPU.
 Checkpoints carry the corpus fingerprint, the sampler's RNG and plateau
 state, the best tracker, the optimizer state, the episodic population and
 the EMA baseline in the reference's format, so a corpus checkpoint of
-either package resumes in the other.  The reference's sharded engine
-(``mesh_shape``) waits with ROADMAP.md 'Modules to port' item 9.
+either package resumes in the other.
+
+``mesh_shape=(gm, bm)`` tiles each episode's (G, B) chain grid over a
+("graphs", "chains") mesh of gm·bm ranks
+(:class:`~repro_torch.core.sim.sharded.ShardedRolloutEngine`).  Every rank
+runs the same ``train_corpus`` (``torchrun --nproc-per-node=gm·bm``, each
+rank calling ``torch.distributed.init_process_group`` first): the host side
+takes the same decisions on every rank, each rank rolls out, scores and
+replays its tile and draws its chains from their global (slot, chain)
+streams, and the gathered window keeps the tracker, sampler and population
+equal on every rank.  Only rank 0 writes checkpoints and ``save_policy``;
+the others wait at a barrier, and every rank restores.  Without a process
+group only the 1×1 mesh exists, and it trains bit for bit like
+``mesh_shape=None``.
 """
 from __future__ import annotations
 
@@ -57,6 +69,7 @@ from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..._device import seeded_generator
 from ...kernels.gcn_spmm import GCNGraph, gcn_graph
@@ -69,6 +82,8 @@ from ..reinforce import RunningBaseline
 from ..sim import get_backend
 from ..sim.pipeline import RewardPipeline
 from ..sim.rollout import ChainStreams, MultiRolloutEngine
+from ..sim.sharded import (LocalMesh, ShardedRolloutEngine,
+                           make_rollout_mesh, rollout_tile)
 from . import population as popmod
 from .loop import BestTracker, EpisodePrefetcher, EpisodeRunner, WindowStream
 from .sampler import CurriculumSampler
@@ -169,9 +184,14 @@ class CurriculumTrainer(MultiGraphTrainer):
         ft.train_corpus([held_out_graph], platform=paper_platform())
 
     ``update`` accepts the reference's ``"auto"``, ``"host"`` and
-    ``"fused"`` with its validations; without a mesh the reference's
-    engine has no in-mesh weights kernel and takes the host's float64
-    weights for all three, and so does the port.
+    ``"fused"`` with its validations.  ``"auto"`` takes the host's float64
+    replay weights on every mesh: each rank already holds the window's
+    gathered rewards on the host, so they cost no collective.  (The
+    reference's ``"auto"`` takes its in-mesh float32 weights once the mesh
+    is split, since there its rewards stay sharded on the device.)
+    ``"fused"`` takes the sharded engine's in-mesh float32 weights; without
+    a mesh the engine has none and every mode takes the host's, as in the
+    reference.
     """
 
     def __init__(self, cfg: HSDAGConfig = HSDAGConfig(), *,
@@ -200,10 +220,6 @@ class CurriculumTrainer(MultiGraphTrainer):
             if min(mesh_shape) < 1:
                 raise ValueError(f"mesh_shape must be positive, got "
                                  f"{mesh_shape}")
-            raise NotImplementedError(
-                f"mesh_shape={mesh_shape}: the sharded rollout engine is not "
-                f"ported to repro_torch yet (ROADMAP.md 'Modules to port' "
-                f"item 9)")
         if int(stream_cache) < 1:
             raise ValueError("stream_cache must be >= 1")
         if population is not None:
@@ -218,6 +234,8 @@ class CurriculumTrainer(MultiGraphTrainer):
         self.sampler_strategy = sampler_strategy
         self.plateau_patience = int(plateau_patience)
         self.mesh_shape = mesh_shape
+        #: the rollout mesh, built by the first ``train_corpus``
+        self.mesh = None
         self.update = update
         self.stream_cache = int(stream_cache)
         self.population = population
@@ -243,6 +261,26 @@ class CurriculumTrainer(MultiGraphTrainer):
                 f"cannot anchor a warm start (the new graphs could not be "
                 f"featurized in the saved layout)")
         self._warm_start = (directory, step)
+
+    def save_policy(self, directory: str, step: int = 0,
+                    meta: Optional[Dict] = None) -> None:
+        """:meth:`MultiGraphTrainer.save_policy`; on a mesh of several
+        ranks rank 0 writes and the others wait for it."""
+        if self._writer():
+            super().save_policy(directory, step, meta)
+        self._barrier()
+
+    def _writer(self) -> bool:
+        """Whether this rank writes files (rank 0 of a mesh's group)."""
+        return not self._grouped() or dist.get_rank() == 0
+
+    def _grouped(self) -> bool:
+        return self.mesh is not None and not isinstance(self.mesh,
+                                                          LocalMesh)
+
+    def _barrier(self) -> None:
+        if self._grouped():
+            dist.barrier()
 
     # -------------------------------------------------------------- training
     def train_corpus(self, graphs: Sequence[CompGraph], *,
@@ -278,7 +316,8 @@ class CurriculumTrainer(MultiGraphTrainer):
         prefetcher = None
         if self.prefetch == "on" or (self.prefetch == "auto"
                                      and max_eps - start_ep > 1):
-            prefetcher = EpisodePrefetcher(lambda bi, ids: run.build(ids))
+            prefetcher = EpisodePrefetcher(
+                lambda bi, ids: run.build_tile(ids))
         history: List[dict] = []
         try:
             for episode in range(start_ep, max_eps):
@@ -287,7 +326,7 @@ class CurriculumTrainer(MultiGraphTrainer):
                     payload, wait_s = prefetcher.get((bi, tuple(ids)))
                 else:
                     t0 = time.perf_counter()
-                    payload = run.build(ids)
+                    payload = run.build_tile(ids)
                     wait_s = time.perf_counter() - t0
                 if prefetcher is not None and episode + 1 < max_eps:
                     nbi, nids = run.sampler.peek()
@@ -357,8 +396,22 @@ class CurriculumTrainer(MultiGraphTrainer):
                 f"cfg.num_devices={cfg.num_devices} exceeds the platform's "
                 f"{platform.num_devices} devices")
         self.bind_platform(platform)
-        backend = get_backend(reward_backend(cfg.engine), device=self.device)
         nchains = max(1, cfg.batch_chains)
+        g_sub = min(self.graphs_per_episode, len(meta))
+        if self.mesh_shape is not None:
+            gm, bm = self.mesh_shape
+            if g_sub % gm:
+                raise ValueError(
+                    f"graphs_per_episode={g_sub} does not tile the mesh "
+                    f"'graphs' axis ({gm}) — pick a multiple")
+            if nchains % bm:
+                raise ValueError(
+                    f"batch_chains={nchains} does not tile the mesh "
+                    f"'chains' axis ({bm}) — pick a multiple")
+            if self.mesh is None:
+                # before any tensor: on the card it picks this rank's device
+                self.mesh = make_rollout_mesh(gm, bm, self.device.type)
+        backend = get_backend(reward_backend(cfg.engine), device=self.device)
 
         # ---- feature layout: saved (warm start) or derived (fresh) ----
         if self._warm_start is not None:
@@ -396,7 +449,6 @@ class CurriculumTrainer(MultiGraphTrainer):
                              for i in members)),
             e_max=max(1, max(int(meta[i].num_edges) for i in members)))
             for members in buckets]
-        g_sub = min(self.graphs_per_episode, len(meta))
         sampler = CurriculumSampler(
             buckets, graphs_per_episode=g_sub,
             strategy=self.sampler_strategy, seed=cfg.seed,
@@ -411,7 +463,8 @@ class CurriculumTrainer(MultiGraphTrainer):
         baseline = (RunningBaseline()
                     if cfg.use_baseline and self.reward_norm != "pergraph"
                     else None)
-        if self.update == "fused":
+        weights_mode = "fused" if self.update == "fused" else "host"
+        if weights_mode == "fused":
             if baseline is not None:
                 raise ValueError(
                     "update='fused' is incompatible with the EMA baseline "
@@ -424,22 +477,30 @@ class CurriculumTrainer(MultiGraphTrainer):
                     f"{backend.name!r} is host-side")
         runner = EpisodeRunner(self, None, pipeline=None, tracker=tracker,
                                reward_norm=self.reward_norm,
-                               baseline=baseline, controller=controller)
+                               baseline=baseline, weights=weights_mode,
+                               controller=controller)
 
         host = _LRU(lambda i: _HostSlot(
             graphs[i], get_arrays(i),
             backend.prepare_host(graphs[i], platform)), self.stream_cache)
         slots = _LRU(None, self.stream_cache)
+        mesh = self.mesh if self.mesh_shape is not None else None
+
+        def build(ids):
+            """The host data of ``ids`` (unique, in slot order)."""
+            return {i: host(i) for i in dict.fromkeys(ids)}
+
         return SimpleNamespace(
             graphs=graphs, meta=meta, streaming=streaming, platform=platform,
             backend=backend, seed=seed, t_start=t_start, buckets=buckets,
             shapes=shapes, g_sub=g_sub, sampler=sampler,
             controller=controller, tracker=tracker, baseline=baseline,
             runner=runner, host=host, slots=slots,
-            fingerprint=corpus_fingerprint(graphs),
-            # the host data of ``ids`` (unique, in slot order): what the
+            fingerprint=corpus_fingerprint(graphs), mesh=mesh, build=build,
+            # an episode's host data, of this rank's slots: what the
             # prefetcher's worker builds
-            build=lambda ids: {i: host(i) for i in dict.fromkeys(ids)})
+            build_tile=lambda ids: build(
+                ids if mesh is None else ids[rollout_tile(mesh, len(ids))[0]]))
 
     def _slot(self, run, i: int, hs: _HostSlot) -> _Slot:
         """Graph ``i``'s device data, from the device cache or built from
@@ -459,31 +520,50 @@ class CurriculumTrainer(MultiGraphTrainer):
         return run.runner.run_episode(stream, noise=noise, engine=engine,
                                       pipeline=pipeline)
 
+    def _engine(self, run, ids: Sequence[int], payload: Dict[int, _HostSlot],
+                pipeline: bool = True):
+        """The rollout engine over the slots ``ids`` (on a mesh, of this
+        rank's tile of them) and, with ``pipeline``, its reward pipeline →
+        (engine, pipeline or None)."""
+        tile = ids if run.mesh is None else \
+            ids[rollout_tile(run.mesh, len(ids))[0]]
+        slots = [self._slot(run, i, payload[i]) for i in tile]
+        scorer = None if not pipeline else RewardPipeline(
+            backend=run.backend, preps=[s.prep for s in slots],
+            num_nodes=[s.num_nodes for s in slots])
+        engines = [self._engine_on(
+            s.x0, s.graph, None if scorer is None else scorer.graph(g))
+            for g, s in enumerate(slots)]
+        if run.mesh is None:
+            return MultiRolloutEngine(engines,
+                                      population=self.population), scorer
+        engine = ShardedRolloutEngine(
+            engines, num_nodes=[run.meta[i].num_nodes for i in ids],
+            mesh=run.mesh, population=self.population)
+        return engine, None if scorer is None else \
+            engine.tile_pipeline(scorer)
+
     def _episode_parts(self, run, episode: int, bi: int,
                        ids: Sequence[int], payload: Dict[int, _HostSlot]):
         """The engine, reward pipeline and fresh stream of one episode over
-        the slots ``ids`` → (engine, pipeline, stream)."""
+        the slots ``ids`` → (engine, pipeline, stream).  On a mesh the
+        engine, the streams and the population are this rank's tile; the
+        streams are those of the tile's global (slot, chain) ids."""
         nchains = max(1, self.cfg.batch_chains)
-        slots = [self._slot(run, i, payload[i]) for i in ids]
-        pipeline = RewardPipeline(backend=run.backend,
-                                  preps=[s.prep for s in slots],
-                                  num_nodes=[s.num_nodes for s in slots])
-        engine = MultiRolloutEngine(
-            [self._engine_on(s.x0, s.graph, pipeline.graph(g))
-             for g, s in enumerate(slots)], population=self.population)
+        engine, pipeline = self._engine(run, list(ids), payload)
         pop = None
         if run.controller is not None:
-            pop = popmod.init_chain_state(
-                self.population,
+            pop = engine.init_population(
                 seeded_generator([run.seed, popmod.POPULATION_STREAM,
                                   episode], self.device),
-                num_graphs=len(ids), num_chains=nchains,
-                num_nodes=run.shapes[bi].v_max,
+                num_chains=nchains, num_nodes=run.shapes[bi].v_max,
                 temperatures=run.controller.temps)
+        g_tile, b_tile = (slice(None), slice(None)) if run.mesh is None \
+            else rollout_tile(run.mesh, len(ids), nchains)
         streams = [ChainStreams.of([
             seeded_generator([run.seed, CORPUS_STREAM, episode, g, b],
-                             self.device) for b in range(nchains)])
-            for g in range(len(ids))]
+                             self.device) for b in range(nchains)[b_tile]])
+            for g in range(len(ids))[g_tile]]
         stream = WindowStream(z=engine.initial_state(nchains),
                               streams=streams, first=True, pop=pop,
                               graph_ids=list(ids))
@@ -503,12 +583,17 @@ class CurriculumTrainer(MultiGraphTrainer):
                 "(fingerprint mismatch) — resuming would mis-map "
                 "sampler state and per-graph bests")
         saved_mesh = man.get("mesh")
-        if (saved_mesh or [1, 1]) != [1, 1]:
+        cur_mesh = (list(self.mesh_shape) if self.mesh_shape is not None
+                    else None)
+        # mesh=1×1 and unsharded are bit-for-bit the same run, so either
+        # may resume the other; any real split changes the weights math
+        # and must match exactly.
+        if (saved_mesh or [1, 1]) != (cur_mesh or [1, 1]):
             raise ValueError(
                 f"checkpoint was written with mesh={saved_mesh} but this "
-                f"trainer uses mesh=None — a resumed run would not replay "
-                f"the same episode stream; recreate the trainer with the "
-                f"saved mesh_shape")
+                f"trainer uses mesh={cur_mesh} — a resumed run would not "
+                f"replay the same episode stream; recreate the trainer with "
+                f"the saved mesh_shape")
         names = [n for n, _ in self.policy.named_parameters()]
         state = mgr.restore(last, {"params": params_to_numpy(self.policy),
                                    "opt": self._opt.state_tree(names)})
@@ -542,7 +627,9 @@ class CurriculumTrainer(MultiGraphTrainer):
         """Greedy-decode every corpus graph, bucket by bucket in chunks of
         the episode width (on a streaming corpus each chunk materializes
         at most ``graphs_per_episode`` graphs); each latency is the host
-        scheduler's."""
+        scheduler's.  On a mesh a short chunk is padded with its first
+        graph to the episode width, so that it tiles the mesh, and each
+        rank decodes its tile's real slots."""
         N = len(run.meta)
         placements: List[Optional[np.ndarray]] = [None] * N
         latencies = np.empty(N)
@@ -550,10 +637,16 @@ class CurriculumTrainer(MultiGraphTrainer):
             for lo in range(0, len(members), run.g_sub):
                 chunk = members[lo:lo + run.g_sub]
                 payload = run.build(chunk)
-                slots = [self._slot(run, i, payload[i]) for i in chunk]
-                engine = MultiRolloutEngine(
-                    [self._engine_on(s.x0, s.graph) for s in slots])
-                for gid, fine in zip(chunk, engine.greedy_decode()):
+                if run.mesh is None:
+                    engine, _ = self._engine(run, chunk, payload,
+                                             pipeline=False)
+                    fines = engine.greedy_decode()
+                else:
+                    engine, _ = self._engine(
+                        run, chunk + [chunk[0]] * (run.g_sub - len(chunk)),
+                        payload, pipeline=False)
+                    fines = engine.greedy_decode(len(chunk))
+                for gid, fine in zip(chunk, fines):
                     p = fine.cpu().numpy().astype(np.int64)
                     placements[gid] = p
                     latencies[gid] = simulate(payload[gid].graph, p,
@@ -573,7 +666,8 @@ class CurriculumTrainer(MultiGraphTrainer):
                         "chain_best": t["chain_best"].tolist()},
             "engine": self.cfg.engine,
             "feature_config": _feature_config_to_meta(self.feature_config),
-            "mesh": None,
+            "mesh": (list(self.mesh_shape)
+                     if self.mesh_shape is not None else None),
             "stream": bool(run.streaming),
         }
         if run.baseline is not None:
@@ -582,6 +676,8 @@ class CurriculumTrainer(MultiGraphTrainer):
         if run.controller is not None:
             meta["population"] = run.controller.state_dict()
         names = [n for n, _ in self.policy.named_parameters()]
-        mgr.save(episode, {"params": params_to_numpy(self.policy),
-                           "opt": self._opt.state_tree(names)}, meta)
-        mgr.wait()
+        if self._writer():
+            mgr.save(episode, {"params": params_to_numpy(self.policy),
+                               "opt": self._opt.state_tree(names)}, meta)
+            mgr.wait()
+        self._barrier()

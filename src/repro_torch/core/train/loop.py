@@ -166,16 +166,30 @@ class EpisodeRunner:
     ``controller`` (a ``PopulationController``) runs the population's PBT
     rounds — in the engine (stream mode) or on its own temperature vector
     (episodic mode); it is needed when the stream carries a ``pop``.
+
+    ``weights="fused"`` computes the replay weights with the engine's
+    ``window_weights`` (float32, the per-graph standardization summed over
+    the mesh's "chains" axis) from the float32 rewards on the device,
+    instead of the host's float64 :func:`window_weights` (the corpus
+    trainer's ``update="fused"``).  It needs a fused
+    pipeline (the ``scan`` reward), an engine with ``window_weights`` and no
+    EMA baseline (its update is host-sequential); the runner falls back to
+    the host weights when any of these is missing, as the reference does.
     """
 
     def __init__(self, agent, engine, *, pipeline, tracker: BestTracker,
-                 reward_norm: str = "none", baseline=None, controller=None):
+                 reward_norm: str = "none", baseline=None,
+                 weights: str = "host", controller=None):
+        if weights not in ("host", "fused"):
+            raise ValueError(f"unknown weights mode {weights!r}; expected "
+                             f"'host' or 'fused'")
         self.agent = agent
         self.engine = engine
         self.pipeline = pipeline
         self.tracker = tracker
         self.reward_norm = reward_norm
         self.baseline = baseline
+        self.weights_mode = weights
         self.controller = controller
 
     def run_episode(self, stream: WindowStream, *,
@@ -206,10 +220,20 @@ class EpisodeRunner:
                             latencies, self.baseline, stream.graph_ids)
 
         # ---- shared-policy update over the (T, G, B) window ----
-        weights = torch.as_tensor(
-            window_weights(rewards, cfg, reward_norm=self.reward_norm,
-                           baseline=self.baseline),
-            device=stream.z[0].device)
+        device = stream.z[0].device
+        if (self.weights_mode == "fused" and pipeline.fused
+                and self.baseline is None
+                and hasattr(engine, "window_weights")):
+            # the backend scored in float32: the cast back is exact
+            weights = engine.window_weights(
+                torch.as_tensor(rewards, dtype=torch.float32, device=device),
+                gamma=cfg.gamma, reward_to_go=cfg.reward_to_go,
+                normalize=cfg.normalize_weights,
+                reward_norm=self.reward_norm)
+        else:
+            weights = torch.as_tensor(
+                window_weights(rewards, cfg, reward_norm=self.reward_norm,
+                               baseline=self.baseline), device=device)
         for epoch in range(max(1, cfg.k_epochs)):
             # Epochs ≥ 2 replay the window's draws under the updated
             # weights, as the reference replays its keys.
@@ -233,10 +257,13 @@ class EpisodeRunner:
                         pop_next, stream.z, use_greedy=use_greedy)
             else:
                 due = ctl.observe_episode(latencies)
+            # a sharded engine's state is its tile: report the grid's
+            view = (engine.gather_population(pop_next)
+                    if hasattr(engine, "gather_population") else pop_next)
             pop_stats = {
                 "culled": bool(due),
-                "pop_best_latency": float(pop_next.best_latency.min()),
-                "temp_mean": float(pop_next.temperature.mean()),
+                "pop_best_latency": float(view.best_latency.min()),
+                "temp_mean": float(view.temperature.mean()),
             }
             stream.pop = pop_next
 

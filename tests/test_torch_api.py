@@ -244,9 +244,16 @@ def test_fit_multi_and_corpus_are_the_trainers():
     np.testing.assert_array_equal(res.greedy_latencies,
                                   want.greedy_latencies)
     _same_policy(res.params, want.params)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        api.PlacementSession(dataclasses.replace(spec, mesh=[1, 1]),
-                             device="cpu").fit()
+    # a v1 spec's "mesh": [1, 1] trains on the sharded engine's 1×1 mesh,
+    # bit for bit the unsharded run
+    meshed = api.PlacementSession(dataclasses.replace(spec, mesh=[1, 1]),
+                                  device="cpu")
+    res = meshed.fit(rng=4)
+    assert meshed.trainer.mesh_shape == (1, 1)
+    np.testing.assert_array_equal(res.best_latencies, want.best_latencies)
+    np.testing.assert_array_equal(res.greedy_latencies,
+                                  want.greedy_latencies)
+    _same_policy(res.params, want.params)
 
 
 def test_fit_argument_checks():

@@ -508,7 +508,6 @@ def test_validations(tmp_path):
             (dict(update="bogus"), ValueError, "update mode"),
             (dict(prefetch="bogus"), ValueError, "prefetch mode"),
             (dict(mesh_shape=(0, 1)), ValueError, "positive"),
-            (dict(mesh_shape=(1, 1)), NotImplementedError, "item 9"),
             (dict(stream_cache=0), ValueError, "stream_cache"),
             (dict(population=3), TypeError, "PopulationConfig")):
         with pytest.raises(err, match=match):
@@ -516,7 +515,8 @@ def test_validations(tmp_path):
     for kw, match in (
             (dict(update="fused", cfg=_cfg(use_baseline=True),
                   reward_norm="none"), "EMA baseline"),
-            (dict(update="fused", cfg=_cfg(engine="level")), "host-side")):
+            (dict(update="fused", cfg=_cfg(engine="level")), "host-side"),
+            (dict(mesh_shape=(2, 1)), "does not tile the mesh 'graphs'")):
         with pytest.raises(ValueError, match=match):
             _trainer(**kw).train_corpus(graphs, platform=plat)
     for update in ("auto", "host", "fused"):
