@@ -90,7 +90,17 @@ user entry points:
    prompt 4096, 32 steps, SSD chunk 32: ``rmsnorm``, ``ssd_scan``) and
    phi3-mini-3.8b (batch 4, prompt 4064, 32 steps: ``flash_attention`` at
    head dim 96), then a float32 check that prefill + greedy decode agrees
-   with ``forward`` for each model.
+   with ``forward`` for each model;
+3. the other six archs' serves in bf16: olmoe-1b-7b at full width and
+   depth (batch 4, prompt 4064, 32 steps: capacity-routed MoE, 64 experts
+   top-8, ``flash_attention`` at head dim 128), printing the assignments
+   its prefill drops at capacity and its weights' bytes; musicgen-medium at
+   full depth (layernorm and GELU: no ``rmsnorm``); mixtral-8x22b,
+   command-r-plus-104b (the parallel block) and internvl2-76b at 2 layers of
+   full width; jamba-1.5-large-398b's 8-layer period (``ssd_scan`` and MoE)
+   at a cut width (``ARCH_SERVES`` says why each cut); then each one's
+   float32 decode consistency, MoE at a capacity with no drops, internvl2
+   with vision embeds.
 
 Each path's kernel launch counters (and per-route counters) are zeroed just
 before it and read just after it; every wall time is printed per phase, and
@@ -199,6 +209,27 @@ CAPACITY_FLEET = dict(HEAD_FLEET, mem_capacity=128e6, island_scale=0.04)
 # and steps fill its 4096-position context
 SERVES = (("h2o-danube-1.8b", 4, 4608, 32), ("mamba2-130m", 4, 4096, 32),
           ("phi3-mini-3.8b", 4, 4064, 32))
+# the other six archs' serves, (arch, batch, prompt, steps, cut): olmoe-1b-7b
+# (this slice's main path; prompt and steps fill its 4096-position context)
+# and musicgen-medium at full width and depth; the others cut, as a
+# dataclasses.replace of the registered config, to fit one card's 80 GB: at
+# full depth mixtral, command-r and internvl2 hold 282, 208 and 140 GB of
+# bf16 weights, so they run 2 layers at full width (mixtral's prompt past
+# its 4096 window, so the ring buffer wraps); one 8-layer period of jamba
+# at its own width holds ~90 GB, so it runs one period (its pattern,
+# experts, SSM and head dims) at a cut width, ~6 GB
+ARCH_SERVES = (
+    ("olmoe-1b-7b", 4, 4064, 32, {}),
+    ("musicgen-medium", 4, 2048, 32, {}),
+    ("mixtral-8x22b", 4, 4608, 32, {"n_layers": 2}),
+    ("command-r-plus-104b", 4, 4096, 32, {"n_layers": 2}),
+    ("internvl2-76b", 4, 4096, 32, {"n_layers": 2}),
+    ("jamba-1.5-large-398b", 4, 4096, 32,
+     {"n_layers": 8, "d_model": 2048, "n_heads": 16, "n_kv_heads": 2,
+      "d_ff": 6144}),
+)
+# flash_attention at olmoe-1b-7b's prefill: (B, H, KV, S, D), causal
+OLMOE_FLASH = (4, 16, 16, 4064, 128)
 # Table 2 (benchmarks/table2_placement.py through benchmarks/common.py): the
 # learned baselines' config, the HSDAG row's (one search-mode session a
 # graph, a host reward), the features every row takes, and the contract's
@@ -910,8 +941,9 @@ def flash_checks(torch):
     the small cases; both at phi3-mini's head dim 96 (its prefill, B=4,
     H=KV=32, S=4064, in bf16, at batch 1 in f32).  Then the bf16 kernel's
     time beside ``scaled_dot_product_attention`` on the same inputs at both
-    prefill shapes → (worst at head dims 64/80/128, danube's timing,
-    worst at head dim 96, phi3-mini's timing)."""
+    prefill shapes, and at olmoe-1b-7b's (B=4, H=KV=16, S=4064, D=128) →
+    (worst at head dims 64/80/128, danube's timing, worst at head dim 96,
+    phi3-mini's timing, worst at olmoe's shape, olmoe's timing)."""
     import torch.nn.functional as F
     from repro_torch.kernels import (flash_attention, flash_attention_ref,
                                      flash_pairs)
@@ -1032,7 +1064,9 @@ def flash_checks(torch):
           f"tensor-core kernel: the SIMT kernel {FLASH_SIMT_BF16_MS} ms "
           f"(PERF.md)")
     worst96, t96 = timing(4, 32, 32, 4064, 96, 0, worst[True])
-    return worst80, t, worst96, t96
+    # olmoe-1b-7b's prefill, at head dim 128
+    worst128, t128 = timing(*OLMOE_FLASH, 0, worst[False])
+    return worst80, t, worst96, t96, worst128, t128
 
 
 def ssd_scan_checks(torch):
@@ -1062,21 +1096,31 @@ def ssd_scan_checks(torch):
     return worst, t
 
 
-def serve_phase(torch, arch, batch, prompt, steps):
-    """Drive ``repro_torch.launch.serve`` at full width; → launches."""
+def serve_phase(torch, arch, batch, prompt, steps, cut=None):
+    """Drive ``repro_torch.launch.serve`` at full width (``serve.main``), or
+    on the registered config cut by ``cut`` (``serve.serve``); → (launches,
+    the ``ServeResult``)."""
+    import dataclasses
     from repro_torch.configs import get
     from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan
     from repro_torch.launch import serve
     kernels = (rmsnorm, flash_attention, ssd_scan)
     cfg = get(arch).config
+    if cut:
+        cfg = dataclasses.replace(cfg, **cut)
+        print(f"[serve] {arch} cut to fit one card: dataclasses.replace("
+              f"config, {', '.join(f'{k}={v}' for k, v in cut.items())})")
     for k in kernels:
         k.launches = 0
     for routes in (flash_attention.route_launches, rmsnorm.route_launches):
         for route in routes:
             routes[route] = 0
     t0 = time.perf_counter()
-    res = serve.main(["--arch", arch, "--batch", str(batch), "--prompt",
-                      str(prompt), "--steps", str(steps)])
+    if cut:
+        res = serve.serve(cfg, batch, prompt, steps)
+    else:
+        res = serve.main(["--arch", arch, "--batch", str(batch), "--prompt",
+                          str(prompt), "--steps", str(steps)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
@@ -1086,15 +1130,28 @@ def serve_phase(torch, arch, batch, prompt, steps):
           f"steps={steps}: prefill {res.prefill_ms:.3f} ms, decode "
           f"{res.decode_ms:.3f} ms for {steps - 1} steps "
           f"({res.decode_tok_s:.1f} tok/s), wall {wall:.3f} s (weights "
-          f"included); launches {launches}")
+          f"included; {res.weight_bytes} B of weights on the card); "
+          f"launches {launches}")
     check(tuple(res.tokens.shape) == (batch, steps)
           and int(res.tokens.min()) >= 0
           and int(res.tokens.max()) < cfg.vocab_size,
           f"{arch} serve returned invalid tokens")
-    mixers = {m for m, _ in cfg.block_pattern}
-    check(launches["rmsnorm"] > 0, f"{arch} serve launched no rmsnorm")
-    want_flash = cfg.n_layers if "attn" in mixers else 0
-    want_ssd = cfg.n_layers if "mamba" in mixers else 0
+    # per forward: each layer's norm1, norm2 (none for an FFN-less layer or
+    # the parallel block) and a mamba layer's gated norm, which is an RMS
+    # norm in every arch, then the final norm; prefill and steps - 1 decode
+    # steps each run one forward
+    rms = cfg.norm == "rmsnorm"
+    per_fwd = rms + cfg.pattern_repeats * sum(
+        rms * (1 + (f != "none" and not cfg.parallel_block)) + (m == "mamba")
+        for m, f in cfg.block_pattern)
+    want_rms = per_fwd * steps
+    check(launches["rmsnorm"] == want_rms,
+          f"{arch} serve launched rmsnorm {launches['rmsnorm']} times, not "
+          f"{want_rms}")
+    want_flash = cfg.pattern_repeats * sum(
+        m == "attn" for m, _ in cfg.block_pattern)
+    want_ssd = cfg.pattern_repeats * sum(
+        m == "mamba" for m, _ in cfg.block_pattern)
     check(launches["flash_attention"] == want_flash,
           f"{arch} serve launched flash_attention "
           f"{launches['flash_attention']} times, not {want_flash}")
@@ -1108,27 +1165,76 @@ def serve_phase(torch, arch, batch, prompt, steps):
     check(launches["ssd_scan"] == want_ssd,
           f"{arch} serve launched ssd_scan {launches['ssd_scan']} times, "
           f"not {want_ssd}")
-    return launches
+    return launches, res
 
 
-def decode_consistency(torch, arch, prompt, n, batch=2):
+class MoEDrops:
+    """While active, counts the (token, choice) assignments that every
+    ``moe_route`` call of at least ``min_tokens`` tokens (a prefill's, not a
+    decode step's) routes and drops at capacity; the counts stay on the
+    card until read."""
+
+    def __init__(self, min_tokens: int):
+        self.min_tokens = min_tokens
+        self.assignments, self.dropped, self.calls = 0, [], 0
+
+    def _route(self, router, x, cfg):
+        route = self._orig(router, x, cfg)
+        if x.shape[0] >= self.min_tokens:
+            self.calls += 1
+            self.assignments += route.slot.numel()
+            self.dropped.append((~route.kept()).sum())
+        return route
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self._orig = layers.moe_route
+        layers.moe_route = self._route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+        layers.moe_route = self._orig
+
+    def total(self) -> int:
+        return int(sum(int(d) for d in self.dropped))
+
+
+def decode_consistency(torch, arch, prompt, n, batch=2, cut=None):
     """Full-width float32: prefill(prompt) + n greedy decode steps against
-    forward over prompt + generated (tests/test_models.py:21)."""
+    forward over prompt + generated (tests/test_models.py:21), on the
+    registered config cut by ``cut``.  An MoE arch runs at capacity_factor
+    E/k, where every expert has a slot for every token of a group: prefill
+    routes B·prompt tokens a group and decode B, so with drops decode could
+    not match forward (the reference's hybrid test raises the capacity for
+    it, tests/test_models.py:63-75).  A VLM prefills and forwards with
+    random vision embeds."""
     import dataclasses
     from repro_torch.configs import get
     from repro_torch.models import (decode_step, forward, init_params,
                                     prefill)
-    cfg = dataclasses.replace(get(arch).config, dtype="float32")
+    change = dict(cut or {}, dtype="float32")
+    base = get(arch).config
+    if base.moe_experts:
+        change["capacity_factor"] = base.moe_experts / base.moe_top_k
+    cfg = dataclasses.replace(base, **change)
     t0 = time.perf_counter()
     with torch.inference_mode():
         params = init_params(cfg, seed=0, device="cuda")
         gen = torch.Generator().manual_seed(5)
         toks = torch.randint(0, cfg.vocab_size, (batch, prompt),
                              generator=gen, dtype=torch.int32).cuda()
-        logits, caches = prefill(params, cfg, toks, ssd_chunk=32,
-                                 max_len=prompt + n)
+        ve = None
+        if cfg.vision_tokens:
+            check(prompt > cfg.vision_tokens, f"{arch}: the prompt must be "
+                  f"longer than its {cfg.vision_tokens} vision tokens")
+            ve = torch.randn(batch, cfg.vision_tokens, cfg.d_model,
+                             generator=gen).cuda()
+        logits, caches = prefill(params, cfg, toks, vision_embeds=ve,
+                                 ssd_chunk=32, max_len=prompt + n)
         steps = [logits[:, -1]]
-        tok = torch.argmax(logits[:, -1:], -1).to(torch.int32)
+        del logits
+        tok = torch.argmax(steps[0][:, None], -1).to(torch.int32)
         gen_toks = [tok]
         for i in range(n - 1):
             logits, caches = decode_step(params, cfg, tok, caches, prompt + i)
@@ -1136,16 +1242,21 @@ def decode_consistency(torch, arch, prompt, n, batch=2):
             tok = torch.argmax(logits[:, -1:], -1).to(torch.int32)
             gen_toks.append(tok)
         seq = torch.cat([toks] + gen_toks[:-1], dim=1)
-        full = forward(params, cfg, seq, ssd_chunk=32)[:, prompt - 1:]
+        full = forward(params, cfg, seq, vision_embeds=ve,
+                       ssd_chunk=32)[:, prompt - 1:]
         got = torch.stack(steps, dim=1)
         torch.cuda.synchronize()
     err = rel_err(torch, got, full)
     same = bool(torch.equal(torch.cat(gen_toks, 1),
                             torch.argmax(full, -1).to(torch.int32)))
-    print(f"[consistency] {arch} float32 B={batch} prompt={prompt} + {n} "
-          f"decode steps vs forward: logits rel err {err:.3e} (tol "
-          f"{CONSISTENCY_TOL:g}), greedy tokens equal: {same} "
-          f"({time.perf_counter() - t0:.2f} s)")
+    what = [f"{k}={v}" for k, v in change.items() if k != "dtype"]
+    if ve is not None:
+        what.append(f"{cfg.vision_tokens} vision embeds")
+    print(f"[consistency] {arch} float32"
+          f"{' (' + ', '.join(what) + ')' if what else ''}"
+          f" B={batch} prompt={prompt} + {n} decode steps vs forward: "
+          f"logits rel err {err:.3e} (tol {CONSISTENCY_TOL:g}), greedy "
+          f"tokens equal: {same} ({time.perf_counter() - t0:.2f} s)")
     check(err <= CONSISTENCY_TOL and same,
           f"{arch} decode disagrees with forward")
     del params, caches
@@ -2995,7 +3106,8 @@ def main() -> int:
     # ---- the LM kernels against their plain versions ----
     t_phase = time.perf_counter()
     rms_err, rms_t, rms_shapes = rmsnorm_checks(torch)
-    flash_err, flash_t, flash96_err, flash96_t = flash_checks(torch)
+    (flash_err, flash_t, flash96_err, flash96_t, flash128_err,
+     flash128_t) = flash_checks(torch)
     ssd_err, ssd_t = ssd_scan_checks(torch)
     torch.cuda.empty_cache()
     print(f"[phase] LM kernel checks: {time.perf_counter() - t_phase:.2f} s")
@@ -3009,7 +3121,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     served = {}
     for arch, batch, prompt, steps in SERVES:
-        served[arch] = serve_phase(torch, arch, batch, prompt, steps)
+        served[arch], _ = serve_phase(torch, arch, batch, prompt, steps)
         torch.cuda.empty_cache()
         want = sum(n for a, *_, n in rms_shapes if a == arch)
         check(served[arch]["rmsnorm"] == want,
@@ -3037,6 +3149,45 @@ def main() -> int:
     torch.cuda.empty_cache()
     decode_consistency(torch, "phi3-mini-3.8b", 200, 8)
     print(f"[phase] decode consistency: {time.perf_counter() - t_phase:.2f} s")
+    torch.cuda.empty_cache()
+
+    # ---- the other six archs in bf16: olmoe-1b-7b (this slice's main
+    # path) and musicgen-medium at full depth, the others cut to one card;
+    # then each one's decode consistency in float32 ----
+    import dataclasses
+    from repro_torch.configs import get
+    t_phase = time.perf_counter()
+    # warm-up of the MoE path (cuBLAS's batched products) before the
+    # counted runs
+    serve.serve(dataclasses.replace(get("olmoe-1b-7b").config, n_layers=1),
+                1, 128, 2)
+    torch.cuda.empty_cache()
+    arch_served = {}
+    for arch, batch, prompt, steps, cut in ARCH_SERVES:
+        t_arch = time.perf_counter()
+        with MoEDrops(min_tokens=batch * prompt) as drops:
+            arch_served[arch], res = serve_phase(torch, arch, batch, prompt,
+                                                 steps, cut)
+        if drops.calls:
+            print(f"[serve] {arch} bf16 prefill at capacity_factor "
+                  f"{get(arch).config.capacity_factor}: {drops.total()} of "
+                  f"{drops.assignments} (token, choice) assignments dropped "
+                  f"over its {drops.calls} MoE layers; weights "
+                  f"{res.weight_bytes} B ({res.weight_bytes / 2**30:.3f} "
+                  f"GiB) on the card")
+        del res
+        torch.cuda.empty_cache()
+        print(f"[phase] serve {arch}: {time.perf_counter() - t_arch:.2f} s")
+    olmoe = arch_served["olmoe-1b-7b"]
+    print(f"[phase] six-arch serves: {time.perf_counter() - t_phase:.2f} s")
+    t_phase = time.perf_counter()
+    for arch, *_, cut in ARCH_SERVES:
+        # internvl2's prompt runs past its 256 vision tokens
+        decode_consistency(torch, arch, 300 if arch == "internvl2-76b"
+                           else 200, 8, cut=cut)
+        torch.cuda.empty_cache()
+    print(f"[phase] six-arch decode consistency: "
+          f"{time.perf_counter() - t_phase:.2f} s")
 
     kernels = [
         {"name": "level_makespan", "route": "cuda",
@@ -3071,7 +3222,8 @@ def main() -> int:
         {"name": "rmsnorm", "route": "cuda",
          "source": "src/repro_torch/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm.py:24",
-         "launches": danube["rmsnorm"] + mamba["rmsnorm"] + phi3["rmsnorm"],
+         "launches": danube["rmsnorm"] + mamba["rmsnorm"] + phi3["rmsnorm"]
+         + sum(a["rmsnorm"] for a in arch_served.values()),
          "max_abs_err": rms_err, "ms": rms_t[0], "plain_ms": rms_t[1],
          "bound_ms": rms_t[2], "bound_by": rms_t[3], "library_ms": rms_t[4]},
         {"name": "flash_attention", "route": "cuda",
@@ -3089,11 +3241,19 @@ def main() -> int:
          "max_abs_err": flash96_err, "ms": flash96_t[0],
          "plain_ms": flash96_t[1], "bound_ms": flash96_t[2],
          "bound_by": flash96_t[3], "library_ms": flash96_t[4]},
+        {"name": "flash_attention (D=128, olmoe-1b-7b prefill)",
+         "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:35",
+         "launches": olmoe["wgmma_bf16"],
+         "max_abs_err": flash128_err, "ms": flash128_t[0],
+         "plain_ms": flash128_t[1], "bound_ms": flash128_t[2],
+         "bound_by": flash128_t[3], "library_ms": flash128_t[4]},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:27",
          "launches": danube["ssd_scan"] + mamba["ssd_scan"]
-         + phi3["ssd_scan"],
+         + phi3["ssd_scan"] + sum(a["ssd_scan"] for a in arch_served.values()),
          "max_abs_err": ssd_err, "ms": ssd_t[0], "plain_ms": ssd_t[1],
          "bound_ms": ssd_t[2], "bound_by": ssd_t[3], "library_ms": ssd_t[4]},
     ]

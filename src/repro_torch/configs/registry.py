@@ -1,4 +1,4 @@
-"""Architecture registry: the ported archs and their configurations.
+"""Architecture registry: the reference's ten archs and their configurations.
 
 Port of ``repro/configs/registry.py`` without ``input_specs`` and
 ``SHAPES`` (they wait with the dry-run tooling).  Each arch module registers
@@ -34,10 +34,8 @@ def register(arch_id: str, spec: ArchSpec) -> None:
 def get(arch_id: str) -> ArchSpec:
     _load_all()
     if arch_id not in _REGISTRY:
-        raise KeyError(
-            f"arch {arch_id!r} is not ported to repro_torch; ported: "
-            f"{', '.join(sorted(_REGISTRY))} (the others wait in ROADMAP.md "
-            f"queue 1, 'LM substrate')")
+        raise KeyError(f"unknown arch {arch_id!r}; registered: "
+                       f"{', '.join(sorted(_REGISTRY))}")
     return _REGISTRY[arch_id]
 
 
@@ -47,5 +45,7 @@ def all_archs() -> Tuple[str, ...]:
 
 
 def _load_all() -> None:
-    from . import (h2o_danube_1_8b, mamba2_130m,  # noqa: F401
+    from . import (command_r_plus_104b, h2o_danube_1_8b,  # noqa: F401
+                   internvl2_76b, jamba_1_5_large_398b, mamba2_130m,
+                   mixtral_8x22b, musicgen_medium, olmoe_1b_7b,
                    phi3_mini_3_8b, qwen1_5_0_5b)

@@ -3,9 +3,8 @@
 Port of ``repro/core/planner.py``.  :func:`layer_graph` is the graph of an
 architecture's layers (embed, one node per mixer and FFN, unembed) with
 flops and bytes derived analytically from its :class:`ModelConfig` and input
-shape; the corpus's ``lm`` workload provider places these graphs.  The
-port's ``ModelConfig`` carries no MoE fields, so a pattern with an ``"moe"``
-FFN raises.
+shape (an MoE layer costs its top-k experts and the router); the corpus's
+``lm`` workload provider places these graphs.
 
 :func:`plan_stages` is the paper's technique in its production slot: the
 "devices" are pipeline stages (``tpu_stage_platform``, the reference's
@@ -37,11 +36,6 @@ def layer_graph(cfg: ModelConfig, seq_len: int, batch: int,
     kind: "train" (fwd+bwd ≈ 3× fwd flops), "prefill", "decode" (T=batch
     tokens against a seq_len-deep context).
     """
-    if any(ffn == "moe" for _, ffn in cfg.block_pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layer graphs need the MoE fields of "
-            f"ModelConfig, which wait with the MoE archs (ROADMAP.md "
-            f"'Modules to port' item 11)")
     g = CompGraph(f"{cfg.name}/{kind}")
     dt = _BYTES.get(cfg.dtype, 2)
     tokens = batch * (1 if kind == "decode" else seq_len)
@@ -77,10 +71,16 @@ def layer_graph(cfg: ModelConfig, seq_len: int, batch: int,
             prev = name
             if ffn != "none":
                 fname = f"L{li}_{ffn}"
+                fe = cfg.moe_d_ff or cfg.d_ff
                 nmat = 3 if cfg.activation == "swiglu" else 2
-                flops = 2.0 * tokens * nmat * d * cfg.d_ff * mult
-                g.add_op(fname, "FFN", [prev], (batch, seq_len, d),
-                         flops=flops, bytes_out=act_bytes)
+                if ffn == "moe":
+                    flops = (2.0 * tokens * cfg.moe_top_k * nmat * d * fe +
+                             2.0 * tokens * d * cfg.moe_experts) * mult
+                else:
+                    flops = 2.0 * tokens * nmat * d * cfg.d_ff * mult
+                g.add_op(fname, "MoE" if ffn == "moe" else "FFN",
+                         [prev], (batch, seq_len, d), flops=flops,
+                         bytes_out=act_bytes)
                 prev = fname
             li += 1
     g.add_op("unembed", "Unembed", [prev], (batch, seq_len, cfg.vocab_size),

@@ -25,9 +25,8 @@ the other.
 The reference's ``traced`` provider (``trace_to_graph`` of a transformer
 layer written in ``jax.numpy``) builds the same graphs here from a numpy
 description of the layer's jaxpr (``graphs/traced.py``).  ``lm`` and
-``traced`` build the archs the port has configs for; ``archs=all`` (and an
-arch the port lacks) raises, naming ROADMAP.md 'Modules to port' item 11,
-rather than build a smaller corpus than the reference's.
+``traced`` build the reference's ten archs; ``archs=all`` names them all,
+in the registry's sorted order, as the reference's does.
 
 Streaming corpora
 -----------------
@@ -74,14 +73,6 @@ __all__ = [
 ]
 
 GraphThunk = Callable[[], CompGraph]
-
-#: the archs of the reference's ``configs/`` registry, which ``lm:archs=all``
-#: names there
-REFERENCE_ARCHS = ("command-r-plus-104b", "h2o-danube-1.8b", "internvl2-76b",
-                   "jamba-1.5-large-398b", "mamba2-130m", "mixtral-8x22b",
-                   "musicgen-medium", "olmoe-1b-7b", "phi3-mini-3.8b",
-                   "qwen1.5-0.5b")
-
 
 class WorkloadProvider:
     """Interface every graph source implements (see module docstring).
@@ -175,23 +166,10 @@ class LMLayerWorkloads(WorkloadProvider):
         _reject_unknown(self.name, params)
         from ..configs import all_archs, get
         from ..core.planner import layer_graph
-        ported = all_archs()
         if archs == "all":
-            lacking = sorted(set(REFERENCE_ARCHS) - set(ported))
-            if lacking:
-                raise NotImplementedError(
-                    f"lm:archs=all names the reference's "
-                    f"{len(REFERENCE_ARCHS)} archs; the port lacks "
-                    f"{lacking} (ROADMAP.md 'Modules to port' item 11) — "
-                    f"name the ported ones instead: {list(ported)}")
-            archs = list(ported)
+            archs = list(all_archs())
         elif isinstance(archs, str):
             archs = [archs]
-        for a in archs:
-            if a not in ported and a in REFERENCE_ARCHS:
-                raise NotImplementedError(
-                    f"arch {a!r} is not ported to repro_torch yet (ROADMAP.md "
-                    f"'Modules to port' item 11); ported: {list(ported)}")
         if isinstance(kinds, str):
             kinds = [kinds]
         return [
@@ -207,9 +185,7 @@ class TracedLayerWorkloads(WorkloadProvider):
     jaxpr-primitive op types (``dot_general``, ``exp``, ``reduce_sum``,
     ...) rather than the OpenVINO-style builders'.  The reference traces the
     layer with JAX; the port builds the same graph in numpy
-    (:func:`~repro_torch.graphs.traced.traced_layer_graph`).  ``archs=all``
-    raises, naming ROADMAP item 11, as ``lm:archs=all`` does: until all the
-    reference's archs are ported it would be a smaller corpus.
+    (:func:`~repro_torch.graphs.traced.traced_layer_graph`).
     """
 
     name = "traced"
@@ -219,21 +195,10 @@ class TracedLayerWorkloads(WorkloadProvider):
         _reject_unknown(self.name, params)
         from ..configs import all_archs, get
         from .traced import traced_layer_graph
-        ported = all_archs()
         if archs == "all":
-            raise NotImplementedError(
-                f"traced:archs=all names the reference's "
-                f"{len(REFERENCE_ARCHS)} archs; the port lacks "
-                f"{sorted(set(REFERENCE_ARCHS) - set(ported))} (ROADMAP.md "
-                f"'Modules to port' item 11) — name the ported ones "
-                f"instead: {list(ported)}")
-        if isinstance(archs, str):
+            archs = list(all_archs())
+        elif isinstance(archs, str):
             archs = [archs]
-        for a in archs:
-            if a not in ported and a in REFERENCE_ARCHS:
-                raise NotImplementedError(
-                    f"arch {a!r} is not ported to repro_torch yet (ROADMAP.md "
-                    f"'Modules to port' item 11); ported: {list(ported)}")
 
         def build(a: str) -> CompGraph:
             cfg = get(a).smoke_config

@@ -1,14 +1,16 @@
 """Serving launcher: batched prefill + greedy decode.
 
-Port of ``repro/launch/serve.py``:
+Port of ``repro/launch/serve.py``; every arch of the registry serves:
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-medium \\
         --smoke --device cpu
 
-Random weights from seed 0 and random prompts from seed 1.  Runs on the card
-unless ``--device cpu`` is given.  ``main`` returns the generated tokens and
-the timings.
+Random weights from seed 0 and random prompts from seed 1; a VLM serves its
+text path (no vision embeds), as the reference's launcher does.  Runs on the
+card unless ``--device cpu`` is given.  ``main`` returns the generated tokens
+and the timings; ``serve`` does the same for a config the caller built (a
+registered one cut to fit a card).
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["ServeResult", "main"]
+__all__ = ["ServeResult", "main", "serve"]
 
 
 class ServeResult(NamedTuple):
@@ -26,6 +28,7 @@ class ServeResult(NamedTuple):
     prefill_ms: float        # host clock around prefill, synchronised
     decode_ms: float         # host clock around steps-1 decode steps
     decode_tok_s: float      # batch·(steps-1) / decode time
+    weight_bytes: int        # bytes of the weights on the device
 
 
 def _sync(device: torch.device) -> None:
@@ -45,20 +48,30 @@ def main(argv=None) -> ServeResult:
     if args.steps < 1:
         ap.error("--steps must be at least 1")
 
-    from .._device import resolve_device
     from ..configs import get
-    from ..models import init_params, make_serve_step, prefill
-
-    device = resolve_device(args.device)
     spec = get(args.arch)
-    cfg = spec.smoke_config if args.smoke else spec.config
+    return serve(spec.smoke_config if args.smoke else spec.config,
+                 args.batch, args.prompt, args.steps, args.device)
+
+
+def serve(cfg, batch: int, prompt: int, steps: int,
+          device="cuda") -> ServeResult:
+    """Prefill ``batch`` random prompts of ``prompt`` tokens with ``cfg``'s
+    random weights, then decode greedily to ``steps`` tokens each."""
+    from .._device import resolve_device
+    from ..models import init_params, make_serve_step, prefill
+    from ..models.params import tree_leaves
+
+    device = resolve_device(device)
     with torch.inference_mode():
         params = init_params(cfg, seed=0, device=device)
+        weight_bytes = sum(a.numel() * a.element_size()
+                           for a in tree_leaves(params))
         serve_step = make_serve_step(cfg)
         gen = torch.Generator().manual_seed(1)
-        prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt),
+        prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
                                 generator=gen, dtype=torch.int32).to(device)
-        max_len = args.prompt + args.steps
+        max_len = prompt + steps
         _sync(device)
         t0 = time.perf_counter()
         logits, caches = prefill(params, cfg, prompts, max_len=max_len,
@@ -66,21 +79,21 @@ def main(argv=None) -> ServeResult:
         tok = torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
         _sync(device)
         prefill_ms = (time.perf_counter() - t0) * 1e3
-        print(f"prefill {args.batch}×{args.prompt}: {prefill_ms:.1f} ms")
+        print(f"prefill {batch}×{prompt}: {prefill_ms:.1f} ms")
+        del logits
         out = [tok]
         t0 = time.perf_counter()
-        for i in range(args.steps - 1):
-            tok, logits, caches = serve_step(params, caches, tok,
-                                             args.prompt + i)
+        for i in range(steps - 1):
+            tok, _, caches = serve_step(params, caches, tok, prompt + i)
             out.append(tok)
         _sync(device)
         decode_s = time.perf_counter() - t0
-    n_dec = args.batch * (args.steps - 1)
+    n_dec = batch * (steps - 1)
     tok_s = n_dec / decode_s if decode_s > 0 else 0.0
-    print(f"decode {args.steps - 1} steps: {decode_s * 1e3:.1f} ms "
+    print(f"decode {steps - 1} steps: {decode_s * 1e3:.1f} ms "
           f"({tok_s:.0f} tok/s)")
     return ServeResult(torch.cat(out, dim=1).cpu(), prefill_ms,
-                       decode_s * 1e3, tok_s)
+                       decode_s * 1e3, tok_s, weight_bytes)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """LM substrate: configs, layers, SSD mixer, decoder assembly (serving).
 
-Port of ``repro/models`` for the dense, sliding-window and Mamba-2 decoders;
-the train step, MoE and int8 serving wait for a later slice."""
+Port of ``repro/models`` for serving every architecture of the reference's
+registry; the train step and int8 serving wait for a later slice."""
 from .config import ModelConfig
 from .layers import AttnCache
 from .lm import (decode_step, forward, init_cache, init_params,

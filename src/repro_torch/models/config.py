@@ -1,10 +1,11 @@
 """ModelConfig — one declarative config covering the LM families.
 
 Port of ``repro/models/config.py`` holding the fields the ported serving
-path reads; ``dtype_`` is a torch dtype.  The options of families this slice
-does not port stay as fields so that ``check_ported`` can reject them; the
-training and sharding knobs (remat, scan, FSDP, MoE dispatch, ...) come with
-the slice that first reads them.
+path reads, with the reference's defaults; ``dtype_`` is a torch dtype.  The
+options the port does not run yet (logit softcap, merged-head attention,
+int8 weights) stay as fields so that ``check_ported`` can reject them; the
+training and sharding knobs (remat, scan, FSDP, grad accumulation, optimizer
+state dtype) come with the train step.
 
 ``block_pattern`` is the repeating unit of (mixer, ffn) pairs; the decoder
 loops over ``n_layers // len(pattern)`` repeats of it.
@@ -37,6 +38,12 @@ class ModelConfig:
     vocab_size: int
     block_pattern: Pattern = (("attn", "dense"),)
     head_dim: Optional[int] = None
+    # MoE
+    moe_experts: int = 0
+    moe_top_k: int = 0
+    moe_d_ff: Optional[int] = None       # expert hidden (defaults to d_ff)
+    capacity_factor: float = 1.25
+    moe_group_size: int = 1024           # GShard dispatch group tokens
     # attention options
     qkv_bias: bool = False
     sliding_window: int = 0              # 0 = full attention
@@ -80,3 +87,45 @@ class ModelConfig:
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
+
+    def num_params(self) -> float:
+        """Analytic parameter count (per-family; used for 6·N·D roofline)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        hd = self.head_dim_
+        total = v * d * (1 if self.tie_embeddings else 2)
+        for mixer, ffn in self.block_pattern:
+            reps = self.pattern_repeats
+            if mixer == "attn":
+                qkvo = d * self.n_heads * hd * 2 + d * self.n_kv_heads * hd * 2
+                total += reps * qkvo
+            elif mixer == "mamba":
+                di, st = self.d_inner, self.ssm_state
+                nh = self.ssm_heads
+                in_proj = d * (2 * di + 2 * st + nh)
+                total += reps * (in_proj + di * d + nh + nh +
+                                 self.ssm_conv_width * (di + 2 * st))
+            if ffn == "dense":
+                mult = 3 if self.activation == "swiglu" else 2
+                total += reps * mult * d * f
+            elif ffn == "moe":
+                fe = self.moe_d_ff or f
+                mult = 3 if self.activation == "swiglu" else 2
+                total += reps * (self.moe_experts * mult * d * fe +
+                                 d * self.moe_experts)
+            total += reps * 2 * d   # norms
+        return float(total)
+
+    def active_params(self) -> float:
+        """Active (per-token) params — MoE uses top-k of the experts."""
+        if self.moe_experts == 0:
+            return self.num_params()
+        d, f = self.d_model, self.d_ff
+        fe = self.moe_d_ff or f
+        mult = 3 if self.activation == "swiglu" else 2
+        dense_every = self.num_params()
+        # subtract inactive expert weights
+        n_moe_layers = sum(1 for _, ffn in self.block_pattern
+                           if ffn == "moe") * self.pattern_repeats
+        inactive = n_moe_layers * (self.moe_experts - self.moe_top_k) * \
+            mult * d * fe
+        return float(dense_every - inactive)

@@ -1,17 +1,18 @@
 """Transformer layer library: norms, RoPE, GQA/SWA attention with KV cache,
-SwiGLU/GELU FFN.
+SwiGLU/GELU FFN, and GShard-style capacity-routed MoE.
 
-Port of ``repro/models/layers.py`` for the dense and sliding-window
-decoders.  Parameters keep the reference's names and layouts (``wq`` is
-(d, h, dh) per layer, applied as ``einsum("bsd,dhk->bshk")``).  RMSNorm runs
-the ``rmsnorm`` kernel; prefill self-attention runs the ``flash_attention``
-kernel; decode attention (one query against the ring-buffer cache) is plain
-PyTorch, as no reference kernel computes it.  MoE waits for a later slice.
+Port of ``repro/models/layers.py``.  Parameters keep the reference's names
+and layouts (``wq`` is (d, h, dh) per layer, applied as
+``einsum("bsd,dhk->bshk")``; an expert's ``w_gate`` is (E, d, f)).  RMSNorm
+runs the ``rmsnorm`` kernel; prefill self-attention runs the
+``flash_attention`` kernel; decode attention (one query against the
+ring-buffer cache) and the MoE layer are plain PyTorch, as the reference
+computes them outside any kernel too.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -24,19 +25,19 @@ from .params import ParamDef, ones_init, scaled_init, zeros_init
 __all__ = [
     "rms_norm", "layer_norm", "norm_defs", "apply_norm",
     "rope", "attn_defs", "attention", "AttnCache", "init_attn_cache",
-    "ffn_defs", "dense_ffn", "check_ported",
+    "ffn_defs", "dense_ffn", "moe_defs", "moe_ffn", "moe_route", "MoERoute",
+    "check_ported",
 ]
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for options this slice does not port."""
+    """Raise ``NotImplementedError`` for options the port does not run yet.
+
+    No registered config sets any of them: they are the reference's
+    ``launch/perf.py`` variants."""
     waiting = (
-        (any(f == "moe" for _, f in cfg.block_pattern), "MoE FFN layers"),
         (cfg.attn_head_merge, "attn_head_merge"),
         (cfg.attn_logit_softcap > 0, "attn_logit_softcap > 0"),
-        (cfg.parallel_block, "parallel_block"),
-        (cfg.vision_tokens > 0, "vision_tokens"),
-        (cfg.audio_frontend, "audio_frontend"),
         (cfg.quantize_weights, "quantize_weights (int8 serving)"),
     )
     for on, what in waiting:
@@ -248,3 +249,108 @@ def dense_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         return h @ p["w_down"]
     # jax.nn.gelu defaults to the tanh approximation
     return F.gelu(x @ p["w_in"], approximate="tanh") @ p["w_out"]
+
+
+# ---------------------------------------------------------------------- MoE
+def moe_defs(cfg: ModelConfig, reps: int) -> Dict[str, ParamDef]:
+    d, dt = cfg.d_model, cfg.dtype_
+    e = cfg.moe_experts
+    f = cfg.moe_d_ff or cfg.d_ff
+    # the router's scaled_init(0) takes the repeat count as its fan-in, as
+    # the reference's does
+    return {
+        "router": ParamDef((reps, d, e), torch.float32, scaled_init(0)),
+        "w_gate": ParamDef((reps, e, d, f), dt, scaled_init(-2)),
+        "w_up": ParamDef((reps, e, d, f), dt, scaled_init(-2)),
+        "w_down": ParamDef((reps, e, f, d), dt, scaled_init(-2)),
+    }
+
+
+class MoERoute(NamedTuple):
+    """Where :func:`moe_route` sends each (token, choice) of n tokens."""
+    groups: int              # G groups of ``group_size`` tokens
+    group_size: int
+    capacity: int            # C slots per expert and group
+    rows: int                # E·G·C: the expert batch's rows
+    slot: torch.Tensor       # (n, k) int64 row of the expert batch
+    #                          (expert-major, then group, then slot), or
+    #                          ``rows`` where the expert's capacity ran out
+    gates: torch.Tensor      # (n, k) f32 router weights, renormalised
+
+    def kept(self) -> torch.Tensor:
+        """(n, k) bool: the assignments that found a slot."""
+        return self.slot < self.rows
+
+
+def moe_route(router: torch.Tensor, x: torch.Tensor,
+              cfg: ModelConfig) -> MoERoute:
+    """GShard capacity routing of ``x`` (n, d) with ``router`` (d, E), as
+    indices: the reference's groups, capacity, kept and dropped tokens and
+    gates (``repro/models/layers.py`` ``moe_ffn``) without its one-hot
+    (G, Sg, E, C) dispatch tensors.
+
+    Tokens form G groups of Sg, the largest divisor of n up to
+    ``moe_group_size``.  Each expert takes at most C tokens of a group; the
+    slots go to choice 0 of every token in token order, then choice 1, ...,
+    and an assignment past C is dropped.  Ties among router probabilities go
+    to the lower expert index, as ``lax.top_k`` breaks them."""
+    n = x.shape[0]
+    e, k = cfg.moe_experts, cfg.moe_top_k
+    sg = min(cfg.moe_group_size, n)
+    while n % sg:            # largest divisor of n ≤ the configured group
+        sg -= 1
+    g = n // sg
+    cap = min(int(math.ceil(sg * k * cfg.capacity_factor / e / 4.0) * 4), sg)
+
+    probs = torch.softmax(x.to(torch.float32) @ router, dim=-1)   # (n, E)
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    vals, ids = vals[:, :k], ids[:, :k]
+    gates = vals / vals.sum(-1, keepdim=True).clamp(min=1e-9)
+    # slot of each assignment within its (group, expert): how many of the
+    # group's assignments before it in (choice, token) order chose the same
+    # expert.  A stable sort by (group, expert) keeps that order within
+    # each bucket, so the slot is the distance from the bucket's start.
+    bucket = (ids.view(g, sg, k).transpose(1, 2)
+              + torch.arange(g, device=x.device).view(g, 1, 1) * e)
+    keys, order = torch.sort(bucket.reshape(-1), stable=True)
+    ranks = torch.arange(keys.numel(), device=x.device) \
+        - torch.searchsorted(keys, keys)
+    pos = torch.empty_like(ranks).scatter_(0, order, ranks)
+    pos = pos.view(g, k, sg).transpose(1, 2).reshape(n, k)
+    group = torch.arange(n, device=x.device).div(sg, rounding_mode="floor")
+    slot = ids * (g * cap) + group[:, None] * cap + pos
+    rows = e * g * cap
+    return MoERoute(g, sg, cap, rows, torch.where(pos < cap, slot, rows),
+                    gates)
+
+
+def moe_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """GShard-style capacity-routed top-k MoE.
+
+    Routes with :func:`moe_route`, gathers each expert's kept tokens into
+    an (E, G·C, d) batch, runs the experts as batched products, then sums
+    each token's kept expert outputs weighted by its gates cast to the
+    activation dtype (the reference's ``combine.astype(ye.dtype)``)."""
+    b, s, d = x.shape
+    n, e = b * s, cfg.moe_experts
+    xf = x.reshape(n, d)
+    route = moe_route(p["router"], xf, cfg)
+    rows = route.rows
+    k = route.slot.shape[1]
+    # the token in each slot of the expert batch; an empty slot computes on
+    # token 0 and nothing reads it, and dropped assignments all write the
+    # spare last entry
+    tokens = torch.zeros(rows + 1, dtype=torch.int64, device=x.device)
+    tokens[route.slot.reshape(-1)] = torch.arange(
+        n, device=x.device).repeat_interleave(k)
+    xe = xf[tokens[:rows]].view(e, -1, d)
+    if cfg.activation == "swiglu":
+        h = F.silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
+    else:
+        h = F.gelu(torch.bmm(xe, p["w_gate"]), approximate="tanh")
+    ye = torch.bmm(h, p["w_down"]).view(rows, d)
+    kept = route.kept()
+    w = torch.where(kept, route.gates, 0.0).to(ye.dtype)
+    picked = ye[torch.where(kept, route.slot, 0)]          # (n, k, d)
+    y = torch.bmm(w[:, None, :], picked)[:, 0]
+    return y.view(b, s, d).to(x.dtype)

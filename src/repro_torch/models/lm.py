@@ -13,19 +13,22 @@ Steps:
                        arrays)
   * ``make_serve_step`` — greedy decode of one token
 
-The train step (``cross_entropy``, remat, ``make_train_step``) and int8
-weight serving wait for a later slice (ROADMAP.md queue 1, 'LM substrate').
+Every architecture of the reference's registry runs: dense, sliding-window,
+Mamba-2, MoE and hybrid patterns, the parallel attn∥FFN block and
+vision-token prefixes.  The train step (``cross_entropy``, remat,
+``make_train_step``) and int8 weight serving wait for a later slice
+(ROADMAP.md queue 1, 'LM substrate').
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 
 from .config import ModelConfig
 from .layers import (AttnCache, apply_norm, attention, attn_defs,
                      check_ported, dense_ffn, ffn_defs, init_attn_cache,
-                     norm_defs)
+                     moe_defs, moe_ffn, norm_defs)
 from .params import ParamDef, init_tree, normal_init, ones_init, tree_map
 from .ssm import init_ssm_cache, ssd_forward, ssm_decode_step, ssm_defs
 
@@ -45,6 +48,8 @@ def _mixer_defs(cfg: ModelConfig, mixer: str, reps: int):
 def _ffn_defs(cfg: ModelConfig, ffn: str, reps: int):
     if ffn == "dense":
         return ffn_defs(cfg, reps)
+    if ffn == "moe":
+        return moe_defs(cfg, reps)
     if ffn == "none":
         return None
     raise ValueError(ffn)
@@ -107,10 +112,16 @@ def _apply_block_position(cfg: ModelConfig, pos: int, bp: Dict,
                                        chunk=ssd_chunk,
                                        return_final_state=want_cache)
 
-    x = x + y
-    if ffn != "none":
-        h2 = apply_norm(cfg, bp["norm2"]["scale"], x)
-        x = x + dense_ffn(bp["ffn"], h2, cfg)
+    apply_ffn = moe_ffn if ffn == "moe" else dense_ffn
+    if cfg.parallel_block and ffn != "none":
+        # command-r style: attn and ffn read the same normed input (norm2
+        # stays in the tree, unused, as in the reference's)
+        x = x + y + apply_ffn(bp["ffn"], h_in, cfg)
+    else:
+        x = x + y
+        if ffn != "none":
+            h2 = apply_norm(cfg, bp["norm2"]["scale"], x)
+            x = x + apply_ffn(bp["ffn"], h2, cfg)
     return x, new_cache
 
 
@@ -150,8 +161,15 @@ def _build_prefill_attn_cache(k: torch.Tensor, v: torch.Tensor,
 
 
 # ----------------------------------------------------------------- forward
-def _embed_tokens(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()]
+def _embed_tokens(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+                  vision_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """Token embeddings; a VLM's ``vision_embeds`` (B, nv, d) replace the
+    first nv positions."""
+    x = params["embed"][tokens.long()]
+    if cfg.vision_tokens and vision_embeds is not None:
+        nv = vision_embeds.shape[1]
+        x = torch.cat([vision_embeds.to(x.dtype), x[:, nv:]], dim=1)
+    return x
 
 
 def _unembed(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -201,10 +219,11 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 
 def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+            vision_embeds: Optional[torch.Tensor] = None,
             ssd_chunk: int = 256) -> torch.Tensor:
     """Full causal forward → logits (B, S, V)."""
     b, s = tokens.shape
-    x = _embed_tokens(params, tokens)
+    x = _embed_tokens(params, cfg, tokens, vision_embeds)
     x, _ = _run_blocks(params, cfg, x, positions=_positions(b, s, x.device),
                        ssd_chunk=ssd_chunk)
     return _unembed(params, cfg, x)
@@ -226,6 +245,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> list:
 
 
 def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+            vision_embeds: Optional[torch.Tensor] = None,
             ssd_chunk: int = 256, max_len: int = 0):
     """Forward over the prompt, returning (logits, caches).
 
@@ -233,7 +253,7 @@ def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     prompt length — pass prompt+decode budget for generation)."""
     b, s = tokens.shape
     max_len = max_len or s
-    x = _embed_tokens(params, tokens)
+    x = _embed_tokens(params, cfg, tokens, vision_embeds)
     x, caches = _run_blocks(params, cfg, x,
                             positions=_positions(b, s, x.device),
                             ssd_chunk=ssd_chunk, want_cache=True,
@@ -250,7 +270,7 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     b = tokens.shape[0]
     positions = torch.full((b, 1), int(index), dtype=torch.int32,
                            device=tokens.device)
-    x = _embed_tokens(params, tokens)
+    x = _embed_tokens(params, cfg, tokens, None)
     x, caches = _run_blocks(params, cfg, x, positions=positions,
                             caches=caches, cache_index=index)
     return _unembed(params, cfg, x), caches

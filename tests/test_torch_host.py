@@ -98,8 +98,11 @@ def test_port_imports_without_jax():
         "import repro_torch.graphs.traced, repro_torch.api\n"
         "assert repro_torch.PlacementSession.__module__ =="
         " 'repro_torch.api.session'\n"
-        "assert repro_torch.configs.all_archs() == ('h2o-danube-1.8b',"
-        " 'mamba2-130m', 'phi3-mini-3.8b', 'qwen1.5-0.5b')\n"
+        "assert repro_torch.configs.all_archs() == ("
+        "'command-r-plus-104b', 'h2o-danube-1.8b', 'internvl2-76b', "
+        "'jamba-1.5-large-398b', 'mamba2-130m', 'mixtral-8x22b', "
+        "'musicgen-medium', 'olmoe-1b-7b', 'phi3-mini-3.8b', "
+        "'qwen1.5-0.5b')\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and"

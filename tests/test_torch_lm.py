@@ -1,8 +1,10 @@
 """Port parity, the LM serving path: the reference's ``init_params`` weights
 carried across with ``lm_params_from_numpy``, then ``forward`` and
 ``prefill`` + greedy decode of the port against the JAX package on the
-h2o-danube-1.8b, mamba2-130m and qwen1.5-0.5b (QKV bias, tied embeddings)
-SMOKE configs, and the serve entry point."""
+SMOKE configs of all ten reference archs (dense, sliding-window, QKV bias
+and tied embeddings, Mamba-2, MoE, the jamba hybrid, command-r's parallel
+block with layernorm, internvl2's vision prefix, musicgen's GELU), the
+analytic parameter counts, and the serve entry point."""
 import dataclasses
 
 import numpy as np
@@ -13,6 +15,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import all_archs as ref_all_archs  # noqa: E402
 from repro.configs import get as ref_get  # noqa: E402
 from repro.models import decode_step as ref_decode_step  # noqa: E402
 from repro.models import forward as ref_forward  # noqa: E402
@@ -20,11 +23,14 @@ from repro.models import init_params as ref_init_params  # noqa: E402
 from repro.models import prefill as ref_prefill  # noqa: E402
 
 from repro_torch.checkpoint import lm_params_from_numpy  # noqa: E402
-from repro_torch.configs import get  # noqa: E402
+from repro_torch.configs import all_archs, get  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import decode_step, forward, prefill  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
 
-ARCHS = ["h2o-danube-1.8b", "mamba2-130m", "qwen1.5-0.5b", "phi3-mini-3.8b"]
+ARCHS = ["command-r-plus-104b", "h2o-danube-1.8b", "internvl2-76b",
+         "jamba-1.5-large-398b", "mamba2-130m", "mixtral-8x22b",
+         "musicgen-medium", "olmoe-1b-7b", "phi3-mini-3.8b", "qwen1.5-0.5b"]
 # the reference's decode-consistency tolerance (tests/test_models.py:21):
 # float32 weights and activations, sums in another order across frameworks
 ATOL = 2e-5
@@ -132,26 +138,83 @@ def test_converter_carries_bf16_bits_exactly():
                           tree["embed"].view(np.int16))
 
 
+def test_vision_embeds_replace_the_prefix_as_the_references_do():
+    """internvl2's stub frontend: patch embeddings (a numpy seed) replace
+    the first ``vision_tokens`` positions in ``forward`` and ``prefill``."""
+    arch = "internvl2-76b"
+    ref_cfg, cfg = ref_get(arch).smoke_config, get(arch).smoke_config
+    ref_params = ref_init_params(ref_cfg, jax.random.PRNGKey(0))
+    params = lm_params_from_numpy(jax.tree.map(np.asarray, ref_params), cfg,
+                                  "cpu")
+    toks = _tokens(cfg, PROMPT, seed=4)
+    rng = np.random.default_rng(6)
+    ve = rng.standard_normal((BATCH, cfg.vision_tokens, cfg.d_model)) \
+        .astype(np.float32)
+    want = np.asarray(ref_forward(ref_params, ref_cfg, jnp.asarray(toks),
+                                  vision_embeds=jnp.asarray(ve)))
+    got = forward(params, cfg, torch.from_numpy(toks),
+                  vision_embeds=torch.from_numpy(ve))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+    plain = forward(params, cfg, torch.from_numpy(toks))
+    assert float((got - plain).abs().max()) > 1e-3     # the prefix mattered
+    ref_logits, ref_caches = ref_prefill(
+        ref_params, ref_cfg, jnp.asarray(toks),
+        vision_embeds=jnp.asarray(ve), max_len=PROMPT + STEPS)
+    logits, caches = prefill(params, cfg, torch.from_numpy(toks),
+                             vision_embeds=torch.from_numpy(ve),
+                             max_len=PROMPT + STEPS)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits),
+                               rtol=0, atol=ATOL)
+    for ref_c, c in zip(ref_caches, caches):
+        for name, ref_leaf, leaf in zip(c._fields, ref_c, c):
+            np.testing.assert_allclose(leaf.numpy(), np.asarray(ref_leaf),
+                                       rtol=0, atol=ATOL, err_msg=name)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
-def test_serve_main_on_cpu(arch):
+def test_param_counts_match_the_reference(arch):
+    """``num_params`` / ``active_params`` of the full and SMOKE configs."""
+    for cfg, ref_cfg in ((get(arch).config, ref_get(arch).config),
+                         (get(arch).smoke_config,
+                          ref_get(arch).smoke_config)):
+        assert cfg.num_params() == ref_cfg.num_params()
+        assert cfg.active_params() == ref_cfg.active_params()
+    cfg = get(arch).config
+    assert (cfg.active_params() < cfg.num_params()) == (cfg.moe_experts > 0)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_main_on_cpu(arch, monkeypatch):
+    """Every arch serves; a layernorm arch (command-r, musicgen) makes no
+    ``rmsnorm`` call."""
+    calls = []
+
+    def counted(*args):
+        calls.append(1)
+        return rmsnorm(*args)
+    rmsnorm = layers.rmsnorm
+    monkeypatch.setattr(layers, "rmsnorm", counted)
     res = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
                       "--batch", "2", "--prompt", "11", "--steps", "4"])
     assert res.tokens.shape == (2, 4) and res.tokens.dtype == torch.int32
-    vocab = get(arch).smoke_config.vocab_size
-    assert int(res.tokens.min()) >= 0 and int(res.tokens.max()) < vocab
+    cfg = get(arch).smoke_config
+    assert int(res.tokens.min()) >= 0 and int(res.tokens.max()) < \
+        cfg.vocab_size
     assert res.prefill_ms > 0 and res.decode_tok_s > 0
+    assert bool(calls) == (cfg.norm == "rmsnorm"), (arch, len(calls))
 
 
 def test_unported_options_and_archs_raise():
+    """The three options the port does not run raise; every reference arch
+    is registered, and an unknown one is a ``KeyError``."""
     from repro_torch.models import init_params
+    assert all_archs() == ref_all_archs() == tuple(ARCHS)
     cfg = get("h2o-danube-1.8b").smoke_config
     params = init_params(cfg, device="cpu")
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get("mixtral-8x22b")
-    for change in (dict(parallel_block=True), dict(attn_logit_softcap=30.0),
-                   dict(quantize_weights=True), dict(vision_tokens=4),
-                   dict(attn_head_merge=True), dict(audio_frontend=True),
-                   dict(block_pattern=(("attn", "moe"),))):
+    with pytest.raises(KeyError, match="registered"):
+        get("no-such-arch")
+    for change in (dict(attn_logit_softcap=30.0), dict(quantize_weights=True),
+                   dict(attn_head_merge=True)):
         bad = dataclasses.replace(cfg, **change)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             init_params(bad, device="cpu")

@@ -192,16 +192,15 @@ def test_registry_and_the_ports_missing_providers_raise():
     assert spec.entries == refwl.parse_corpus_spec(
         "traced:archs=qwen1.5-0.5b").entries
     _assert_graphs_equal(wl.build_corpus(spec), refwl.build_corpus(spec))
-    for provider in ("lm", "traced"):
-        with pytest.raises(NotImplementedError, match="item 11") as err:
-            wl.build_corpus(f"{provider}:archs=all")
-        assert "mixtral-8x22b" in str(err.value)
-        assert "phi3-mini-3.8b" not in str(err.value).split("lacks")[1] \
-            .split("(")[0]
-        with pytest.raises(NotImplementedError, match="item 11"):
-            wl.build_corpus(f"{provider}:archs=mixtral-8x22b")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        wl.StreamingCorpus("traced")
+    # archs=all names the reference's ten archs in both packages: the
+    # corpus, bit for bit, and its fingerprint, eager and streaming
+    for spec in ("lm:archs=all", "traced:archs=all"):
+        mine, ref = wl.build_corpus(spec), refwl.build_corpus(spec)
+        assert len(mine) == 10
+        _assert_graphs_equal(mine, ref)
+        assert wl.corpus_fingerprint(mine) == refwl.corpus_fingerprint(ref)
+    assert wl.StreamingCorpus("traced").fingerprint == \
+        refwl.corpus_fingerprint(refwl.build_corpus("traced"))
     with pytest.raises(KeyError):
         wl.build_corpus("lm:archs=no-such-arch")
 
@@ -221,8 +220,10 @@ def test_registry_and_the_ports_missing_providers_raise():
     _assert_graphs_equal([t() for t in thunks], BuildOnly().build())
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "mamba2-130m",
-                                  "h2o-danube-1.8b", "phi3-mini-3.8b"])
+@pytest.mark.parametrize("arch", [
+    "qwen1.5-0.5b", "mamba2-130m", "h2o-danube-1.8b", "phi3-mini-3.8b",
+    "olmoe-1b-7b", "mixtral-8x22b", "jamba-1.5-large-398b",
+    "command-r-plus-104b", "internvl2-76b", "musicgen-medium"])
 def test_layer_graph_matches_the_reference(arch):
     for kind in ("train", "prefill", "decode"):
         for cfg, ref_cfg in ((get(arch).config, ref_arch(arch).config),
@@ -230,10 +231,14 @@ def test_layer_graph_matches_the_reference(arch):
                               ref_arch(arch).smoke_config)):
             _assert_graphs_equal([layer_graph(cfg, 512, 3, kind)],
                                  [ref_layer_graph(ref_cfg, 512, 3, kind)])
-    moe = dataclasses.replace(get(arch).smoke_config,
-                              block_pattern=(("attn", "moe"),))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        layer_graph(moe, 64, 1)
+    # an MoE pattern on a dense arch's config: its router and top-k experts
+    # priced as the reference prices them
+    change = dict(block_pattern=(("attn", "moe"),), moe_experts=4,
+                  moe_top_k=2)
+    moe = dataclasses.replace(get(arch).smoke_config, **change)
+    ref_moe = dataclasses.replace(ref_arch(arch).smoke_config, **change)
+    _assert_graphs_equal([layer_graph(moe, 64, 1)],
+                         [ref_layer_graph(ref_moe, 64, 1)])
 
 
 @pytest.mark.parametrize("seq", [32, 64])

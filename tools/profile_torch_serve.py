@@ -10,9 +10,11 @@ weights from seed 0, after one warm-up of each phase.  Prints the prefill
 time and the per-step decode times (host clock around synchronised work),
 then profiles one prefill and the decode steps with ``torch.profiler``:
 device time by kernel, kernel launches, and the device's busy and idle
-shares of each phase.  With no ``--arch`` it runs h2o-danube-1.8b (prompt
-4608) and mamba2-130m (prompt 4096).  Needs a CUDA device; imports nothing
-of the JAX package.
+shares of each phase.  For an MoE arch it also times one more prefill's MoE
+layers with CUDA events around each ``moe_ffn`` call: their share of the
+prefill.  With no ``--arch`` it runs h2o-danube-1.8b (prompt 4608),
+mamba2-130m (prompt 4096) and olmoe-1b-7b (prompt 4064).  Needs a CUDA
+device; imports nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "src"))
 
-DEFAULT_PROMPT = {"h2o-danube-1.8b": 4608, "mamba2-130m": 4096}
+DEFAULT_PROMPT = {"h2o-danube-1.8b": 4608, "mamba2-130m": 4096,
+                  "olmoe-1b-7b": 4064}
 
 
 def _profile(torch, fn):
@@ -44,6 +47,37 @@ def _profile(torch, fn):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     return wall, kernels, sum(e.count for e in kernels), busy
+
+
+def moe_share(torch, run_prefill):
+    """One prefill with CUDA events around each ``moe_ffn`` call: the MoE
+    layers' device time beside the whole prefill's."""
+    from repro_torch.models import lm
+    orig, spans = lm.moe_ffn, []
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        y = orig(*args)
+        end.record()
+        spans.append((start, end))
+        return y
+    first = torch.cuda.Event(enable_timing=True)
+    last = torch.cuda.Event(enable_timing=True)
+    lm.moe_ffn = timed
+    try:
+        first.record()
+        run_prefill()
+        last.record()
+    finally:
+        lm.moe_ffn = orig
+    torch.cuda.synchronize()
+    moe_ms = sum(s.elapsed_time(e) for s, e in spans)
+    total = first.elapsed_time(last)
+    print(f"  MoE layers: {moe_ms:.3f} ms of a {total:.3f} ms prefill "
+          f"({moe_ms / total:.1%}; CUDA events around its {len(spans)} "
+          f"moe_ffn calls)")
 
 
 def profile_arch(torch, arch: str, batch: int, prompt: int, steps: int):
@@ -91,6 +125,8 @@ def profile_arch(torch, arch: str, batch: int, prompt: int, steps: int):
               f"{batch / step_s:.1f} tok/s")
         del caches
         torch.cuda.empty_cache()
+        if cfg.moe_experts:
+            moe_share(torch, run_prefill)
 
         phases = {}
         phases["prefill"] = _profile(torch, run_prefill)
