@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
-``build/repro_torch``, one ``nvcc`` per source, all at once: six sources, as
-flash_attention has a bf16 tensor-core kernel, ``flash_attention_sm90.cu``,
-and an f32 SIMT one), holds each kernel against its plain PyTorch version on
+``build/repro_torch``, one ``nvcc`` per source, all at once: seven sources,
+as flash_attention has a bf16 tensor-core kernel, ``flash_attention_sm90.cu``,
+an f32 SIMT one and a backward, ``flash_attention_bwd.cu``), holds each kernel against its plain PyTorch version on
 the card at the main paths' shapes and on every route a kernel has
 (level_makespan's staged and general routes, bitwise, on the three paper
 graphs at B = 1, 7, 320 and 4096, a DAG wider than a warp, the
@@ -100,7 +100,22 @@ user entry points:
    full width; jamba-1.5-large-398b's 8-layer period (``ssd_scan`` and MoE)
    at a cut width (``ARCH_SERVES`` says why each cut); then each one's
    float32 decode consistency, MoE at a capacity with no drops, internvl2
-   with vision embeds.
+   with vision embeds;
+4. LM training: ``[train_kernels]`` holds the three backward kernels
+   (rmsnorm's, flash_attention's and ssd_scan's) against their plain
+   versions' autograd at the training shapes and times them beside
+   ``scaled_dot_product_attention``'s and ``F.rms_norm``'s backward;
+   ``[train]`` (this slice's main path) runs ``repro_torch.launch.train``
+   at full width and depth in bf16 with remat, h2o-danube-1.8b at 4 x 8192
+   tokens and mamba2-130m at 8 x 4096, 3 steps each, and checks the
+   launches every step implies; ``[train_witness]`` runs the launcher's
+   steps on danube at full depth through the kernels and through the plain
+   versions, from the same weights and batches, to tell a trajectory the
+   model and optimizer make from one the kernels make;
+   ``[train_parity]`` holds the card's train
+   step against the port's CPU step at 2 full-width layers in float32,
+   grad accumulation and remat against none, and a run resumed through an
+   async checkpoint against the straight one.
 
 Each path's kernel launch counters (and per-route counters) are zeroed just
 before it and read just after it; every wall time is printed per phase, and
@@ -230,6 +245,46 @@ ARCH_SERVES = (
 )
 # flash_attention at olmoe-1b-7b's prefill: (B, H, KV, S, D), causal
 OLMOE_FLASH = (4, 16, 16, 4064, 128)
+# LM training (`[train]`): repro_torch.launch.train at full width and depth
+# in bf16 with remat "full", (arch, global batch, seq, steps, ckpt every):
+# danube's 32,768 tokens a step run past its 4096 window; its 22 GB state is
+# not written (--ckpt-every 0), mamba2's is, every 2 steps and at the end
+TRAINS = (("h2o-danube-1.8b", 4, 8192, 3, 0),
+          ("mamba2-130m", 8, 4096, 3, 2))
+# `[train_witness]`: danube at full width and depth in bf16, the launcher's
+# optimizer, schedule and data, 3 steps through the kernels and the same 3
+# through the plain versions on the card from the same weights and batches,
+# at [train]'s sequence and window and one row of its batch (the plain
+# attention of 4 rows would not fit); (arch, cut, B, S, steps)
+WITNESS = ("h2o-danube-1.8b", {}, 1, 8192, 3)
+# each step's loss and gradient norm, kernels against plain, relative
+WITNESS_TOL = 1e-3
+# the first batch's mean log-sum-exp against ln(vocab) + var/2, the expected
+# log-sum-exp of iid normal logits of the measured variance
+WITNESS_LSE_TOL = 0.05
+# `[train_kernels]`: the backward kernels at the training shapes.  flash:
+# danube's (B, H, KV, S, D, window) and a D=128 causal case without one,
+# bf16; the f32 parity shape (below); rmsnorm: danube's and mamba2's
+# (rows, d, dtype); ssd_scan: mamba2's (B, C, H, P, N) at chunk 32
+FLASH_BWD_CASES = (((4, 32, 8, 8192, 80), 4096, "bfloat16"),
+                   ((4, 16, 16, 4096, 128), 0, "bfloat16"),
+                   ((2, 32, 8, 1024, 80), 256, "float32"))
+RMS_BWD_CASES = ((4 * 8192, 2560, "bfloat16"), (8 * 4096, 768, "bfloat16"),
+                 (8 * 4096, 1536, "float32"))
+SSD_BWD_SHAPE = (8, 128, 24, 64, 128)
+# `[train_parity]`: 2 layers of full width in float32 (the SMOKE configs'
+# head dims, 8 for danube-smoke, are ones the flash kernel does not take),
+# danube's window cut to 256 so that it binds at S=1024; (arch, cut, B, S)
+PARITY = (("h2o-danube-1.8b", {"n_layers": 2, "dtype": "float32",
+                               "sliding_window": 256, "remat": False},
+           2, 1024),
+          ("mamba2-130m", {"n_layers": 2, "dtype": "float32",
+                           "remat": False}, 2, 1024))
+# the card's f32 gradients against the CPU's, and grad_accum=2's against
+# one batch, normwise per leaf: sums in another order over 2,048 tokens
+# (tests/test_torch_train.py holds the CPU against the reference at the same
+# bound)
+PARITY_GRAD_TOL = 1e-4
 # Table 2 (benchmarks/table2_placement.py through benchmarks/common.py): the
 # learned baselines' config, the HSDAG row's (one search-mode session a
 # graph, a host reward), the features every row takes, and the contract's
@@ -2982,6 +3037,538 @@ def table10_phase(memory):
     print(f"[phase] table10: {time.perf_counter() - t_phase:.2f} s")
 
 
+def _grads(torch, fn, inputs, gout, retain=False):
+    """Gradients of ``fn(*inputs)`` for the output gradient(s) ``gout``."""
+    ins = [x.detach().requires_grad_(True) for x in inputs]
+    out = fn(*ins)
+    outs = out if isinstance(out, tuple) else (out,)
+    gouts = gout if isinstance(gout, tuple) else (gout,)
+    return list(torch.autograd.grad(outs, ins, gouts, retain_graph=retain))
+
+
+def grad_check(torch, name, got, want, dtype, worst):
+    """A backward kernel's gradients against the plain version's autograd,
+    normwise: 2e-2 in bf16, 1e-5 in f32 → new worst max abs error."""
+    tol = LM_TOL[str(dtype)]
+    for i, (g, w) in enumerate(zip(got, want)):
+        err = rel_err(torch, g.float(), w.float())
+        abs_err = float((g.float() - w.float()).abs().max())
+        worst = max(worst, abs_err)
+        print(f"[train_kernels] {name} grad {i}: rel err {err:.3e} (tol "
+              f"{tol:g}), max abs err {abs_err:.3e}")
+        check(bool(torch.isfinite(g.float()).all()) and err <= tol,
+              f"{name}: gradient {i} disagrees with the plain version's "
+              f"autograd")
+    return worst
+
+
+def flash_bwd_checks(torch):
+    """The flash backward kernels (csrc/flash_attention_bwd.cu) against the
+    plain version's autograd at FLASH_BWD_CASES, one (b, KV head) slice of
+    the plain version at a time (the whole (B, H, S, S) f32 score tensor of
+    danube's shape would take 34 GB), then the kernel's time beside the
+    plain backward's and scaled_dot_product_attention's backward (printed
+    at both bf16 shapes) → (worst, timing at danube's shape)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, flash_attention_ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_mask, flash_pairs)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    worst, timings = 0.0, []
+    for (B, H, KV, S, D), W, dt in FLASH_BWD_CASES:
+        dtype = getattr(torch, dt)
+        G = H // KV
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda").to(
+                dtype)
+        q, k, v = rnd(B, H, S, D), rnd(B, KV, S, D), rnd(B, KV, S, D)
+        dout = rnd(B, H, S, D)
+        before = flash_attention_backward.launches
+        dq, dk, dv = _grads(torch, lambda q, k, v: flash_attention(
+            q, k, v, window=W), [q, k, v], dout)
+        check(flash_attention_backward.launches == before + 1,
+              "the flash backward did not launch its kernels")
+        want = [torch.empty_like(dq), torch.empty_like(dk),
+                torch.empty_like(dv)]
+        for b in range(B):
+            for j in range(KV):
+                hs = slice(j * G, (j + 1) * G)
+                g3 = _grads(torch, lambda q, k, v: flash_attention_ref(
+                    q, k, v, window=W), [q[b:b + 1, hs], k[b:b + 1, j:j + 1],
+                                         v[b:b + 1, j:j + 1]],
+                    dout[b:b + 1, hs])
+                want[0][b, hs], want[1][b, j], want[2][b, j] = \
+                    g3[0][0], g3[1][0, 0], g3[2][0, 0]
+        worst = grad_check(torch, f"flash_attention backward {(B, H, KV, S, D)} "
+                           f"window={W} {dt}", [dq, dk, dv], want, dtype,
+                           worst)
+        del dq, dk, dv, want
+        if dt == "float32":
+            continue
+        out = flash_attention(q, k, v, window=W)
+        ms, host = cuda_ms(torch, lambda: flash_attention_backward(
+            q, k, v, out, dout, window=W), 3, 1)
+        # the plain backward over every (b, KV head) slice, one slice's
+        # graph at a time (built before its timing starts), the measured
+        # times summed
+        slice_ms = []
+        for b in range(B):
+            for j in range(KV):
+                hs = slice(j * G, (j + 1) * G)
+                qs = q[b:b + 1, hs].detach().requires_grad_(True)
+                ks, vs = (t[b:b + 1, j:j + 1].detach().requires_grad_(True)
+                          for t in (k, v))
+                o1 = flash_attention_ref(qs, ks, vs, window=W)
+                slice_ms.append(cuda_ms(torch, lambda: torch.autograd.grad(
+                    o1, (qs, ks, vs), dout[b:b + 1, hs], retain_graph=True),
+                    2, 1)[0])
+                del o1, qs, ks, vs
+        plain = sum(slice_ms)
+        mask = flash_mask(S, True, W, "cuda")
+        ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+        lo = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
+                                            enable_gqa=True)
+        lib, _ = cuda_ms(torch, lambda: torch.autograd.grad(
+            lo, (ql, kl, vl), dout, retain_graph=True), 3, 1)
+        del lo, ql, kl, vl, mask
+        pairs, visited = flash_pairs(S, True, W)
+        esize = q.element_size()
+        nbytes = esize * (B * H * S * D * 3 + B * KV * S * D * 4)
+        ops = 10 * B * H * D * pairs     # 5 products of the unmasked pairs
+        b_ms, b_by = bound_ms_bf16(nbytes, ops)
+        t = (ms, plain, b_ms, b_by, lib)
+        print(f"[train_kernels] flash_attention backward timing "
+              f"{(B, H, KV, S, D)} window {W} {dt}: kernel {ms:.3f} ms on "
+              f"the card ({host:.4f} ms of host time to launch), "
+              f"{ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s on the unmasked "
+              f"pairs' 5 products, {100 * b_ms / ms:.2f} % of the bound; "
+              f"plain {plain:.3f} ms (the sum of {B * KV} (b, KV head) "
+              f"slices' measured times, {min(slice_ms):.3f}-"
+              f"{max(slice_ms):.3f} ms each); scaled_dot_product_attention's "
+              f"backward (bool "
+              f"mask, enable_gqa) {lib:.3f} ms; bound {b_ms:.6f} ms ({b_by}: "
+              f"{nbytes} B, {ops} ops over {pairs} unmasked pairs per head)")
+        timings.append(t)
+        del q, k, v, dout, out
+        torch.cuda.empty_cache()
+    return worst, timings[0]
+
+
+def rmsnorm_bwd_checks(torch):
+    """The rmsnorm backward kernel against the plain version's autograd at
+    RMS_BWD_CASES (and a ragged width), timed at danube's training rows
+    beside the plain backward and F.rms_norm's → (worst, timing)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm, rmsnorm_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_backward
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    worst, timing = 0.0, None
+    for rows, d, dt in RMS_BWD_CASES + ((5, 37, "float32"),
+                                        (4, 8192, "bfloat16")):
+        dtype = getattr(torch, dt)
+        x = (2 * torch.randn(rows, d, generator=gen, device="cuda")).to(dtype)
+        scale = torch.rand(d, generator=gen, device="cuda") + 0.5
+        g = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
+        got = _grads(torch, rmsnorm, [x, scale], g)
+        want = _grads(torch, rmsnorm_ref, [x, scale], g)
+        worst = grad_check(
+            torch, f"rmsnorm backward {rows}x{d} {dt}", got, want, dtype,
+            worst)
+        if timing is None:
+            ms, host = cuda_ms(torch, lambda: rmsnorm_backward(x, scale, g),
+                               20)
+            xr, sr = (t.detach().requires_grad_(True) for t in (x, scale))
+            o = rmsnorm_ref(xr, sr)
+            plain, _ = cuda_ms(torch, lambda: torch.autograd.grad(
+                o, (xr, sr), g, retain_graph=True), 10)
+            xl, wl = x.detach().requires_grad_(True), \
+                scale.to(dtype).requires_grad_(True)
+            lo = F.rms_norm(xl, (d,), wl, 1e-6)
+            lib, _ = cuda_ms(torch, lambda: torch.autograd.grad(
+                lo, (xl, wl), g, retain_graph=True), 20)
+            nbytes = 3 * rows * d * x.element_size() + 8 * d
+            b_ms, b_by = bound_ms(nbytes, 8 * rows * d)
+            timing = (ms, plain, b_ms, b_by, lib)
+            print(f"[train_kernels] rmsnorm backward timing {rows}x{d} {dt}: "
+                  f"kernel {ms:.4f} ms on the card ({host:.4f} ms of host "
+                  f"time to launch), {100 * b_ms / ms:.1f} % of the bound; "
+                  f"plain {plain:.4f} ms; F.rms_norm's backward (weight in "
+                  f"{dt}) {lib:.4f} ms; bound {b_ms:.6f} ms ({b_by}: "
+                  f"{nbytes} B)")
+            del o, lo
+        else:
+            ms, _ = cuda_ms(torch, lambda: rmsnorm_backward(x, scale, g), 20)
+            nbytes = 3 * rows * d * x.element_size() + 8 * d
+            print(f"[train_kernels] rmsnorm backward {rows}x{d} {dt}: kernel "
+                  f"{ms:.4f} ms, bound {bound_ms(nbytes, 8 * rows * d)[0]:.6f}"
+                  f" ms")
+    return worst, timing
+
+
+def ssd_bwd_checks(torch):
+    """The ssd_scan reverse-scan kernel against the plain version's
+    autograd at mamba2's training shape → (worst, timing)."""
+    from repro_torch.kernels import ssd_scan, ssd_scan_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_backward
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    B, C, H, P, N = SSD_BWD_SHAPE
+    dec = 0.3 + 0.699 * torch.rand(B, C, H, generator=gen, device="cuda")
+    dbx = torch.randn(B, C, H, P, N, generator=gen, device="cuda")
+    gb = torch.randn(B, C, H, P, N, generator=gen, device="cuda")
+    gf = torch.randn(B, H, P, N, generator=gen, device="cuda")
+    got = _grads(torch, ssd_scan, [dec, dbx], (gb, gf))
+    want = _grads(torch, ssd_scan_ref, [dec, dbx], (gb, gf))
+    worst = grad_check(torch, f"ssd_scan backward {SSD_BWD_SHAPE}", got,
+                       want, torch.float32, 0.0)
+    del got, want
+    before, _ = ssd_scan(dec, dbx)
+    ms, host = cuda_ms(torch, lambda: ssd_scan_backward(dec, before, gb, gf),
+                       10)
+    dr, xr = (t.detach().requires_grad_(True) for t in (dec, dbx))
+    o = ssd_scan_ref(dr, xr)
+    plain, _ = cuda_ms(torch, lambda: torch.autograd.grad(
+        o, (dr, xr), (gb, gf), retain_graph=True), 2, 1)
+    del o
+    nbytes = 4 * (3 * B * C * H * P * N + B * H * P * N + 2 * B * C * H)
+    b_ms, b_by = bound_ms(nbytes, 4 * B * C * H * P * N)
+    print(f"[train_kernels] ssd_scan backward timing {SSD_BWD_SHAPE}: kernel "
+          f"{ms:.4f} ms on the card ({host:.4f} ms of host time to launch), "
+          f"{100 * b_ms / ms:.1f} % of the bound; plain {plain:.3f} ms; "
+          f"bound {b_ms:.6f} ms ({b_by}: {nbytes} B); no PyTorch call "
+          f"computes the recurrence")
+    return worst, (ms, plain, b_ms, b_by, None)
+
+
+def _lm_counters():
+    """The LM kernels' launch counters, forward and backward."""
+    from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan
+    from repro_torch.kernels.flash_attention import flash_attention_backward
+    from repro_torch.kernels.rmsnorm import rmsnorm_backward
+    from repro_torch.kernels.ssd_scan import ssd_scan_backward
+    return {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
+            "ssd_scan": ssd_scan, "rmsnorm_bwd": rmsnorm_backward,
+            "flash_attention_bwd": flash_attention_backward,
+            "ssd_scan_bwd": ssd_scan_backward}
+
+
+def train_phase(torch, arch, batch, seq, steps, ckpt_every, workdir):
+    """Drive ``repro_torch.launch.train.main`` at full width and depth
+    (bf16, remat "full"), the LM kernels' counts zeroed just before and read
+    just after → (launches, the TrainResult)."""
+    import math
+    from repro_torch.configs import get
+    from repro_torch.launch import train
+    cfg = get(arch).config
+    counters = _lm_counters()
+    for fn in counters.values():
+        fn.launches = 0
+        for route in getattr(fn, "route_launches", {}):
+            fn.route_launches[route] = 0
+    ckpt_dir = os.path.join(workdir, arch)
+    t0 = time.perf_counter()
+    res = train.main(["--arch", arch, "--steps", str(steps),
+                      "--global-batch", str(batch), "--seq", str(seq),
+                      "--ckpt-every", str(ckpt_every), "--ckpt-dir",
+                      ckpt_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    per_step = {k: n / steps for k, n in launches.items()}
+    print(f"[train] {arch} {cfg.dtype} remat={cfg.remat_policy if cfg.remat else 'off'} "
+          f"B={batch} S={seq} ({batch * seq} tokens a step), {steps} "
+          f"steps in {wall:.2f} s: losses {res.losses}, grad norms "
+          f"{res.grad_norms}, step walls {[round(w, 4) for w in res.walls]} "
+          f"s, {[round(r, 1) for r in res.tok_s]} tok/s, peak "
+          f"{res.peak_bytes} B ({res.peak_bytes / 2**30:.2f} GiB) "
+          f"allocated; launches {launches} ({per_step} a step)")
+    check(res.start == 0 and len(res.losses) == steps,
+          f"{arch}: the launcher resumed or skipped steps")
+    check(all(math.isfinite(x) for x in res.losses + res.grad_norms),
+          f"{arch}: a loss or gradient norm is not finite")
+    # random weights: the final norm's rows have unit RMS and the unembedding
+    # is N(0, 0.02²), so the logits are ~N(0, σ²) with σ = 0.02·√d, whose
+    # expected log-sum-exp is ln(vocab) + σ²/2 (0.51 above ln(vocab) for
+    # danube's d = 2560)
+    first = math.log(cfg.vocab_size) + (0.02 ** 2 * cfg.d_model) / 2
+    check(abs(res.losses[0] - first) <= 0.5,
+          f"{arch}: the first loss {res.losses[0]} is not within 0.5 of "
+          f"ln(vocab) + σ²/2 = {first:.4f}")
+    print(f"[train] {arch} first loss {res.losses[0]:.4f}: random weights "
+          f"give ln(vocab) + σ²/2 = {first:.4f} (ln(vocab) "
+          f"{math.log(cfg.vocab_size):.4f})")
+    # per step: one forward, remat's recompute of every repeat's forward
+    # (all but the final norm) and one backward
+    rms = cfg.norm == "rmsnorm"
+    per_fwd = rms + cfg.pattern_repeats * sum(
+        rms * (1 + (f != "none" and not cfg.parallel_block)) + (m == "mamba")
+        for m, f in cfg.block_pattern)
+    n_attn = cfg.pattern_repeats * sum(m == "attn" for m, _ in
+                                       cfg.block_pattern)
+    n_mamba = cfg.pattern_repeats * sum(m == "mamba" for m, _ in
+                                        cfg.block_pattern)
+    want = {"rmsnorm": steps * (2 * per_fwd - rms),
+            "rmsnorm_bwd": steps * per_fwd,
+            "flash_attention": steps * 2 * n_attn,
+            "flash_attention_bwd": steps * n_attn,
+            "ssd_scan": steps * 2 * n_mamba, "ssd_scan_bwd": steps * n_mamba}
+    check(launches == want, f"{arch}: the training run launched {launches}, "
+          f"not the {want} the code implies")
+    check(counters["flash_attention"].route_launches["wgmma_bf16"]
+          == want["flash_attention"]
+          and counters["flash_attention_bwd"].route_launches["simt_bf16"]
+          == want["flash_attention_bwd"],
+          f"{arch}: the bf16 run did not take the bf16 flash kernels")
+    if ckpt_every:
+        from repro_torch.checkpoint import CheckpointManager
+        saved = CheckpointManager(ckpt_dir).all_steps()
+        want_saved = sorted({s for s in range(ckpt_every, steps + 1,
+                                              ckpt_every)} | {steps})[-2:]
+        print(f"[train] {arch} checkpoints on disk: steps {saved}")
+        check(saved == want_saved, f"{arch}: checkpoints {saved}, not "
+              f"{want_saved}")
+    return launches, res
+
+
+def train_witness_phase(torch):
+    """WITNESS: whether a trajectory of the launcher's (its losses and
+    gradient norms over 3 steps) comes from the kernels or from the model
+    and optimizer.  The same steps run through the kernels and then, with
+    the model's ``flash_attention`` and ``rmsnorm`` bound to the plain
+    versions, through no kernel; before them the first batch's loss is split
+    into the mean log-sum-exp of the logits and the mean label logit."""
+    import dataclasses
+    import math
+
+    import repro_torch.models.layers as layers
+    from repro_torch.configs import get
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.kernels import flash_attention_ref, rmsnorm_ref
+    from repro_torch.models import (TrainState, forward, init_params,
+                                    make_train_step)
+    from repro_torch.models.params import tree_map
+    from repro_torch.optim import adamw, linear_warmup_cosine
+    arch, cut, B, S, steps = WITNESS
+    cfg = dataclasses.replace(get(arch).config, **cut)
+    where = (f"dataclasses.replace(config, "
+             f"{', '.join(f'{k}={v!r}' for k, v in cut.items())})" if cut
+             else "the full config")
+    print(f"[train_witness] {arch}: {where}, {cfg.dtype}, "
+          f"{cfg.n_layers} layers, remat "
+          f"{cfg.remat_policy if cfg.remat else 'off'}, B={B} S={S}, "
+          f"{steps} steps of adamw(linear_warmup_cosine(3e-4, 10, {steps}), "
+          f"weight_decay=0.01), data seed 11")
+    params = init_params(cfg, seed=0, device="cuda")
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, S, B, seed=11), "cuda")
+    batches = [data.batch(i) for i in range(steps)]
+    with torch.no_grad():
+        logits = forward(params, cfg, batches[0]["tokens"]).float()
+        lse = float(torch.logsumexp(logits, -1).mean())
+        label = float(logits.gather(
+            -1, batches[0]["labels"].long()[..., None]).mean())
+        var = float(logits.var(-1).mean())
+        del logits
+    print(f"[train_witness] first batch's loss {lse - label:.4f} = mean "
+          f"log-sum-exp {lse:.4f} - mean label logit {label:.4f}; the "
+          f"logits' variance over the vocabulary {var:.4f} (0.02² · d = "
+          f"{0.02 ** 2 * cfg.d_model:.4f}), ln(vocab) + var/2 = "
+          f"{math.log(cfg.vocab_size) + var / 2:.4f}")
+    check(abs(lse - math.log(cfg.vocab_size) - var / 2) <= WITNESS_LSE_TOL,
+          f"{arch}: the first batch's mean log-sum-exp {lse} is not within "
+          f"{WITNESS_LSE_TOL} of ln(vocab) + var/2")
+    opt = adamw(linear_warmup_cosine(3e-4, 10, steps), weight_decay=0.01)
+    step_fn = make_train_step(cfg, opt, ssd_chunk=32)
+    counters = _lm_counters()
+
+    def run():
+        p = tree_map(torch.clone, params)
+        st = TrainState(p, opt.init(p), torch.zeros((), dtype=torch.int32))
+        before = {k: fn.launches for k, fn in counters.items()}
+        losses, norms = [], []
+        for b in batches:
+            st, m = step_fn(st, b)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        return losses, norms, {k: fn.launches - before[k]
+                               for k, fn in counters.items()}
+
+    t0 = time.perf_counter()
+    k_loss, k_norm, k_launch = run()
+    k_s = time.perf_counter() - t0
+    bound = layers.flash_attention, layers.rmsnorm
+    layers.flash_attention = flash_attention_ref
+    layers.rmsnorm = rmsnorm_ref
+    try:
+        t0 = time.perf_counter()
+        p_loss, p_norm, p_launch = run()
+        p_s = time.perf_counter() - t0
+    finally:
+        layers.flash_attention, layers.rmsnorm = bound
+    print(f"[train_witness] kernels ({k_s:.2f} s): losses {k_loss}, grad "
+          f"norms {k_norm}; launches {k_launch}")
+    print(f"[train_witness] plain versions ({p_s:.2f} s): losses {p_loss}, "
+          f"grad norms {p_norm}; launches {p_launch}")
+    d_loss = [abs(a - b) / abs(b) for a, b in zip(k_loss, p_loss)]
+    d_norm = [abs(a - b) / abs(b) for a, b in zip(k_norm, p_norm)]
+    print(f"[train_witness] kernels vs plain, relative, a step: loss "
+          f"{[f'{d:.3e}' for d in d_loss]}, grad norm "
+          f"{[f'{d:.3e}' for d in d_norm]} (bound {WITNESS_TOL:g})")
+    check(k_launch["flash_attention_bwd"] == steps * cfg.n_layers
+          and not any(p_launch.values()),
+          f"{arch}: the witness's kernel run launched {k_launch}, its plain "
+          f"run {p_launch}")
+    check(max(d_loss + d_norm) <= WITNESS_TOL,
+          f"{arch}: the kernels' trajectory is not the plain versions'")
+
+
+def _capture(opt):
+    """``opt`` that keeps the (clipped) gradients each update receives."""
+    from repro_torch.optim import GradientTransform
+    seen = {}
+
+    def update(grads, state, params=None):
+        seen["grads"] = grads
+        return opt.update(grads, state, params)
+    return GradientTransform(opt.init, update), seen
+
+
+def train_parity_phase(torch, workdir):
+    """The card's train step (kernels) against the port's CPU train step
+    (plain versions) at 2 layers of full width in float32, then grad
+    accumulation and remat on the card, and a resume through an async
+    checkpoint."""
+    import dataclasses
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models import TrainState, init_params, make_train_step
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.optim import adamw, linear_warmup_cosine
+    f32 = torch.float32
+    for arch, cut, B, S in PARITY:
+        t_arch = time.perf_counter()
+        cfg = dataclasses.replace(get(arch).config, **cut)
+        print(f"[train_parity] {arch} cut: dataclasses.replace(config, "
+              f"{', '.join(f'{k}={v!r}' for k, v in cut.items())}), B={B} "
+              f"S={S}, ssd_chunk=32")
+        params = init_params(cfg, seed=0, device="cpu")
+        data = SyntheticTokens(DataConfig(cfg.vocab_size, S, B, seed=11),
+                               "cpu")
+        batches = [data.batch(i) for i in range(3)]
+        opt = adamw(linear_warmup_cosine(3e-4, 10, 100), weight_decay=0.01)
+
+        def run(dev, c, batch):
+            p = tree_map(lambda a: a.to(dev), params)
+            o, seen = _capture(opt)
+            st, m = make_train_step(c, o, ssd_chunk=32)(
+                TrainState(p, opt.init(p), torch.zeros((), dtype=torch.int32)),
+                {k: v.to(dev) for k, v in batch.items()})
+            return m, tree_leaves(seen["grads"]), st
+
+        t0 = time.perf_counter()
+        m_cpu, g_cpu, _ = run("cpu", cfg, batches[0])
+        cpu_s = time.perf_counter() - t0
+        m_card, g_card, _ = run("cuda", cfg, batches[0])
+        torch.cuda.synchronize()
+        errs = [rel_err(torch, a.cpu(), b) for a, b in zip(g_card, g_cpu)]
+        l_card, l_cpu = float(m_card["loss"]), float(m_cpu["loss"])
+        n_card, n_cpu = float(m_card["grad_norm"]), float(m_cpu["grad_norm"])
+        print(f"[train_parity] {arch} card vs CPU (one step; the CPU's took "
+              f"{cpu_s:.2f} s): loss {l_card!r} vs {l_cpu!r} (rel "
+              f"{abs(l_card - l_cpu) / l_cpu:.3e}), grad norm {n_card!r} vs "
+              f"{n_cpu!r}; gradient leaves normwise: worst {max(errs):.3e}, "
+              f"median {sorted(errs)[len(errs) // 2]:.3e} over {len(errs)} "
+              f"leaves (bound {PARITY_GRAD_TOL:g})")
+        check(abs(l_card - l_cpu) <= 1e-5 * l_cpu
+              and abs(n_card - n_cpu) <= 1e-5 * n_cpu,
+              f"{arch}: the card's loss or gradient norm is not the CPU's")
+        check(max(errs) <= PARITY_GRAD_TOL,
+              f"{arch}: a gradient leaf on the card is {max(errs):.3e} from "
+              f"the CPU's")
+        del g_cpu
+        # the same step again: which leaves are not the same bits (atomics)
+        _, g_again, _ = run("cuda", cfg, batches[0])
+        differ = [i for i, (a, b) in enumerate(zip(g_card, g_again))
+                  if not torch.equal(a, b)]
+        shapes = [tuple(g_card[i].shape) for i in differ]
+        print(f"[train_parity] {arch} the card's step twice: {len(differ)} "
+              f"of {len(g_card)} gradient leaves differ in some bit"
+              + (f" (shapes {shapes})" if differ else
+                 " (the step is deterministic: the backward kernels use no "
+                 "atomics)"))
+        del g_again
+        # grad accumulation: 2 microbatches against the whole batch
+        m_acc, g_acc, _ = run("cuda", dataclasses.replace(cfg, grad_accum=2),
+                              batches[0])
+        e_acc = max(rel_err(torch, a, b) for a, b in zip(g_acc, g_card))
+        l_acc = float(m_acc["loss"])
+        print(f"[train_parity] {arch} grad_accum=2 vs 1: loss {l_acc!r} vs "
+              f"{l_card!r} (rel {abs(l_acc - l_card) / l_card:.3e}), "
+              f"gradients worst {e_acc:.3e} normwise")
+        # the halves' products and sums run at another batch size, so in
+        # another order: the card-vs-CPU bound
+        check(abs(l_acc - l_card) <= 1e-6 * l_card
+              and e_acc <= PARITY_GRAD_TOL,
+              f"{arch}: grad_accum=2 disagrees with grad_accum=1")
+        del g_acc
+        # remat "full" and "dots" against none
+        for policy in ("full", "dots"):
+            m_r, g_r, _ = run("cuda", dataclasses.replace(
+                cfg, remat=True, remat_policy=policy), batches[0])
+            e_r = max(rel_err(torch, a, b) for a, b in zip(g_r, g_card))
+            same = sum(torch.equal(a, b) for a, b in zip(g_r, g_card))
+            print(f"[train_parity] {arch} remat {policy!r} vs none: loss "
+                  f"{float(m_r['loss'])!r} vs {l_card!r}, gradients worst "
+                  f"{e_r:.3e} normwise, {same} of {len(g_r)} leaves bitwise")
+            check(float(m_r["loss"]) == l_card and e_r <= 1e-6,
+                  f"{arch}: remat {policy!r} changed the step")
+            del g_r
+        del g_card
+        if arch != "mamba2-130m":
+            print(f"[phase] train_parity {arch}: "
+                  f"{time.perf_counter() - t_arch:.2f} s")
+            continue
+        # resume: three straight steps, an async save after the second;
+        # the restored state bitwise, then its third step
+        step = make_train_step(cfg, opt, ssd_chunk=32)
+        dev = [{n: v.cuda() for n, v in b.items()} for b in batches]
+        p = tree_map(lambda a: a.cuda(), params)
+        st = TrainState(p, opt.init(p), torch.zeros((), dtype=torch.int32))
+        mgr = CheckpointManager(os.path.join(workdir, "parity"), keep=2,
+                                async_save=True)
+        losses = []
+        for i in range(3):
+            st, m = step(st, dev[i])
+            losses.append(float(m["loss"]))
+            if i == 1:
+                saved = st
+                mgr.save(2, st)
+        mgr.wait()
+        mgr.close()
+        fresh = tree_map(torch.zeros_like, saved)
+        restored = CheckpointManager(os.path.join(workdir, "parity")) \
+            .restore(2, fresh)
+        bitwise = all(a.dtype == b.dtype and a.shape == b.shape
+                      and torch.equal(a, b) for a, b in
+                      zip(tree_leaves(restored), tree_leaves(saved)))
+        st3, m3 = step(restored, dev[2])
+        l3 = float(m3["loss"])
+        same_params = sum(torch.equal(a, b) for a, b in
+                          zip(tree_leaves(st3.params), tree_leaves(st.params)))
+        n_params = len(tree_leaves(st.params))
+        print(f"[train_parity] {arch} resume: restored state bitwise "
+              f"{bitwise} ({len(tree_leaves(saved))} leaves, step "
+              f"{int(restored.step)}), third loss {l3!r} vs the straight "
+              f"run's {losses[2]!r} (bitwise {l3 == losses[2]}, rel "
+              f"{abs(l3 - losses[2]) / losses[2]:.3e}); params after it "
+              f"bitwise in {same_params} of {n_params} leaves")
+        check(bitwise, f"{arch}: the restored state is not the saved one")
+        check(abs(l3 - losses[2]) <= 1e-6 * losses[2],
+              f"{arch}: the resumed third loss disagrees")
+        print(f"[phase] train_parity {arch}: "
+              f"{time.perf_counter() - t_arch:.2f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3189,6 +3776,39 @@ def main() -> int:
     print(f"[phase] six-arch decode consistency: "
           f"{time.perf_counter() - t_phase:.2f} s")
 
+    # ---- LM training: the backward kernels against their plain versions'
+    # autograd, the launcher at full width and depth (this slice's main
+    # path), then the card's step against the port's CPU step ----
+    import tempfile
+    t_phase = time.perf_counter()
+    fbwd_err, fbwd_t = flash_bwd_checks(torch)
+    rbwd_err, rbwd_t = rmsnorm_bwd_checks(torch)
+    sbwd_err, sbwd_t = ssd_bwd_checks(torch)
+    torch.cuda.empty_cache()
+    print(f"[phase] train_kernels: {time.perf_counter() - t_phase:.2f} s")
+    with tempfile.TemporaryDirectory() as workdir:
+        t_phase = time.perf_counter()
+        trained = {}
+        for arch, batch, seq, steps, every in TRAINS:
+            t_arch = time.perf_counter()
+            trained[arch], res = train_phase(torch, arch, batch, seq, steps,
+                                             every, workdir)
+            del res
+            torch.cuda.empty_cache()
+            print(f"[phase] train {arch}: {time.perf_counter() - t_arch:.2f}"
+                  f" s")
+        print(f"[phase] train: {time.perf_counter() - t_phase:.2f} s")
+        t_phase = time.perf_counter()
+        train_witness_phase(torch)
+        torch.cuda.empty_cache()
+        print(f"[phase] train_witness: {time.perf_counter() - t_phase:.2f} "
+              f"s")
+        t_phase = time.perf_counter()
+        train_parity_phase(torch, workdir)
+        torch.cuda.empty_cache()
+        print(f"[phase] train_parity: {time.perf_counter() - t_phase:.2f} s")
+    tdanube, tmamba = trained["h2o-danube-1.8b"], trained["mamba2-130m"]
+
     kernels = [
         {"name": "level_makespan", "route": "cuda",
          "source": "src/repro_torch/csrc/levelsim.cu",
@@ -3256,6 +3876,30 @@ def main() -> int:
          + phi3["ssd_scan"] + sum(a["ssd_scan"] for a in arch_served.values()),
          "max_abs_err": ssd_err, "ms": ssd_t[0], "plain_ms": ssd_t[1],
          "bound_ms": ssd_t[2], "bound_by": ssd_t[3], "library_ms": ssd_t[4]},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:35 (its "
+                     "gradient; the Pallas kernel has no backward)",
+         "launches": tdanube["flash_attention_bwd"],
+         "max_abs_err": fbwd_err, "ms": fbwd_t[0], "plain_ms": fbwd_t[1],
+         "bound_ms": fbwd_t[2], "bound_by": fbwd_t[3],
+         "library_ms": fbwd_t[4]},
+        {"name": "rmsnorm_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/rmsnorm.cu",
+         "replaces": "src/repro/kernels/rmsnorm.py:24 (its gradient; the "
+                     "Pallas kernel has no backward)",
+         "launches": tdanube["rmsnorm_bwd"] + tmamba["rmsnorm_bwd"],
+         "max_abs_err": rbwd_err, "ms": rbwd_t[0], "plain_ms": rbwd_t[1],
+         "bound_ms": rbwd_t[2], "bound_by": rbwd_t[3],
+         "library_ms": rbwd_t[4]},
+        {"name": "ssd_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan.py:27 (its gradient; the "
+                     "Pallas kernel has no backward)",
+         "launches": tmamba["ssd_scan_bwd"],
+         "max_abs_err": sbwd_err, "ms": sbwd_t[0], "plain_ms": sbwd_t[1],
+         "bound_ms": sbwd_t[2], "bound_by": sbwd_t[3],
+         "library_ms": sbwd_t[4]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

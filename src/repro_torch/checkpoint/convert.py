@@ -15,7 +15,11 @@ The learned baselines' trees map the same way: Placeto's
 ``rnn_from_numpy``; ``params_to_numpy`` reads any of these modules back).
 
 The LM's parameters keep the reference's tree and layouts in the port, so
-``lm_params_from_numpy`` copies them leaf for leaf.
+``lm_params_from_numpy`` copies them leaf for leaf, and
+``lm_train_state_from_numpy`` carries a whole training state across: the
+parameters, the optimizer's ``OptState(step, mu, nu)`` (the moments in
+their own dtype, which may differ from the parameters') and the step, so a
+reference run continues in the port from the same next step.
 """
 from __future__ import annotations
 
@@ -28,7 +32,8 @@ from ..core.hsdag import HSDAGPolicy
 
 __all__ = ["params_from_numpy", "params_to_numpy", "tree_from_tensors",
            "tensors_from_tree", "load_reference_policy",
-           "placeto_from_numpy", "rnn_from_numpy", "lm_params_from_numpy"]
+           "placeto_from_numpy", "rnn_from_numpy", "lm_params_from_numpy",
+           "lm_train_state_from_numpy"]
 
 
 def _ref_path(name: str) -> Tuple[Tuple, bool]:
@@ -161,14 +166,10 @@ def _leaf_tensor(a, path: str) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
-def lm_params_from_numpy(tree: Dict, cfg, device="cuda") -> Dict:
-    """The reference LM's ``init_params`` tree (numpy leaves) as the port's
-    params for ``cfg`` on ``device``.
-
-    Every leaf of the port's ``model_defs(cfg)`` must be in ``tree`` with the
-    same shape and dtype, and ``tree`` may hold nothing else: a missing,
-    extra or mis-shaped leaf raises ``ValueError``.
-    """
+def _lm_tree_from_numpy(tree: Dict, cfg, device, keep_dtype: bool) -> Dict:
+    """``tree`` (numpy leaves) in the structure of ``model_defs(cfg)`` as
+    tensors on ``device``; each leaf at its def's shape and, unless
+    ``keep_dtype``, its dtype."""
     from ..models.lm import model_defs
     from ..models.params import ParamDef
     device = torch.device(device)
@@ -179,7 +180,8 @@ def lm_params_from_numpy(tree: Dict, cfg, device="cuda") -> Dict:
             if isinstance(node, (dict, list, tuple)) or node is None:
                 raise ValueError(f"{where}: expected an array leaf")
             t = _leaf_tensor(node, where)
-            if tuple(t.shape) != defs.shape or t.dtype != defs.dtype:
+            if tuple(t.shape) != defs.shape or (
+                    not keep_dtype and t.dtype != defs.dtype):
                 raise ValueError(
                     f"{where}: {t.dtype} {tuple(t.shape)} does not fit "
                     f"{defs.dtype} {defs.shape}")
@@ -199,3 +201,40 @@ def lm_params_from_numpy(tree: Dict, cfg, device="cuda") -> Dict:
                 enumerate(zip(defs, node))]
 
     return walk(model_defs(cfg), tree, ())
+
+
+def lm_params_from_numpy(tree: Dict, cfg, device="cuda") -> Dict:
+    """The reference LM's ``init_params`` tree (numpy leaves) as the port's
+    params for ``cfg`` on ``device``.
+
+    Every leaf of the port's ``model_defs(cfg)`` must be in ``tree`` with the
+    same shape and dtype, and ``tree`` may hold nothing else: a missing,
+    extra or mis-shaped leaf raises ``ValueError``.
+    """
+    return _lm_tree_from_numpy(tree, cfg, device, keep_dtype=False)
+
+
+def _field(obj, name):
+    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def lm_train_state_from_numpy(state, cfg, device="cuda"):
+    """The reference's ``TrainState(params, opt_state, step)`` with numpy
+    leaves (``jax.tree.map(np.asarray, state)``, or a dict of those three
+    keys) as the port's ``TrainState`` on ``device``: params as
+    ``lm_params_from_numpy``, ``OptState(step, mu, nu)`` with the moments at
+    the parameters' shapes in their own dtypes, the steps as int32 CPU
+    tensors."""
+    from ..models.lm import TrainState
+    from ..optim import OptState
+    opt = _field(state, "opt_state")
+
+    def step_of(x):
+        return torch.tensor(int(np.asarray(x)), dtype=torch.int32)
+
+    return TrainState(
+        lm_params_from_numpy(_field(state, "params"), cfg, device),
+        OptState(step_of(_field(opt, "step")),
+                 _lm_tree_from_numpy(_field(opt, "mu"), cfg, device, True),
+                 _lm_tree_from_numpy(_field(opt, "nu"), cfg, device, True)),
+        step_of(_field(state, "step")))

@@ -1,14 +1,23 @@
 """Checkpoints in the reference's on-disk format.
 
 Port of ``repro/checkpoint/manager.py``: one directory a step,
-``step_%010d/`` holding ``state.npz`` (the parameter tree flattened to
-``a/0/b`` key paths: dict keys by name, list entries by index) and
-``manifest.json``.  A save writes ``step_%010d.tmp`` and renames it, so a
-crashed save never corrupts the latest checkpoint (a left-over ``.tmp`` is
-removed by the next manager on the directory), and keeps the newest
-``keep`` steps.  Saves are synchronous: the reference's background-thread
-saves (``async_save``) are not ported, and :meth:`CheckpointManager.wait`
-and :meth:`CheckpointManager.close` have nothing to wait for.
+``step_%010d/`` holding ``state.npz`` (the tree flattened to ``a/0/b`` key
+paths: dict keys by name, list entries by index, NamedTuple fields by name,
+as the reference's ``_flatten`` names them; bf16 leaves widened to float32,
+as npz has no bf16) and ``manifest.json``.  A save writes
+``step_%010d.tmp`` and renames it, so a crashed save never corrupts the
+latest checkpoint (a left-over ``.tmp`` is removed by the next manager on
+the directory), and keeps the newest ``keep`` steps.  With ``async_save``
+the copy to the host is synchronous (a consistent snapshot) and a
+background thread serialises it; :meth:`CheckpointManager.wait` blocks
+until the queued saves land and re-raises their errors, and
+:meth:`CheckpointManager.close` stops the thread.
+
+An LM ``TrainState(params, opt_state, step)`` of tensors saves under the
+reference's keys (``params/...``, ``opt_state/step``, ``opt_state/mu/...``,
+``opt_state/nu/...``, ``step``), and ``restore(step, state)`` gives it back
+as tensors of the given state's dtypes and devices, so a state saved by
+either package restores in the other bit for bit.
 
 A corpus run's checkpoint (``CurriculumTrainer``) holds ``{"params",
 "opt"}``, the optimizer state as the reference's ``OptState`` tree
@@ -27,7 +36,9 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import queue
 import shutil
+import threading
 import time
 from typing import Any, Dict, List, Optional
 
@@ -51,11 +62,14 @@ def _jsonable(obj):
 
 
 def _leaves(tree, prefix=()):
-    """(path, leaf) pairs of a nested dict/list tree, dict keys sorted (the
-    reference's flattening order)."""
+    """(path, leaf) pairs of a nested dict/list/NamedTuple tree, dict keys
+    sorted (the reference's flattening order), NamedTuple fields by name."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _leaves(tree[k], prefix + (str(k),))
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for k, v in zip(tree._fields, tree):
+            yield from _leaves(v, prefix + (k,))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             yield from _leaves(v, prefix + (str(i),))
@@ -63,8 +77,23 @@ def _leaves(tree, prefix=()):
         yield prefix, tree
 
 
+def _host(leaf) -> np.ndarray:
+    """A leaf as a numpy array: tensors copied to the host, bf16 widened to
+    float32 (exactly, as the reference widens its bf16 leaves)."""
+    import torch
+    if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach()
+        if leaf.dtype == torch.bfloat16:
+            leaf = leaf.to(torch.float32)
+        return leaf.cpu().numpy()
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":
+        arr = arr.astype(np.float32)
+    return arr
+
+
 def _flatten(tree) -> Dict[str, np.ndarray]:
-    return {"/".join(path): np.asarray(leaf) for path, leaf in _leaves(tree)}
+    return {"/".join(path): _host(leaf) for path, leaf in _leaves(tree)}
 
 
 def _as_tree(params):
@@ -78,20 +107,31 @@ def _as_tree(params):
 
 def _unflatten(tree_like, flat: Dict[str, np.ndarray]):
     """``tree_like``'s structure with the leaves of ``flat``, each cast to
-    the dtype of the leaf it replaces."""
+    the dtype of the leaf it replaces (a tensor leaf gives a tensor of its
+    dtype on its device)."""
+    import torch
+
     def walk(node, path):
         if isinstance(node, dict):
             return {k: walk(v, path + (str(k),)) for k, v in node.items()}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(walk(v, path + (k,))
+                                for k, v in zip(node._fields, node)))
         if isinstance(node, (list, tuple)):
             return [walk(v, path + (str(i),)) for i, v in enumerate(node)]
         key = "/".join(path)
         if key not in flat:
             raise KeyError(f"checkpoint missing leaf {key!r}")
-        arr, like = flat[key], np.asarray(node)
-        if arr.shape != like.shape:
+        arr = flat[key]
+        shape = tuple(node.shape) if isinstance(node, torch.Tensor) \
+            else np.shape(node)
+        if arr.shape != shape:
             raise ValueError(f"checkpoint leaf {key!r} has shape "
-                             f"{arr.shape}, not {like.shape}")
-        return arr.astype(like.dtype)
+                             f"{arr.shape}, not {shape}")
+        if isinstance(node, torch.Tensor):
+            return torch.from_numpy(np.array(arr)).to(
+                dtype=node.dtype, device=node.device)
+        return arr.astype(np.asarray(node).dtype)
     return walk(tree_like, ())
 
 
@@ -109,20 +149,57 @@ def _nest(flat: Dict[str, np.ndarray]):
 
 
 class CheckpointManager:
-    """Atomic, keep-``keep`` checkpoints of numpy trees under
-    ``directory``."""
+    """Atomic, keep-``keep`` checkpoints of trees (numpy or tensor leaves)
+    under ``directory``; ``async_save`` serialises in a background
+    thread."""
 
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3,
+                 async_save: bool = False):
         self.directory = directory
         self.keep = keep
+        self.async_save = async_save
         os.makedirs(directory, exist_ok=True)
         for name in os.listdir(directory):
             if name.endswith(".tmp"):
                 shutil.rmtree(os.path.join(directory, name),
                               ignore_errors=True)
+        self._q: "queue.Queue" = queue.Queue()
+        self._errors: List[BaseException] = []
+        self._worker: Optional[threading.Thread] = None
+        if async_save:
+            self._worker = threading.Thread(target=self._drain, daemon=True)
+            self._worker.start()
 
     def _step_dir(self, step: int) -> str:
         return os.path.join(self.directory, f"step_{step:010d}")
+
+    def _drain(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is None:
+                self._q.task_done()
+                return
+            try:
+                self._write(*item)
+            except BaseException as e:   # surfaced by the next wait()
+                self._errors.append(e)
+            finally:
+                self._q.task_done()
+
+    def _write(self, step: int, flat: Dict[str, np.ndarray],
+               meta: Dict) -> None:
+        final = self._step_dir(step)
+        tmp = final + ".tmp"
+        os.makedirs(tmp, exist_ok=True)
+        np.savez(os.path.join(tmp, "state.npz"), **flat)
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(_jsonable({"step": step, "time": time.time(),
+                                 **meta}), f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+        for s in self.all_steps()[:-self.keep]:
+            shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
     def all_steps(self) -> List[int]:
         steps = []
@@ -138,22 +215,20 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, step: int, tree: Any, meta: Optional[Dict] = None) -> None:
-        final = self._step_dir(step)
-        tmp = final + ".tmp"
-        os.makedirs(tmp, exist_ok=True)
-        np.savez(os.path.join(tmp, "state.npz"), **_flatten(tree))
-        with open(os.path.join(tmp, "manifest.json"), "w") as f:
-            json.dump(_jsonable({"step": step, "time": time.time(),
-                                 **(meta or {})}), f)
-        if os.path.exists(final):
-            shutil.rmtree(final)
-        os.rename(tmp, final)
-        for s in self.all_steps()[:-self.keep]:
-            shutil.rmtree(self._step_dir(s), ignore_errors=True)
+        """Save ``tree`` as step ``step``.  The copy to the host happens
+        now; with ``async_save`` the file is written in the background."""
+        flat = _flatten(tree)
+        if self.async_save:
+            if self._worker is None:
+                raise RuntimeError("CheckpointManager is closed")
+            self._q.put((step, flat, dict(meta or {})))
+        else:
+            self._write(step, flat, meta or {})
 
     def restore(self, step: int, tree_like: Any = None) -> Any:
         """The tree saved at ``step`` (numpy leaves); with ``tree_like``, in
-        its structure and dtypes (a missing leaf raises ``KeyError``)."""
+        its structure, dtypes and (for tensor leaves) devices (a missing
+        leaf raises ``KeyError``)."""
         with np.load(os.path.join(self._step_dir(step), "state.npz")) as d:
             flat = {k: d[k] for k in d.files}
         if tree_like is None:
@@ -165,11 +240,19 @@ class CheckpointManager:
             return json.load(f)
 
     def wait(self) -> None:
-        """No-op: saves are synchronous (the reference's waits for its
-        background saves)."""
+        """Block until queued saves land; re-raise a failed save's error."""
+        if self.async_save:
+            self._q.join()
+        if self._errors:
+            raise self._errors.pop()
 
     def close(self) -> None:
-        """No-op: no background worker to stop."""
+        """Stop the background thread after the queued saves (no-op for a
+        synchronous manager)."""
+        if self._worker is not None:
+            self._q.put(None)
+            self._worker.join()
+            self._worker = None
 
     def _step_or_latest(self, step: Optional[int]) -> int:
         if step is None:

@@ -18,7 +18,7 @@ SMOKE = ModelConfig(
     n_layers=2, d_model=64, n_heads=8, n_kv_heads=2,
     d_ff=160, vocab_size=256,
     norm="layernorm", parallel_block=True, tie_embeddings=True,
-    dtype="float32",
+    remat=False, dtype="float32",
 )
 
 register("command-r-plus-104b", ArchSpec(

@@ -16,7 +16,7 @@ SMOKE = ModelConfig(
     name="danube-smoke",
     n_layers=2, d_model=64, n_heads=8, n_kv_heads=2,
     d_ff=160, vocab_size=128, sliding_window=8,
-    tie_embeddings=False, dtype="float32",
+    tie_embeddings=False, remat=False, dtype="float32",
 )
 
 register("h2o-danube-1.8b", ArchSpec(

@@ -22,7 +22,7 @@ SMOKE = ModelConfig(
     name="internvl2-smoke",
     n_layers=2, d_model=64, n_heads=8, n_kv_heads=2,
     d_ff=160, vocab_size=256, vision_tokens=4, tie_embeddings=False,
-    dtype="float32",
+    remat=False, dtype="float32",
 )
 
 register("internvl2-76b", ArchSpec(

@@ -32,7 +32,7 @@ SMOKE = ModelConfig(
     block_pattern=_PATTERN,
     moe_experts=4, moe_top_k=2, moe_group_size=32, capacity_factor=4.0,
     ssm_state=16, ssm_head_dim=32,
-    tie_embeddings=False, dtype="float32",
+    tie_embeddings=False, remat=False, dtype="float32",
 )
 
 register("jamba-1.5-large-398b", ArchSpec(

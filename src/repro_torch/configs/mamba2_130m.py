@@ -18,7 +18,7 @@ SMOKE = ModelConfig(
     d_ff=0, vocab_size=128,
     block_pattern=(("mamba", "none"),),
     ssm_state=16, ssm_head_dim=32, tie_embeddings=True,
-    dtype="float32",
+    remat=False, dtype="float32",
 )
 
 register("mamba2-130m", ArchSpec(

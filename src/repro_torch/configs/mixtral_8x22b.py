@@ -20,7 +20,7 @@ SMOKE = ModelConfig(
     block_pattern=(("attn", "moe"),),
     moe_experts=4, moe_top_k=2, moe_group_size=32, capacity_factor=4.0,
     sliding_window=8, tie_embeddings=False,
-    dtype="float32",
+    remat=False, dtype="float32",
 )
 
 register("mixtral-8x22b", ArchSpec(

@@ -23,7 +23,7 @@ SMOKE = ModelConfig(
     n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
     d_ff=160, vocab_size=64, norm="layernorm", activation="gelu",
     audio_frontend=True, tie_embeddings=False,
-    dtype="float32",
+    remat=False, dtype="float32",
 )
 
 register("musicgen-medium", ArchSpec(

@@ -19,7 +19,7 @@ SMOKE = ModelConfig(
     block_pattern=(("attn", "moe"),),
     moe_experts=8, moe_top_k=2, moe_d_ff=32, moe_group_size=32,
     capacity_factor=4.0,
-    tie_embeddings=False, dtype="float32",
+    tie_embeddings=False, remat=False, dtype="float32",
 )
 
 register("olmoe-1b-7b", ArchSpec(

@@ -15,7 +15,7 @@ SMOKE = ModelConfig(
     name="phi3-smoke",
     n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
     d_ff=160, vocab_size=128, tie_embeddings=False,
-    dtype="float32",
+    remat=False, dtype="float32",
 )
 
 register("phi3-mini-3.8b", ArchSpec(

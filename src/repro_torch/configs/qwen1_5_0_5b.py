@@ -16,7 +16,7 @@ SMOKE = ModelConfig(
     name="qwen-smoke",
     n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
     d_ff=160, vocab_size=256, qkv_bias=True, tie_embeddings=True,
-    dtype="float32",
+    remat=False, dtype="float32",
 )
 
 register("qwen1.5-0.5b", ArchSpec(

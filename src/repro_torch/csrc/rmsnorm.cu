@@ -30,6 +30,23 @@
 //
 // Rounding follows the plain PyTorch version (rmsnorm_ref) up to the order
 // of the sum of squares: (x · r) · scale, each product rounded.
+//
+// Backward (rmsnorm_bwd_f32 / rmsnorm_bwd_bf16, the gradient the training
+// path takes through every norm; the TPU kernel has none, as the reference
+// differentiates its plain jnp norm).  For x̂ = x·r, r = rsqrt(mean x² + eps)
+// and the output gradient g:
+//
+//   dx     = r·(g·s − x̂·mean(g·s·x̂))       in x's type,
+//   dscale = Σ_rows g·x̂                     in f32.
+//
+// Also bound by bytes (x and g read once, dx written once).  One block of
+// 256 threads takes a run of consecutive rows; a thread holds the columns
+// t, t + 256, ... of the current row in registers, the row's two sums
+// (Σx², Σg·s·x) are one block reduction, and the thread's dscale columns
+// accumulate in registers over the block's rows.  Each block writes its
+// dscale partial row; a second kernel sums the partials over the blocks in
+// block order, one thread a column: no atomics, so dscale is the same bits
+// on every run.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -307,6 +324,134 @@ int launch(const void* xp, const void* scalep, void* outp, int rows, int d,
                             blocks, s));
 }
 
+// ------------------------------------------------------------- backward
+constexpr int kBwdThreads = 256;        // rmsnorm_bwd_plan's BWD_THREADS
+constexpr int kBwdReduceThreads = 128;  // BWD_REDUCE_THREADS
+
+// The sums of a and b over the block (kBwdThreads threads); every thread
+// gets both.  Safe to call again at once (it syncs before reusing `part`).
+__device__ __forceinline__ float2 block_sum2(float a, float b) {
+  __shared__ float2 part[kBwdThreads / kWarp];
+  a = warp_sum(a);
+  b = warp_sum(b);
+  __syncthreads();
+  if (threadIdx.x % kWarp == 0) part[threadIdx.x / kWarp] = make_float2(a, b);
+  __syncthreads();
+  float2 t = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int w = 0; w < kBwdThreads / kWarp; ++w) {
+    t.x = __fadd_rn(t.x, part[w].x);
+    t.y = __fadd_rn(t.y, part[w].y);
+  }
+  return t;
+}
+
+// Rows [blockIdx.x · rows_per_block, +rows_per_block) of x and g: dx, and
+// this block's dscale partial row partial[blockIdx.x, :].  A thread holds
+// PER columns (t + k·kBwdThreads) of a row.
+template <typename T, int PER>
+__global__ void __launch_bounds__(kBwdThreads)
+rmsnorm_bwd_rows(const T* __restrict__ x, const float* __restrict__ scale,
+                 const T* __restrict__ g, T* __restrict__ dx,
+                 float* __restrict__ partial, int rows, int d, float eps,
+                 int rows_per_block) {
+  const int t = threadIdx.x;
+  const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_block;
+  const long long r1 = min(static_cast<long long>(rows),
+                           r0 + rows_per_block);
+  float sc[PER], acc[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int col = t + k * kBwdThreads;
+    sc[k] = col < d ? scale[col] : 0.f;
+    acc[k] = 0.f;
+  }
+  const float inv_d = 1.f / static_cast<float>(d);
+  for (long long row = r0; row < r1; ++row) {
+    const T* xr = x + row * d;
+    const T* gr = g + row * d;
+    float xv[PER], gv[PER];
+    float ss = 0.f, dot = 0.f;
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int col = t + k * kBwdThreads;
+      xv[k] = col < d ? to_f32(xr[col]) : 0.f;
+      gv[k] = col < d ? to_f32(gr[col]) : 0.f;
+      ss = __fmaf_rn(xv[k], xv[k], ss);
+      dot = __fmaf_rn(__fmul_rn(gv[k], sc[k]), xv[k], dot);   // g·s·x
+    }
+    const float2 tot = block_sum2(ss, dot);
+    const float r = inv_rms(tot.x, d, eps);
+    // mean(g·s·x̂) = r · Σ g·s·x / d
+    const float mean = __fmul_rn(__fmul_rn(r, tot.y), inv_d);
+    T* dxr = dx + row * d;
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int col = t + k * kBwdThreads;
+      if (col < d) {
+        const float xh = __fmul_rn(xv[k], r);
+        store(dxr + col, __fmul_rn(r, __fsub_rn(__fmul_rn(gv[k], sc[k]),
+                                                __fmul_rn(xh, mean))));
+        acc[k] = __fmaf_rn(gv[k], xh, acc[k]);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int col = t + k * kBwdThreads;
+    if (col < d) partial[static_cast<long long>(blockIdx.x) * d + col] =
+        acc[k];
+  }
+}
+
+// dscale[c] = Σ_b partial[b, c], the blocks in order.
+__global__ void __launch_bounds__(kBwdReduceThreads)
+rmsnorm_bwd_reduce(const float* __restrict__ partial,
+                   float* __restrict__ dscale, int nblocks, int d) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= d) return;
+  float s = 0.f;
+  for (int b = 0; b < nblocks; ++b) {
+    s = __fadd_rn(s, partial[static_cast<long long>(b) * d + col]);
+  }
+  dscale[col] = s;
+}
+
+template <typename T>
+int launch_bwd(const void* xp, const void* scalep, const void* gp, void* dxp,
+               void* partialp, void* dscalep, int rows, int d, float eps,
+               int per_thread, int rows_per_block, int blocks,
+               void* stream) {
+  const T* x = static_cast<const T*>(xp);
+  const float* scale = static_cast<const float*>(scalep);
+  const T* g = static_cast<const T*>(gp);
+  T* dx = static_cast<T*>(dxp);
+  float* partial = static_cast<float*>(partialp);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (per_thread * kBwdThreads < d || rows_per_block <= 0 ||
+      static_cast<long long>(blocks) * rows_per_block < rows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#define RMS_BWD(N)                                                      \
+  case N:                                                               \
+    rmsnorm_bwd_rows<T, N><<<blocks, kBwdThreads, 0, s>>>(              \
+        x, scale, g, dx, partial, rows, d, eps, rows_per_block);        \
+    break;
+  switch (per_thread) {
+    RMS_BWD(1) RMS_BWD(2) RMS_BWD(3) RMS_BWD(4) RMS_BWD(6) RMS_BWD(8)
+    RMS_BWD(10) RMS_BWD(12) RMS_BWD(16) RMS_BWD(20) RMS_BWD(24) RMS_BWD(32)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef RMS_BWD
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rmsnorm_bwd_reduce<<<(d + kBwdReduceThreads - 1) / kBwdReduceThreads,
+                       kBwdReduceThreads, 0, s>>>(
+      partial, static_cast<float*>(dscalep), blocks, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // One launch on `stream` of the route rmsnorm_launch_plan chose (route 0
@@ -329,4 +474,28 @@ extern "C" int rmsnorm_bf16(const void* x, const void* scale, void* out,
                             void* stream) {
   return launch<__nv_bfloat16>(x, scale, out, rows, d, eps, route,
                                per_thread, threads, blocks, stream);
+}
+
+// The backward: two launches on `stream` (the rows, then the reduction of
+// the blocks' dscale partials), as rmsnorm_bwd_plan chose them (per_thread
+// columns a thread holds, rows_per_block, blocks).  x, g and dx are (rows,
+// d) row-major in x's type; scale, dscale (d,) and partial (blocks, d) f32.
+// Allocates nothing; returns the first launch error (0 on success).
+extern "C" int rmsnorm_bwd_f32(const void* x, const void* scale,
+                               const void* g, void* dx, void* partial,
+                               void* dscale, int rows, int d, float eps,
+                               int per_thread, int rows_per_block,
+                               int blocks, void* stream) {
+  return launch_bwd<float>(x, scale, g, dx, partial, dscale, rows, d, eps,
+                           per_thread, rows_per_block, blocks, stream);
+}
+
+extern "C" int rmsnorm_bwd_bf16(const void* x, const void* scale,
+                                const void* g, void* dx, void* partial,
+                                void* dscale, int rows, int d, float eps,
+                                int per_thread, int rows_per_block,
+                                int blocks, void* stream) {
+  return launch_bwd<__nv_bfloat16>(x, scale, g, dx, partial, dscale, rows,
+                                   d, eps, per_thread, rows_per_block,
+                                   blocks, stream);
 }

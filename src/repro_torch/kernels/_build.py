@@ -40,6 +40,7 @@ SOURCES = {"levelsim": ("levelsim.cu", _EXACT),
            "rmsnorm": ("rmsnorm.cu", _EXACT),
            "flash_attention": ("flash_attention.cu", _EXACT),
            "flash_attention_sm90": ("flash_attention_sm90.cu", ()),
+           "flash_attention_bwd": ("flash_attention_bwd.cu", _EXACT),
            "ssd_scan": ("ssd_scan.cu", _EXACT)}
 
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,11 +1,11 @@
 """ModelConfig — one declarative config covering the LM families.
 
 Port of ``repro/models/config.py`` holding the fields the ported serving
-path reads, with the reference's defaults; ``dtype_`` is a torch dtype.  The
-options the port does not run yet (logit softcap, merged-head attention,
-int8 weights) stay as fields so that ``check_ported`` can reject them; the
-training and sharding knobs (remat, scan, FSDP, grad accumulation, optimizer
-state dtype) come with the train step.
+and training paths read, with the reference's defaults; ``dtype_`` is a
+torch dtype.  The options the port does not run yet (logit softcap,
+merged-head attention, int8 weights) stay as fields so that
+``check_ported`` can reject them; the sharding knobs (scan, FSDP, the
+optimizer state dtype of the dry-runs) come with ``launch/mesh``.
 
 ``block_pattern`` is the repeating unit of (mixer, ffn) pairs; the decoder
 loops over ``n_layers // len(pattern)`` repeats of it.
@@ -63,6 +63,11 @@ class ModelConfig:
     vision_tokens: int = 0               # VLM stub: prepended patch embeddings
     audio_frontend: bool = False         # audio stub flag (decoder-only body)
     dtype: str = "bfloat16"
+    # training
+    remat: bool = True
+    remat_policy: str = "full"           # "full" | "dots" (save matmul outputs
+    # — less recompute, more resident bytes) | applies when remat=True
+    grad_accum: int = 1                  # microbatch accumulation steps
     quantize_weights: bool = False       # int8 weight-only serving (B2)
 
     # ------------------------------------------------------------- derived

@@ -4,8 +4,9 @@ SwiGLU/GELU FFN, and GShard-style capacity-routed MoE.
 Port of ``repro/models/layers.py``.  Parameters keep the reference's names
 and layouts (``wq`` is (d, h, dh) per layer, applied as
 ``einsum("bsd,dhk->bshk")``; an expert's ``w_gate`` is (E, d, f)).  RMSNorm
-runs the ``rmsnorm`` kernel; prefill self-attention runs the
-``flash_attention`` kernel; decode attention (one query against the
+runs the ``rmsnorm`` kernel; prefill and training self-attention runs the
+``flash_attention`` kernel, and on the card the gradient of each goes
+through its backward kernel; decode attention (one query against the
 ring-buffer cache) and the MoE layer are plain PyTorch, as the reference
 computes them outside any kernel too.
 """

@@ -1,27 +1,38 @@
-"""Decoder-LM assembly: param defs, forward, prefill, decode, serve step.
+"""Decoder-LM assembly: param defs, forward, prefill, decode, train and
+serve steps.
 
-Port of ``repro/models/lm.py`` for serving.  The parameter tree keeps the
-reference's names and stacked layouts: ``params["blocks"][pos]`` holds the
-weights of pattern position ``pos`` for every repeat along a leading
-``layers`` axis, indexed here by a Python loop where the reference scans.
+Port of ``repro/models/lm.py``.  The parameter tree keeps the reference's
+names and stacked layouts: ``params["blocks"][pos]`` holds the weights of
+pattern position ``pos`` for every repeat along a leading ``layers`` axis,
+split per repeat here (one ``unbind`` a leaf, so a gradient is stacked back
+once) and run by a Python loop where the reference scans.
 
 Steps:
-  * ``forward``      — full causal forward
+  * ``forward``      — full causal forward (training, and the prefill body);
+                       with ``cfg.remat`` and gradients on, each pattern
+                       repeat runs under ``torch.utils.checkpoint``
+                       (``remat_policy`` "full" recomputes everything,
+                       "dots" keeps the matrix products' outputs), the
+                       reference's ``jax.checkpoint(body)``
   * ``prefill``      — forward + KV/SSM cache construction
   * ``decode_step``  — one-token serve step against the cache (updates the
                        cache in place, where the reference returns new
                        arrays)
+  * ``make_train_step`` — loss and gradients (``cfg.grad_accum``
+                       microbatches accumulated in f32), global-norm
+                       clipping, the optimizer's update
   * ``make_serve_step`` — greedy decode of one token
 
 Every architecture of the reference's registry runs: dense, sliding-window,
 Mamba-2, MoE and hybrid patterns, the parallel attn∥FFN block and
-vision-token prefixes.  The train step (``cross_entropy``, remat,
-``make_train_step``) and int8 weight serving wait for a later slice
-(ROADMAP.md queue 1, 'LM substrate').
+vision-token prefixes.  On the card the gradient goes through the kernels'
+backward kernels (``RMSNormFn``, ``FlashAttentionFn``, ``SSDScanFn``).  Int8
+weight serving waits for a later slice (ROADMAP.md queue 1, 'LM
+substrate').
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -29,11 +40,13 @@ from .config import ModelConfig
 from .layers import (AttnCache, apply_norm, attention, attn_defs,
                      check_ported, dense_ffn, ffn_defs, init_attn_cache,
                      moe_defs, moe_ffn, norm_defs)
-from .params import ParamDef, init_tree, normal_init, ones_init, tree_map
+from .params import (ParamDef, init_tree, normal_init, ones_init,
+                     tree_leaves, tree_map)
 from .ssm import init_ssm_cache, ssd_forward, ssm_decode_step, ssm_defs
 
 __all__ = ["model_defs", "init_params", "forward", "prefill", "decode_step",
-           "make_serve_step", "init_cache"]
+           "cross_entropy", "make_train_step", "make_serve_step",
+           "init_cache", "TrainState"]
 
 
 # ------------------------------------------------------------------- defs
@@ -184,6 +197,47 @@ def _layer(tree, r: int):
     return tree_map(lambda a: a[r], tree)
 
 
+def _unstack(tree, reps: int) -> List:
+    """The ``reps`` repeat trees of a stacked parameter tree, one ``unbind``
+    a leaf (its gradient is one stack, where ``reps`` selects would each
+    scatter into a zero tensor of the whole leaf)."""
+    parts = tree_map(lambda a: a.unbind(0), tree,
+                     is_leaf=lambda a: isinstance(a, torch.Tensor))
+    return [tree_map(lambda t: t[r], parts,
+                     is_leaf=lambda a: isinstance(a, tuple)
+                     and not hasattr(a, "_fields")) for r in range(reps)]
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``checkpoint_dots``: keep the outputs of matrix products, recompute
+    everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default}
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under ``torch.utils.checkpoint`` as ``cfg.remat_policy`` says
+    (the reference's ``jax.checkpoint`` of the scan body)."""
+    import functools
+
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    if cfg.remat_policy == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=lambda: create_selective_checkpoint_contexts(
+                _dots_policy))
+    if cfg.remat_policy != "full":
+        raise ValueError(f"{cfg.name}: remat_policy must be 'full' or "
+                         f"'dots'; got {cfg.remat_policy!r}")
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
 def _run_blocks(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
                 positions, caches=None, cache_index=None,
                 ssd_chunk: int = 256, want_cache: bool = False,
@@ -192,26 +246,41 @@ def _run_blocks(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
 
     caches: list (per position) of stacked cache tuples with leading dim =
     repeats, or None.  Decode updates them in place and returns them;
-    prefill (``want_cache``) returns newly stacked ones."""
+    prefill (``want_cache``) returns newly stacked ones.  A forward without
+    caches under gradients runs each repeat under ``cfg.remat``."""
     check_ported(cfg)
     npos = len(cfg.block_pattern)
-    built: List[List] = [[] for _ in range(npos)]
-    for r in range(cfg.pattern_repeats):
+    reps = cfg.pattern_repeats
+    layers = [_unstack(params["blocks"][pos], reps) for pos in range(npos)]
+
+    def body(x, blk, cache_r):
+        """One pattern repeat → (x, each position's cache)."""
+        new = []
         for pos in range(npos):
-            cache_p = _layer(caches[pos], r) if caches is not None else None
             x, nc = _apply_block_position(
-                cfg, pos, _layer(params["blocks"][pos], r), x,
-                positions=positions, cache=cache_p, cache_index=cache_index,
+                cfg, pos, blk[pos], x, positions=positions,
+                cache=cache_r[pos], cache_index=cache_index,
                 ssd_chunk=ssd_chunk, want_cache=want_cache,
                 cache_len=cache_len)
-            if want_cache:
-                built[pos].append(nc)
+            new.append(nc)
+        return x, new
+
+    if (cfg.remat and torch.is_grad_enabled() and caches is None
+            and not want_cache):
+        body = _remat(body, cfg)
+    built: List[List] = [[] for _ in range(npos)]
+    for r in range(reps):
+        cache_r = [_layer(caches[pos], r) if caches is not None else None
+                   for pos in range(npos)]
+        x, new = body(x, [layers[pos][r] for pos in range(npos)], cache_r)
+        for pos in range(npos):
+            built[pos].append(new[pos])
     if caches is not None:
         return x, caches
-    if want_cache:
-        return x, [type(cs[0])(*(torch.stack(f) for f in zip(*cs)))
-                   for cs in built]
-    return x, None
+    if not want_cache:
+        return x, None
+    return x, [type(cs[0])(*(torch.stack(f) for f in zip(*cs)))
+               for cs in built]
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -274,6 +343,91 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     x, caches = _run_blocks(params, cfg, x, positions=positions,
                             caches=caches, cache_index=index)
     return _unembed(params, cfg, x), caches
+
+
+# -------------------------------------------------------------------- loss
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token NLL in f32 (over ``mask``'s ones when given)."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+class TrainState(NamedTuple):
+    params: Dict
+    opt_state: Any
+    step: torch.Tensor       # () int32, on the CPU
+
+
+def _value_and_grad(loss_fn, params: Dict, batch: Dict):
+    """(loss, grads) of ``loss_fn(params, batch)``, the gradients in a tree
+    like ``params`` (a parameter the loss does not read gets zeros, as
+    ``jax.grad`` gives)."""
+    leaves = tree_leaves(params)
+    with torch.enable_grad():
+        live = {id(p): p.detach().requires_grad_(True) for p in leaves}
+        loss = loss_fn(tree_map(lambda p: live[id(p)], params), batch)
+        grads = torch.autograd.grad(loss, list(live.values()),
+                                    allow_unused=True)
+    by_id = {i: torch.zeros_like(p) if g is None else g
+             for (i, p), g in zip(live.items(), grads)}
+    return loss.detach(), tree_map(lambda p: by_id[id(p)], params)
+
+
+def make_train_step(cfg: ModelConfig, optimizer, *, clip_norm: float = 1.0,
+                    ssd_chunk: int = 256):
+    """Returns train_step(state, batch) → (state, metrics).
+
+    ``cfg.grad_accum > 1`` splits the global batch into microbatches and
+    accumulates gradients in f32 before one optimizer update — the
+    activation-memory lever when batch × seq blows the card's memory.
+    Then the gradients are clipped to ``clip_norm`` by their global norm and
+    the optimizer (``optim.adamw``) updates the parameters; metrics are
+    ``loss``, ``grad_norm`` (before clipping) and ``step``.
+    """
+    from ..optim import apply_updates, clip_by_global_norm
+
+    def loss_fn(params, batch):
+        logits = forward(params, cfg, batch["tokens"],
+                         vision_embeds=batch.get("vision_embeds"),
+                         ssd_chunk=ssd_chunk)
+        return cross_entropy(logits, batch["labels"], batch.get("mask"))
+
+    def _grads(params, batch):
+        a = cfg.grad_accum
+        if a <= 1:
+            return _value_and_grad(loss_fn, params, batch)
+        micro = {k: v.reshape((a, v.shape[0] // a) + tuple(v.shape[1:]))
+                 for k, v in batch.items()}
+        gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                              device=p.device), params)
+        lsum = None
+        for i in range(a):
+            loss, g = _value_and_grad(loss_fn, params,
+                                      {k: v[i] for k, v in micro.items()})
+            leaves_g = iter(tree_leaves(g))
+            for acc in tree_leaves(gsum):
+                acc.add_(next(leaves_g).to(torch.float32))
+            lsum = loss if lsum is None else lsum + loss
+        return lsum / a, tree_map(lambda g: g / a, gsum)
+
+    def train_step(state: TrainState, batch: Dict):
+        loss, grads = _grads(state.params, batch)
+        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        updates, opt_state = optimizer.update(grads, state.opt_state,
+                                              state.params)
+        del grads
+        params = apply_updates(state.params, updates)
+        step = state.step + 1
+        metrics = {"loss": loss, "grad_norm": gnorm, "step": step}
+        return TrainState(params, opt_state, step), metrics
+
+    return train_step
 
 
 def make_serve_step(cfg: ModelConfig):

@@ -12,7 +12,9 @@ once.  The reference carries the inter-chunk state through a ``lax.scan``
 over chunks; here every chunk's state contribution ``dbx`` and decay are
 computed at once, one ``ssd_scan`` kernel launch gives the state entering
 each chunk, and the inter-chunk readout follows for all chunks in parallel.
-The result is the reference's ``chunk_body`` recurrence.
+The result is the reference's ``chunk_body`` recurrence.  In training the
+scan's gradient is its reverse-scan kernel and the gated norm's the
+rmsnorm backward kernel.
 
 Decode keeps a recurrent state (B, H, P, N) + conv ring state and performs a
 single-step update.
