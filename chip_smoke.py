@@ -4,9 +4,11 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
-``build/repro_torch``, one ``nvcc`` per source, all at once: seven sources,
+``build/repro_torch``, one ``nvcc`` per source, all at once: eight sources,
 as flash_attention has a bf16 tensor-core kernel, ``flash_attention_sm90.cu``,
-an f32 SIMT one and a backward, ``flash_attention_bwd.cu``), holds each kernel against its plain PyTorch version on
+with its tensor-core backward, ``flash_attention_bwd_sm90.cu``, and an f32
+SIMT one with its SIMT backward, ``flash_attention_bwd.cu``), holds each
+kernel against its plain PyTorch version on
 the card at the main paths' shapes and on every route a kernel has
 (level_makespan's staged and general routes, bitwise, on the three paper
 graphs at B = 1, 7, 320 and 4096, a DAG wider than a warp, the
@@ -151,6 +153,10 @@ H100_BF16_FLOPS = 989e12     # dense bf16 on the tensor cores
 # before the tensor-core kernel took bf16 (PERF.md section 6: chip_smoke.py
 # on an NVIDIA H100 80GB HBM3 at 700 W)
 FLASH_SIMT_BF16_MS = 31.708
+# the bf16 flash backward's time at FLASH_BWD_CASES' two bf16 shapes on the
+# SIMT kernels, before the tensor-core backward took bf16 (PERF.md section
+# 6: chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W)
+FLASH_BWD_SIMT_BF16_MS = (295.830, 104.927)
 
 TOL = 1e-5
 # The redesigns' goals on the card (design goals, printed as met or not):
@@ -966,24 +972,34 @@ def rmsnorm_checks(torch):
 
 
 def flash_sm90_report():
-    """The bf16 tensor-core flash kernel's build: per head dim, its registers
-    and spills from nvcc's ``-Xptxas -v`` log and the dynamic shared memory
-    a block takes."""
+    """The bf16 tensor-core flash kernels' build (the forward and the
+    backward's dq and dk/dv kernels): per head dim, registers and spills
+    from nvcc's ``-Xptxas -v`` log and the dynamic shared memory a block
+    takes."""
     import ctypes
     import re
     from repro_torch.kernels._build import _lib_path, library
     smem = library("flash_attention_sm90").flash_attention_bf16_sm90_smem
     smem.restype, smem.argtypes = ctypes.c_int, [ctypes.c_int]
-    log = _lib_path("flash_attention_sm90").with_suffix(".log").read_text()
-    d = None
-    for line in log.splitlines():
-        entry = re.search(r"flash_attention_sm90_kernelILi(\d+)E", line)
-        if entry and "Compiling entry" in line:
-            d = int(entry.group(1))
-        elif d is not None and ("registers" in line or "spill" in line):
-            print(f"[build] flash_attention_sm90 D={d}: {line.strip()}"
-                  + (f"; dynamic shared memory {smem(d)} B per block"
-                     if "registers" in line else ""))
+    bwd_smem = library("flash_attention_bwd_sm90") \
+        .flash_attention_bwd_bf16_sm90_smem
+    bwd_smem.restype = ctypes.c_int
+    bwd_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    kernels = {"flash_attention_sm90_kernel": lambda d: smem(d),
+               "flash_bwd_dq_sm90": lambda d: bwd_smem(d, 0),
+               "flash_bwd_dkv_sm90": lambda d: bwd_smem(d, 1)}
+    for lib in ("flash_attention_sm90", "flash_attention_bwd_sm90"):
+        log = _lib_path(lib).with_suffix(".log").read_text()
+        name = d = None
+        for line in log.splitlines():
+            entry = re.search(r"(flash_\w+?)ILi(\d+)E", line)
+            if entry and "Compiling entry" in line \
+                    and entry.group(1) in kernels:
+                name, d = entry.group(1), int(entry.group(2))
+            elif d is not None and ("registers" in line or "spill" in line):
+                print(f"[build] {name} D={d}: {line.strip()}"
+                      + (f"; dynamic shared memory {kernels[name](d)} B per "
+                         f"block" if "registers" in line else ""))
 
 
 def flash_checks(torch):
@@ -3062,33 +3078,55 @@ def grad_check(torch, name, got, want, dtype, worst):
     return worst
 
 
+def flash_lse_tol(n_tiles: int, lse_max: float) -> float:
+    """The bound on |saved lse − torch.logsumexp| (natural log) of a row
+    that visits at most ``n_tiles`` key tiles: each term of the row's sum l
+    carries the relative error of the ex2.approx that made it and of each
+    later rescale by alpha, one a visited tile, at most 2^-22 a call (2
+    ulp); as much again for the sums' f32 rounding and log2f; and 4 ulp of
+    the value for the two sides' final rounding."""
+    return 2 * (n_tiles + 1) * 2.0 ** -22 + 4 * 2.0 ** -23 * lse_max
+
+
 def flash_bwd_checks(torch):
-    """The flash backward kernels (csrc/flash_attention_bwd.cu) against the
-    plain version's autograd at FLASH_BWD_CASES, one (b, KV head) slice of
-    the plain version at a time (the whole (B, H, S, S) f32 score tensor of
-    danube's shape would take 34 GB), then the kernel's time beside the
-    plain backward's and scaled_dot_product_attention's backward (printed
-    at both bf16 shapes) → (worst, timing at danube's shape)."""
+    """The flash backward kernels of both routes against the plain
+    version's autograd at FLASH_BWD_CASES, one (b, KV head) slice of the
+    plain version at a time (the whole (B, H, S, S) f32 score tensor of
+    danube's shape would take 34 GB): bf16 through the tensor-core kernels
+    (csrc/flash_attention_bwd_sm90.cu), with scaled_dot_product_attention's
+    backward's distance from the same plain gradients printed beside, two
+    launches on the same inputs held to the same bits and the forward's
+    saved log-sum-exp held to ``flash_lse_tol`` of torch.logsumexp of the
+    masked f32 scores; f32 through the SIMT kernels
+    (csrc/flash_attention_bwd.cu).  Then, at both bf16 shapes, the kernels'
+    time beside the plain backward's and scaled_dot_product_attention's
+    backward's → (worst, timing at danube's shape)."""
+    import math
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention, flash_attention_ref
     from repro_torch.kernels.flash_attention import (
-        flash_attention_backward, flash_mask, flash_pairs)
+        BLOCK_K, BLOCK_Q, flash_attention_backward, flash_attention_forward,
+        flash_mask, flash_pairs, flash_tile_plan)
     gen = torch.Generator(device="cuda").manual_seed(21)
+    routes = {"bfloat16": "wgmma_bf16", "float32": "simt_f32"}
     worst, timings = 0.0, []
     for (B, H, KV, S, D), W, dt in FLASH_BWD_CASES:
         dtype = getattr(torch, dt)
         G = H // KV
+        shape = f"{(B, H, KV, S, D)} window={W} {dt}"
 
         def rnd(*shape):
             return torch.randn(*shape, generator=gen, device="cuda").to(
                 dtype)
         q, k, v = rnd(B, H, S, D), rnd(B, KV, S, D), rnd(B, KV, S, D)
         dout = rnd(B, H, S, D)
-        before = flash_attention_backward.launches
+        before = dict(flash_attention_backward.route_launches)
         dq, dk, dv = _grads(torch, lambda q, k, v: flash_attention(
             q, k, v, window=W), [q, k, v], dout)
-        check(flash_attention_backward.launches == before + 1,
-              "the flash backward did not launch its kernels")
+        check(all(flash_attention_backward.route_launches[r] == before[r]
+                  + (r == routes[dt]) for r in before),
+              f"the flash backward at {shape} did not launch the "
+              f"{routes[dt]} kernels alone")
         want = [torch.empty_like(dq), torch.empty_like(dk),
                 torch.empty_like(dv)]
         for b in range(B):
@@ -3100,15 +3138,64 @@ def flash_bwd_checks(torch):
                     dout[b:b + 1, hs])
                 want[0][b, hs], want[1][b, j], want[2][b, j] = \
                     g3[0][0], g3[1][0, 0], g3[2][0, 0]
-        worst = grad_check(torch, f"flash_attention backward {(B, H, KV, S, D)} "
-                           f"window={W} {dt}", [dq, dk, dv], want, dtype,
-                           worst)
-        del dq, dk, dv, want
+        worst = grad_check(torch, f"flash_attention backward {shape}",
+                           [dq, dk, dv], want, dtype, worst)
         if dt == "float32":
+            del dq, dk, dv, want
             continue
-        out = flash_attention(q, k, v, window=W)
+        # the yardstick: SDPA's backward against the same plain gradients,
+        # normwise (max) and in the Frobenius norm, which the bf16 rounding
+        # of the largest entry does not decide
+        mask = flash_mask(S, True, W, "cuda")
+        lib_g = _grads(torch, lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True), [q, k, v], dout)
+
+        def errs(grads):
+            out = []
+            for g, w in zip(grads, want):
+                g, w = g.float(), w.float()
+                out.append(f"{rel_err(torch, g, w):.3e} / "
+                           f"{float((g - w).norm() / w.norm()):.3e}")
+            return ", ".join(out)
+        print(f"[train_kernels] flash_attention backward {shape} against the "
+              f"plain gradients, normwise / Frobenius (dq, dk, dv): the "
+              f"kernels {errs((dq, dk, dv))}; scaled_dot_product_attention's "
+              f"backward {errs(lib_g)}")
+        del lib_g, want
+        # two launches on the same inputs give the same bits
+        out, lse = flash_attention_forward(q, k, v, window=W)
+        again = flash_attention_backward(q, k, v, out, dout, lse, window=W)
+        same = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
+        print(f"[train_kernels] flash_attention backward {shape}: a second "
+              f"launch bit for bit: {same}")
+        check(same, f"two flash backward launches at {shape} differ")
+        del dq, dk, dv, again
+        # the saved log-sum-exp (base 2) against torch.logsumexp, a (b, KV
+        # head) slice at a time
+        lse_err, lse_max = 0.0, 0.0
+        for b in range(B):
+            for j in range(KV):
+                hs = slice(j * G, (j + 1) * G)
+                sc = torch.einsum("gsd,td->gst", q[b, hs].float(),
+                                  k[b, j].float()) / math.sqrt(D)
+                sc.masked_fill_(~mask, -1e30)
+                ref = torch.logsumexp(sc, -1)
+                del sc
+                lse_err = max(lse_err, float(
+                    (lse[b, hs] * math.log(2) - ref).abs().max()))
+                lse_max = max(lse_max, float(ref.abs().max()))
+        # the key tiles the forward kernel's rows visit
+        n_tiles = max(t.hi - t.lo + 1 for t in flash_tile_plan(
+            S, BLOCK_Q, BLOCK_K, True, W))
+        tol = flash_lse_tol(n_tiles, lse_max)
+        print(f"[train_kernels] flash_attention forward {shape}: saved "
+              f"log-sum-exp against torch.logsumexp of the masked f32 "
+              f"scores: max abs err {lse_err:.3e} (bound {tol:.3e}: up to "
+              f"{n_tiles} key tiles a row, |lse| up to {lse_max:.3f})")
+        check(lse_err <= tol, f"the saved log-sum-exp at {shape} is "
+              f"{lse_err:.3e} from torch.logsumexp, above {tol:.3e}")
         ms, host = cuda_ms(torch, lambda: flash_attention_backward(
-            q, k, v, out, dout, window=W), 3, 1)
+            q, k, v, out, dout, lse, window=W), 3, 1)
         # the plain backward over every (b, KV head) slice, one slice's
         # graph at a time (built before its timing starts), the measured
         # times summed
@@ -3125,32 +3212,39 @@ def flash_bwd_checks(torch):
                     2, 1)[0])
                 del o1, qs, ks, vs
         plain = sum(slice_ms)
-        mask = flash_mask(S, True, W, "cuda")
         ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
         lo = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
                                             enable_gqa=True)
         lib, _ = cuda_ms(torch, lambda: torch.autograd.grad(
             lo, (ql, kl, vl), dout, retain_graph=True), 3, 1)
+        ms2, _ = cuda_ms(torch, lambda: flash_attention_backward(
+            q, k, v, out, dout, lse, window=W), 3, 1)
         del lo, ql, kl, vl, mask
         pairs, visited = flash_pairs(S, True, W)
         esize = q.element_size()
         nbytes = esize * (B * H * S * D * 3 + B * KV * S * D * 4)
         ops = 10 * B * H * D * pairs     # 5 products of the unmasked pairs
         b_ms, b_by = bound_ms_bf16(nbytes, ops)
-        t = (ms, plain, b_ms, b_by, lib)
-        print(f"[train_kernels] flash_attention backward timing "
-              f"{(B, H, KV, S, D)} window {W} {dt}: kernel {ms:.3f} ms on "
-              f"the card ({host:.4f} ms of host time to launch), "
-              f"{ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s on the unmasked "
-              f"pairs' 5 products, {100 * b_ms / ms:.2f} % of the bound; "
-              f"plain {plain:.3f} ms (the sum of {B * KV} (b, KV head) "
-              f"slices' measured times, {min(slice_ms):.3f}-"
+        t = (min(ms, ms2), plain, b_ms, b_by, lib)
+        before_ms = FLASH_BWD_SIMT_BF16_MS[len(timings)]
+        print(f"[train_kernels] flash_attention backward timing {shape}: "
+              f"kernels {ms:.3f} / {ms2:.3f} ms on the card (two runs around "
+              f"the library's; {host:.4f} ms of host time to launch), "
+              f"{ops / (t[0] * 1e-3) / 1e12:.2f} TFLOP/s on the unmasked "
+              f"pairs' 5 products ({1.4 * ops / (t[0] * 1e-3) / 1e12:.2f} "
+              f"on the 7 the kernels execute), {100 * b_ms / t[0]:.2f} % of "
+              f"the bound; plain {plain:.3f} ms (the sum of {B * KV} (b, KV "
+              f"head) slices' measured times, {min(slice_ms):.3f}-"
               f"{max(slice_ms):.3f} ms each); scaled_dot_product_attention's "
-              f"backward (bool "
-              f"mask, enable_gqa) {lib:.3f} ms; bound {b_ms:.6f} ms ({b_by}: "
-              f"{nbytes} B, {ops} ops over {pairs} unmasked pairs per head)")
+              f"backward (bool mask, enable_gqa) {lib:.3f} ms; bound "
+              f"{b_ms:.6f} ms ({b_by}: {nbytes} B, {ops} ops over {pairs} "
+              f"unmasked pairs per head); the SIMT kernels before: "
+              f"{before_ms} ms (PERF.md)")
+        check(t[0] < lib, f"the bf16 flash backward ({t[0]:.3f} ms) is not "
+              f"faster than scaled_dot_product_attention's backward "
+              f"({lib:.3f} ms) at {shape}")
         timings.append(t)
-        del q, k, v, dout, out
+        del q, k, v, dout, out, lse
         torch.cuda.empty_cache()
     return worst, timings[0]
 
@@ -3316,7 +3410,7 @@ def train_phase(torch, arch, batch, seq, steps, ckpt_every, workdir):
           f"not the {want} the code implies")
     check(counters["flash_attention"].route_launches["wgmma_bf16"]
           == want["flash_attention"]
-          and counters["flash_attention_bwd"].route_launches["simt_bf16"]
+          and counters["flash_attention_bwd"].route_launches["wgmma_bf16"]
           == want["flash_attention_bwd"],
           f"{arch}: the bf16 run did not take the bf16 flash kernels")
     if ckpt_every:
@@ -3877,7 +3971,7 @@ def main() -> int:
          "max_abs_err": ssd_err, "ms": ssd_t[0], "plain_ms": ssd_t[1],
          "bound_ms": ssd_t[2], "bound_by": ssd_t[3], "library_ms": ssd_t[4]},
         {"name": "flash_attention_bwd", "route": "cuda",
-         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+         "source": "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
          "replaces": "src/repro/kernels/flash_attention.py:35 (its "
                      "gradient; the Pallas kernel has no backward)",
          "launches": tdanube["flash_attention_bwd"],

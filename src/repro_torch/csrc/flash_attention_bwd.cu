@@ -1,15 +1,17 @@
-// The gradient of causal (optionally sliding-window) GQA attention on
+// The f32 gradient of causal (optionally sliding-window) GQA attention on
 // Hopper: given q (B, H, S, D), k and v (B, KV, S, D), the forward's output
-// o and its gradient dout (B, H, S, D), it computes dq, dk and dv in the
-// inputs' type (f32 or bf16; every product, sum and softmax statistic in
-// f32).  D is 64, 80, 96 or 128.  Head h reads KV head h / (H / KV).
+// o and its gradient dout (B, H, S, D), all f32, it computes dq, dk and dv
+// (every product, sum and softmax statistic in f32, exact to 1e-5, which
+// TF32 tensor cores could not be).  D is 64, 80, 96 or 128.  Head h reads
+// KV head h / (H / KV).  The bf16 gradient runs on the tensor cores in
+// flash_attention_bwd_sm90.cu.
 //
 // Replaces no TPU kernel: src/repro/kernels/flash_attention.py has no
 // backward, because the reference trains through plain jnp attention and
 // calls its Pallas kernel only from the kernel tests.  The port runs the
 // training forward through flash_attention's kernels, and this is their
-// gradient (FlashAttentionFn in kernels/flash_attention.py), so that a CUDA
-// tensor never falls back to the plain version.
+// gradient on the f32 route (FlashAttentionFn in kernels/flash_attention.py),
+// so that a CUDA tensor never falls back to the plain version.
 //
 // Two kernels, one launch each, no atomics (the same bits on every run):
 //
@@ -35,10 +37,8 @@
 // pass 1, as in the forward, and p = 0 in pass 2 and in kernel B.
 //
 // What bounds it on this card: operations.  About 8 products of the
-// visited (query, key) pairs by D, on the f32 units from shared memory.  A
-// simple kernel first: the tensor cores are later work.
+// visited (query, key) pairs by D, on the f32 units from shared memory.
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -50,13 +50,7 @@ constexpr int kPer = kBK / 4;  // scores a thread holds per tile
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -436,8 +430,8 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
 
 // The backward: two launches on `stream` (kernel A: dq, and lse and D_i
 // into the (B, H, S) f32 scratch `lse` and `dsum`; kernel B: dk and dv).
-// q, o, dout, dq are (B, H, S, D), k, v, dk, dv (B, KV, S, D), contiguous,
-// all of one type.  Allocates nothing; returns the first launch error (0 on
+// q, o, dout, dq are (B, H, S, D), k, v, dk, dv (B, KV, S, D), contiguous
+// f32.  Allocates nothing; returns the first launch error (0 on
 // success; cudaErrorInvalidValue for a head dim or grouping it is not
 // built for).
 extern "C" int flash_attention_bwd_f32(const void* q, const void* k,
@@ -449,15 +443,4 @@ extern "C" int flash_attention_bwd_f32(const void* q, const void* k,
                                        void* stream) {
   return dispatch<float>(q, k, v, o, dout, dq, dk, dv, lse, dsum, B, H, KV,
                          S, D, scale, causal, window, stream);
-}
-
-extern "C" int flash_attention_bwd_bf16(const void* q, const void* k,
-                                        const void* v, const void* o,
-                                        const void* dout, void* dq, void* dk,
-                                        void* dv, void* lse, void* dsum,
-                                        int B, int H, int KV, int S, int D,
-                                        float scale, int causal, int window,
-                                        void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, lse, dsum, B,
-                                 H, KV, S, D, scale, causal, window, stream);
 }

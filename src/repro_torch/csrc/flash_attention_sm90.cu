@@ -1,8 +1,10 @@
 // Causal (optionally sliding-window) GQA attention for bf16 on Hopper's
 // tensor cores.  q is (B, H, S, D), k and v are (B, KV, S, D), head h reads
-// KV head h / (H / KV); the output is (B, H, S, D) bf16.  D is 64, 80, 96
-// or 128.  The f32 entry stays on the SIMT kernel of flash_attention.cu,
-// which is exact to 1e-5; this file takes bf16 only.
+// KV head h / (H / KV); the output is (B, H, S, D) bf16, and each row's
+// log-sum-exp, which the backward (flash_attention_bwd_sm90.cu) reads, is
+// written to a (B, H, S) f32 tensor in base 2 (see the epilogue).  D is 64,
+// 80, 96 or 128.  The f32 entry stays on the SIMT kernel of
+// flash_attention.cu, which is exact to 1e-5; this file takes bf16 only.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::_flash_kernel
 // (via flash_attention).  The Pallas grid walks the key blocks as its
@@ -436,7 +438,8 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk_tail,
                             const __grid_constant__ CUtensorMap tv,
                             const __grid_constant__ CUtensorMap tv_tail,
-                            __nv_bfloat16* __restrict__ out, int H, int KV,
+                            __nv_bfloat16* __restrict__ out,
+                            float* __restrict__ lse, int H, int KV,
                             int S, float scale_log2, int causal, int window) {
   using P = Shape<D>;
   extern __shared__ uint8_t smem_raw[];
@@ -590,6 +593,14 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
           __floats2bfloat162_rn(o[4 * g + 2] * inv1, o[4 * g + 3] * inv1);
     }
   }
+  // Each row's log-sum-exp for the backward (flash_attention_bwd_sm90.cu),
+  // in base 2 of the scaled scores: log2 Σ_t 2^(s_t·c) = m·c + log2(l), the
+  // base of the backward's exp2; +inf for a row that saw no key.
+  if (cq == 0) {
+    float* lb = lse + static_cast<size_t>(b * H + h) * S;
+    if (i0 < S) lb[i0] = l0 == 0.f ? INFINITY : m0 * scale_log2 + log2f(l0);
+    if (i1 < S) lb[i1] = l1 == 0.f ? INFINITY : m1 * scale_log2 + log2f(l1);
+  }
 }
 
 // cuTensorMapEncodeTiled, taken from libcuda through the runtime so the
@@ -644,8 +655,8 @@ bool tensor_map(CUtensorMap* map, EncodeTiled encode, const void* base,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int H, int KV, int S, float scale, int causal, int window,
+int launch(const void* q, const void* k, const void* v, void* out, void* lse,
+           int B, int H, int KV, int S, float scale, int causal, int window,
            cudaStream_t stream) {
   auto* kernel = flash_attention_sm90_kernel<D>;
   constexpr int smem = Shape<D>::kSmem;
@@ -668,33 +679,36 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       tq, tq_tail, tk, tk_tail, tv, tv_tail,
-      static_cast<__nv_bfloat16*>(out), H, KV, S,
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), H, KV, S,
       scale * kLog2e, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// One launch on `stream`; all tensors contiguous bf16, 16-byte aligned.  H
-// must be a multiple of KV and D one of 64, 80, 96, 128 (else
-// cudaErrorInvalidValue).  Allocates nothing; returns the launch's
-// cudaError_t (0 on success).
+// One launch on `stream`; q, k, v and out contiguous bf16, 16-byte aligned;
+// lse the (B, H, S) f32 log-sum-exp of each row (written).  H must be a
+// multiple of KV and D one of 64, 80, 96, 128 (else cudaErrorInvalidValue).
+// Allocates nothing; returns the launch's cudaError_t (0 on success).
 extern "C" int flash_attention_bf16_sm90(const void* q, const void* k,
-                                         const void* v, void* out, int B,
-                                         int H, int KV, int S, int D,
+                                         const void* v, void* out, void* lse,
+                                         int B, int H, int KV, int S, int D,
                                          float scale, int causal, int window,
                                          void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch<64>(q, k, v, out, B, H, KV, S, scale, causal, window, s);
+      return launch<64>(q, k, v, out, lse, B, H, KV, S, scale, causal,
+                        window, s);
     case 80:
-      return launch<80>(q, k, v, out, B, H, KV, S, scale, causal, window, s);
+      return launch<80>(q, k, v, out, lse, B, H, KV, S, scale, causal,
+                        window, s);
     case 96:
-      return launch<96>(q, k, v, out, B, H, KV, S, scale, causal, window, s);
+      return launch<96>(q, k, v, out, lse, B, H, KV, S, scale, causal,
+                        window, s);
     case 128:
-      return launch<128>(q, k, v, out, B, H, KV, S, scale, causal, window,
-                         s);
+      return launch<128>(q, k, v, out, lse, B, H, KV, S, scale, causal,
+                         window, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

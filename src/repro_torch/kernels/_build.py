@@ -31,16 +31,17 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _EXACT = ("--fmad=false",)
 
 #: kernel library name → (its source under ``csrc/``, its own nvcc flags).
-#: The bf16 attention kernel runs on the tensor cores and compares with its
-#: plain version at bf16's tolerance, so it keeps fused multiply-adds; it
-#: takes cuTensorMapEncodeTiled from libcuda through the CUDA runtime, so
-#: it links nothing beyond the runtime either.
+#: The bf16 attention kernels (forward and backward) run on the tensor cores
+#: and compare with their plain versions at bf16's tolerance, so they keep
+#: fused multiply-adds; they take cuTensorMapEncodeTiled from libcuda
+#: through the CUDA runtime, so they link nothing beyond the runtime either.
 SOURCES = {"levelsim": ("levelsim.cu", _EXACT),
            "gcn_spmm": ("gcn_spmm.cu", _EXACT),
            "rmsnorm": ("rmsnorm.cu", _EXACT),
            "flash_attention": ("flash_attention.cu", _EXACT),
            "flash_attention_sm90": ("flash_attention_sm90.cu", ()),
            "flash_attention_bwd": ("flash_attention_bwd.cu", _EXACT),
+           "flash_attention_bwd_sm90": ("flash_attention_bwd_sm90.cu", ()),
            "ssd_scan": ("ssd_scan.cu", _EXACT)}
 
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

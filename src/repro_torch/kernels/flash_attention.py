@@ -5,23 +5,29 @@ GQA head grouping (head h reads KV head h // (H / KV)), a causal mask and an
 optional sliding window, f32 softmax statistics and accumulation, and the
 output in q's dtype.
 
-``flash_attention`` runs CUDA tensors through ``FlashAttentionFn``.  Its
-forward launches a kernel chosen by dtype: bf16 runs
-``csrc/flash_attention_sm90.cu`` (``wgmma`` on the tensor cores, fed by TMA)
-and f32 runs the SIMT kernel of ``csrc/flash_attention.cu`` (exact to 1e-5,
-which TF32 tensor cores could not be).  Its backward
-(``flash_attention_backward``) launches ``csrc/flash_attention_bwd.cu``'s
-two kernels, templated on the dtype (dq, then dk and dv), from the saved q,
-k, v and output.  CPU tensors run the plain PyTorch version
-``flash_attention_ref`` (the port of
-``repro/kernels/ref.py::flash_attention_ref``), which autograd
+``flash_attention`` runs CUDA tensors through ``FlashAttentionFn``, on one
+of two routes chosen by dtype, each a forward and a backward of two kernels
+(dq, then dk and dv; no atomics, so a step gives the same bits every run):
+
+* ``wgmma_bf16``: the forward ``csrc/flash_attention_sm90.cu`` and the
+  backward ``csrc/flash_attention_bwd_sm90.cu``, on the tensor cores
+  (``wgmma``, fed by TMA).  The forward also writes each row's log-sum-exp
+  (base 2 of the scores scaled by log2(e)/sqrt(D)), which
+  ``FlashAttentionFn`` saves beside q, k, v and the output for the backward.
+* ``simt_f32``: the forward ``csrc/flash_attention.cu`` and the backward
+  ``csrc/flash_attention_bwd.cu``, on the f32 units (exact to 1e-5, which
+  TF32 tensor cores could not be); its dq kernel recomputes the log-sum-exp.
+
+CPU tensors run the plain PyTorch version ``flash_attention_ref`` (the port
+of ``repro/kernels/ref.py::flash_attention_ref``), which autograd
 differentiates.  All apply ``window`` only under ``causal``, as ``ref.py``
 does.
 
-``flash_tile_plan`` is the Python mirror of the forward kernels' loop
-bounds: which key tiles each query tile visits and which of them apply the
-in-tile mask; ``flash_bwd_tile_plan`` is the backward dk/dv kernel's: which
-query tiles each key tile is visited by, and which of them mask.
+``flash_tile_plan`` is the Python mirror of the loops that walk key tiles
+for a query tile (the forwards, and the dq kernels at their own tile sizes):
+which key tiles each query tile visits and which of them apply the in-tile
+mask; ``flash_bwd_tile_plan`` is the dk/dv kernels': which query tiles each
+key tile is visited by, and which of them mask.
 """
 from __future__ import annotations
 
@@ -34,8 +40,10 @@ import torch
 __all__ = ["flash_attention", "flash_attention_ref", "flash_mask",
            "flash_tile_plan", "flash_pairs", "TileVisit", "HEAD_DIMS",
            "BLOCK_Q", "BLOCK_K", "FlashAttentionFn",
-           "flash_attention_backward", "flash_bwd_tile_plan",
-           "BWD_BLOCK_Q", "BWD_BLOCK_K"]
+           "flash_attention_backward", "flash_attention_forward",
+           "flash_bwd_tile_plan", "BWD_BLOCK_Q", "BWD_BLOCK_K",
+           "SM90_DQ_BLOCK_Q", "SM90_DQ_BLOCK_K", "SM90_DKV_BLOCK_Q",
+           "SM90_DKV_BLOCK_K"]
 
 #: head dims the CUDA kernels are compiled for
 HEAD_DIMS = (64, 80, 96, 128)
@@ -43,10 +51,18 @@ HEAD_DIMS = (64, 80, 96, 128)
 #: ``csrc/flash_attention_sm90.cu``)
 BLOCK_Q = 128
 BLOCK_K = 128
-#: query rows and keys per tile of the backward kernels (kBQ, kBK in
+#: query rows and keys per tile of the f32 backward kernels (kBQ, kBK in
 #: ``csrc/flash_attention_bwd.cu``)
 BWD_BLOCK_Q = 64
 BWD_BLOCK_K = 64
+#: the bf16 backward's tiles (``csrc/flash_attention_bwd_sm90.cu``): its dq
+#: kernel takes 128 query rows a block against key tiles of 64 (kDqBQ,
+#: kDqBK; ``flash_tile_plan``), its dk/dv kernel 128 keys a block against
+#: query tiles of 64 (kDkvBK, kDkvBQ; ``flash_bwd_tile_plan``)
+SM90_DQ_BLOCK_Q = 128
+SM90_DQ_BLOCK_K = 64
+SM90_DKV_BLOCK_Q = 64
+SM90_DKV_BLOCK_K = 128
 
 
 def flash_mask(s: int, causal: bool, window: int,
@@ -179,31 +195,29 @@ def flash_pairs(s: int, causal: bool, window: int, block_q: int = BLOCK_Q,
     return unmasked, visited
 
 
-# dtype → (library, C entry, route name)
+# dtype → (library, C entry, route name); the bf16 forward also writes the
+# rows' log-sum-exp (one more pointer)
 _ROUTES = {torch.float32: ("flash_attention", "flash_attention_f32",
                            "simt_f32"),
            torch.bfloat16: ("flash_attention_sm90",
                             "flash_attention_bf16_sm90", "wgmma_bf16")}
-# dtype → (C entry of csrc/flash_attention_bwd.cu, route name)
-_BWD_ROUTES = {torch.float32: ("flash_attention_bwd_f32", "simt_f32"),
-               torch.bfloat16: ("flash_attention_bwd_bf16", "simt_bf16")}
+# dtype → (library, C entry, route name) of the backward; both entries take
+# the same arguments
+_BWD_ROUTES = {torch.float32: ("flash_attention_bwd",
+                               "flash_attention_bwd_f32", "simt_f32"),
+               torch.bfloat16: ("flash_attention_bwd_sm90",
+                                "flash_attention_bwd_bf16_sm90",
+                                "wgmma_bf16")}
 
 
 def _lib(dtype: torch.dtype, backward: bool = False):
     from ._build import library
-    if backward:
-        fn = getattr(library("flash_attention_bwd"), _BWD_ROUTES[dtype][0])
-        if fn.argtypes is None:
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 \
-                + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-        return fn
-    lib_name, entry, _ = _ROUTES[dtype]
+    lib_name, entry, _ = (_BWD_ROUTES if backward else _ROUTES)[dtype]
     fn = getattr(library(lib_name), entry)
     if fn.argtypes is None:
+        n_ptr = 10 if backward else 4 + (dtype == torch.bfloat16)
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 \
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     return fn
 
@@ -245,35 +259,45 @@ def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return route
 
 
-def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             causal: bool, window: int) -> torch.Tensor:
+def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            window: int = 0
+                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The forward kernel on CUDA tensors, outside autograd → (output, the
+    rows' (B, H, S) f32 log-sum-exp in base 2 of the scores scaled by
+    log2(e)/sqrt(D) on the bf16 route, None on the f32 route)."""
     route = _check_args(q, k, v, window)
     b, h, s, d = q.shape
     out = torch.empty_like(q)
+    lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device) \
+        if route == "wgmma_bf16" else None
     if out.numel() == 0:
-        return out
-    err = _lib(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), b, h, k.shape[1], s, d,
-                        1.0 / math.sqrt(d), int(causal), int(window),
+        return out, lse
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()) \
+        + (() if lse is None else (lse.data_ptr(),))
+    err = _lib(q.dtype)(*ptrs, b, h, k.shape[1], s, d, 1.0 / math.sqrt(d),
+                        int(causal), int(window),
                         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed ({route}): "
                            f"CUDA error {err}")
     flash_attention.launches += 1
     flash_attention.route_launches[route] += 1
-    return out
+    return out, lse
 
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, out: torch.Tensor,
-                             dout: torch.Tensor, *, causal: bool = True,
-                             window: int = 0
+                             dout: torch.Tensor,
+                             lse: Optional[torch.Tensor] = None, *,
+                             causal: bool = True, window: int = 0
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """The backward kernels on CUDA tensors: the forward's q, k, v and
-    output and the output's gradient (all contiguous, one dtype) → (dq, dk,
-    dv) in that dtype."""
-    _check_args(q, k, v, window)
+    output, the output's gradient (all contiguous, one dtype) and, on the
+    bf16 route, the log-sum-exp ``flash_attention_forward`` returned →
+    (dq, dk, dv) in that dtype."""
+    route = _check_args(q, k, v, window)
     for name, t in (("out", out), ("dout", dout)):
         if t.device != q.device or t.dtype != q.dtype \
                 or t.shape != q.shape or not t.is_contiguous():
@@ -282,12 +306,28 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              f"{tuple(q.shape)}; got {t.dtype} "
                              f"{tuple(t.shape)}")
     b, h, s, d = q.shape
+    if route == "wgmma_bf16":
+        if lse is None or lse.device != q.device \
+                or lse.dtype != torch.float32 or lse.shape != (b, h, s) \
+                or not lse.is_contiguous():
+            raise ValueError(f"flash_attention backward: the bf16 route "
+                             f"takes the forward's contiguous float32 lse of "
+                             f"shape {(b, h, s)}; got "
+                             f"{None if lse is None else tuple(lse.shape)}")
+        if q.device.type != "meta" and any(
+                t.data_ptr() % 16 for t in (out, dout)):
+            raise ValueError("flash_attention backward: bf16 out and dout "
+                             "must start on a 16-byte boundary (TMA and "
+                             "vector loads read them)")
+    elif lse is not None:
+        raise ValueError("flash_attention backward: the f32 route "
+                         "recomputes the log-sum-exp; pass no lse")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    entry, route = _BWD_ROUTES[q.dtype]
-    lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
-    dsum = torch.empty_like(lse)
+    if lse is None:
+        lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+    dsum = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
     err = _lib(q.dtype, True)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -304,25 +344,27 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
 
 flash_attention_backward.launches = 0
 #: backward launches per route (the kernel pair, per dtype)
-flash_attention_backward.route_launches = {"simt_f32": 0, "simt_bf16": 0}
+flash_attention_backward.route_launches = {"simt_f32": 0, "wgmma_bf16": 0}
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """The forward kernels with ``csrc/flash_attention_bwd.cu`` as their
-    gradient (saves q, k, v and the output)."""
+    """The forward kernel of q's route with that route's backward kernels as
+    its gradient (saves q, k, v, the output and, on the bf16 route, the
+    rows' log-sum-exp; a recompute under remat saves them again)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        out = _forward(q, k, v, causal, window)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = flash_attention_forward(q, k, v, causal=causal,
+                                           window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward(
-            q, k, v, out, dout.contiguous(), causal=ctx.causal,
+            q, k, v, out, dout.contiguous(), lse, causal=ctx.causal,
             window=ctx.window)
         return dq, dk, dv, None, None
 
@@ -332,10 +374,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B, H, S, D), k/v (B, KV, S, D), contiguous, all f32 or all bf16 →
     (B, H, S, D) in q's dtype.
 
-    CUDA tensors go through ``FlashAttentionFn``: the forward launches
-    ``csrc/flash_attention_sm90.cu`` for bf16 and ``csrc/flash_attention.cu``
-    for f32 (D in ``HEAD_DIMS``), the gradient ``csrc/flash_attention_bwd.cu``;
-    CPU tensors take ``flash_attention_ref``.
+    CUDA tensors go through ``FlashAttentionFn`` (D in ``HEAD_DIMS``): bf16
+    launches ``csrc/flash_attention_sm90.cu`` and, for the gradient,
+    ``csrc/flash_attention_bwd_sm90.cu``; f32 ``csrc/flash_attention.cu`` and
+    ``csrc/flash_attention_bwd.cu``.  CPU tensors take
+    ``flash_attention_ref``.
     """
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)

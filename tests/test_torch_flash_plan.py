@@ -1,5 +1,6 @@
 """The bf16 flash kernel's tile plan (``flash_tile_plan``, the Python mirror
-of ``csrc/flash_attention_sm90.cu``'s loop bounds) against the dense mask of
+of ``csrc/flash_attention_sm90.cu``'s loop bounds and, at 128 × 64, of the
+dq kernel's in ``csrc/flash_attention_bwd_sm90.cu``) against the dense mask of
 ``flash_attention_ref``: every key tile holding an unmasked (query, key)
 pair is visited, only wholly masked tiles are skipped, and a tile is left
 unmasked only when none of its pairs is masked.  Then an online softmax that
@@ -66,6 +67,12 @@ def _check_plan(s, bq, bk, causal, window):
     (900, 128, 128, True, 255), (900, 128, 64, True, 191),
     # S one short of a tile boundary: one key past S in the last tile
     (255, 128, 128, False, 0), (383, 64, 128, False, 0),
+    # the bf16 backward's dq kernel (128 query rows, key tiles of 64) at
+    # the cases of tests/test_torch_train.py's dk/dv plan test
+    (256, 128, 64, True, 0), (300, 128, 64, True, 100),
+    (1024, 128, 64, True, 256), (200, 128, 64, False, 0),
+    (333, 128, 64, True, 64), (130, 128, 64, True, 1),
+    (64, 128, 64, True, 0), (520, 128, 64, False, 64),
 ])
 def test_tile_plan_matches_dense_mask(s, bq, bk, causal, window):
     _check_plan(s, bq, bk, causal, window)

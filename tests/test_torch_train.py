@@ -25,6 +25,7 @@ to both.  Tolerances (float32 throughout unless stated):
 import dataclasses
 import functools
 import importlib
+import math
 import re
 from pathlib import Path
 
@@ -440,11 +441,24 @@ def test_ssd_scan_ref_vjp_matches_the_reference():
 
 
 # ------------------------------------------- the backward kernels' plans
-@pytest.mark.parametrize("s,causal,window", [
-    (256, True, 0), (300, True, 100), (1024, True, 256), (200, False, 0),
-    (333, True, 64), (130, True, 1), (64, True, 0), (520, False, 64)])
-def test_flash_bwd_tile_plan_covers_the_mask(s, causal, window):
-    bq, bk = flash_mod.BWD_BLOCK_Q, flash_mod.BWD_BLOCK_K
+# the bf16 dq kernel's plan (flash_tile_plan at 128 × 64) takes the same
+# cases in tests/test_torch_flash_plan.py
+_PLAN_CASES = [(256, True, 0), (300, True, 100), (1024, True, 256),
+               (200, False, 0), (333, True, 64), (130, True, 1), (64, True, 0),
+               (520, False, 64)]
+# (block_q, block_k) of the dk/dv kernels: the f32 SIMT kernel's (the cases
+# keep their ids) and the bf16 tensor-core kernel's
+_BWD_BLOCKS = {"simt": (flash_mod.BWD_BLOCK_Q, flash_mod.BWD_BLOCK_K),
+               "wgmma": (flash_mod.SM90_DKV_BLOCK_Q,
+                         flash_mod.SM90_DKV_BLOCK_K)}
+
+
+@pytest.mark.parametrize("s,causal,window,blocks", [
+    pytest.param(*case, route, id="-".join(map(str, case))
+                 + ("" if route == "simt" else "-wgmma"))
+    for route in _BWD_BLOCKS for case in _PLAN_CASES])
+def test_flash_bwd_tile_plan_covers_the_mask(s, causal, window, blocks):
+    bq, bk = _BWD_BLOCKS[blocks]
     mask = flash_mod.flash_mask(s, causal, window)
     if mask is None:
         mask = torch.ones(s, s, dtype=torch.bool)
@@ -481,6 +495,147 @@ def test_backward_plans_match_the_kernel_sources():
     assert f"kBK = {flash_mod.BWD_BLOCK_K};" in src
     assert tuple(int(n) for n in re.findall(r"FLASH_BWD\((\d+)\)", src)) \
         == flash_mod.HEAD_DIMS
+    src = (CSRC / "flash_attention_bwd_sm90.cu").read_text()
+    assert f"kDqBQ = {flash_mod.SM90_DQ_BLOCK_Q};" in src
+    assert f"kDqBK = {flash_mod.SM90_DQ_BLOCK_K};" in src
+    assert f"kDkvBQ = {flash_mod.SM90_DKV_BLOCK_Q};" in src
+    assert f"kDkvBK = {flash_mod.SM90_DKV_BLOCK_K};" in src
+    assert tuple(int(n) for n in re.findall(r"FLASH_BWD\((\d+)\)", src)) \
+        == flash_mod.HEAD_DIMS
+
+
+def test_backward_routes_are_the_sources_entries():
+    """``_BWD_ROUTES`` names, per dtype, a library of ``_build.SOURCES`` and
+    an entry its source exports, the two sources export nothing else, and
+    ``route_launches`` counts exactly the routes' names."""
+    from repro_torch.kernels._build import SOURCES
+    exported = {}
+    for lib in ("flash_attention_bwd", "flash_attention_bwd_sm90"):
+        src = (CSRC / SOURCES[lib][0]).read_text()
+        exported[lib] = set(re.findall(r'extern "C" int (\w+)\(', src))
+    routes = flash_mod._BWD_ROUTES
+    assert set(routes) == {torch.float32, torch.bfloat16}
+    assert {(lib, entry) for lib, entry, _ in routes.values()} == {
+        (lib, e) for lib, names in exported.items() for e in names
+        if not e.endswith("_smem")}
+    assert set(flash_mod.flash_attention_backward.route_launches) \
+        == {route for *_, route in routes.values()} \
+        == {"simt_f32", "wgmma_bf16"}
+    assert routes[torch.bfloat16][2] == flash_mod._ROUTES[torch.bfloat16][2]
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _sm90_backward_mirror(q, k, v, dout, causal, window, rnd):
+    """A plain mirror of ``csrc/flash_attention_bwd_sm90.cu`` on float32
+    tensors: the forward's output rounded by ``rnd`` and its rows'
+    log-sum-exp in base 2 of the scores scaled by log2(e)/sqrt(D); the dq
+    kernel over ``flash_tile_plan`` and the dk/dv kernel over
+    ``flash_bwd_tile_plan`` at their tile sizes, on tensors padded with
+    zeros to whole tiles as TMA fills them, masking only the planned tiles,
+    with p = exp2(s·c − lse), dS = p·(dP − D_i), and P and dS rounded by
+    ``rnd`` where they become a product's A operand → (dq, dk, dv)."""
+    b, h, s, d = q.shape
+    kv = k.shape[1]
+    g = h // kv
+    scale = 1.0 / math.sqrt(d)
+    c = scale * math.log2(math.e)
+    mask = flash_mod.flash_mask(s, causal, window)
+    out = rnd(flash_mod.flash_attention_ref(q, k, v, causal=causal,
+                                            window=window))
+    qg = q.reshape(b, kv, g, s, d)
+    scores = torch.einsum("bkgsd,bktd->bkgst", qg, k) * scale
+    if mask is not None:
+        scores = scores.masked_fill(~mask, -math.inf)
+    lse = (torch.logsumexp(scores, -1) * math.log2(math.e)).reshape(b, h, s)
+    dsum = (dout * out).sum(-1)
+    sp = -(-s // 128) * 128
+    idx = torch.arange(sp)
+
+    def pad(x):
+        return torch.nn.functional.pad(x, (0, 0, 0, sp - s))
+
+    def visible(i, t):
+        ok = (i < s) & (t < s)
+        if causal:
+            ok = ok & (t <= i)
+            if window:
+                ok = ok & (t > i - window)
+        return ok
+
+    qp, kp, vp, dop = (pad(x) for x in (q, k, v, dout))
+    kh, vh = (x.repeat_interleave(g, 1) for x in (kp, vp))
+    lse_p = torch.nn.functional.pad(lse, (0, sp - s))
+    dsum_p = torch.nn.functional.pad(dsum, (0, sp - s))
+    # kernel A: dq
+    bq, bk = flash_mod.SM90_DQ_BLOCK_Q, flash_mod.SM90_DQ_BLOCK_K
+    dq = torch.zeros(b, h, sp, d)
+    for n, tile in enumerate(flash_mod.flash_tile_plan(s, bq, bk, causal,
+                                                       window)):
+        rows = slice(n * bq, (n + 1) * bq)
+        i = idx[rows]
+        lse_r = torch.where(i < s, lse_p[..., rows], math.inf)[..., None]
+        for kt in range(tile.lo, tile.hi + 1):
+            keys = slice(kt * bk, (kt + 1) * bk)
+            p = torch.exp2(qp[:, :, rows] @ kh[:, :, keys].mT * c - lse_r)
+            if kt in tile.masked:
+                p = torch.where(visible(i[:, None], idx[keys][None]), p, 0.)
+            ds = p * (dop[:, :, rows] @ vh[:, :, keys].mT
+                      - dsum_p[..., rows, None])
+            dq[:, :, rows] += rnd(ds) @ kh[:, :, keys]
+    # kernel B: dk and dv, a key tile of one KV head over its group's heads
+    bq, bk = flash_mod.SM90_DKV_BLOCK_Q, flash_mod.SM90_DKV_BLOCK_K
+    dk, dv = torch.zeros(b, kv, sp, d), torch.zeros(b, kv, sp, d)
+    qpg, dopg = (x.reshape(b, kv, g, sp, d) for x in (qp, dop))
+    lse_g, dsum_g = (x.reshape(b, kv, g, sp) for x in (lse_p, dsum_p))
+    for n, tile in enumerate(flash_mod.flash_bwd_tile_plan(s, bq, bk, causal,
+                                                           window)):
+        keys = slice(n * bk, (n + 1) * bk)
+        for j in range(g):
+            for qt in range(tile.lo, tile.hi + 1):
+                rows = slice(qt * bq, (qt + 1) * bq)
+                i = idx[rows]
+                lse_r = torch.where(i < s, lse_g[:, :, j, rows], 0.)
+                dsum_r = torch.where(i < s, dsum_g[:, :, j, rows], 0.)
+                p = torch.exp2(kp[:, :, keys] @ qpg[:, :, j, rows].mT * c
+                               - lse_r[..., None, :])
+                if qt in tile.masked:
+                    p = torch.where(visible(i[None], idx[keys][:, None]), p,
+                                    0.)
+                ds = p * (vp[:, :, keys] @ dopg[:, :, j, rows].mT
+                          - dsum_r[..., None, :])
+                dv[:, :, keys] += rnd(p) @ dopg[:, :, j, rows]
+                dk[:, :, keys] += rnd(ds) @ qpg[:, :, j, rows]
+    return (rnd(dq[:, :, :s] * scale), rnd(dk[:, :, :s] * scale),
+            rnd(dv[:, :, :s]))
+
+
+@pytest.mark.parametrize("precision,tol", [("f32", 1e-5), ("bf16", 2e-2)])
+@pytest.mark.parametrize("b,h,kv,s,d,causal,window", [
+    (1, 4, 2, 333, 80, True, 100), (2, 2, 1, 200, 64, False, 0),
+    (1, 4, 4, 300, 96, True, 0), (1, 2, 1, 130, 128, True, 3)])
+def test_sm90_backward_mirror_matches_the_reference_vjp(
+        b, h, kv, s, d, causal, window, precision, tol):
+    """The bf16 backward's algorithm (its plans, masks, base-2 log-sum-exp
+    and D_i) against ``jax.vjp`` of the reference's attention: to 1e-5 in
+    float32, and within bf16's 2e-2 (chip_smoke.py's bound for the kernel)
+    where the output, P and dS are rounded to bf16 as the kernels round
+    them.  The inputs are bf16 values in float32."""
+    rng = np.random.default_rng(26)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for shape in ((b, h, s, d), (b, kv, s, d), (b, kv, s, d)))
+    g = rng.standard_normal((b, h, s, d)).astype(np.float32)
+    q, k, v, g = (_bf16(torch.from_numpy(x)).numpy() for x in (q, k, v, g))
+    _, vjp = jax.vjp(lambda *a: kref.flash_attention_ref(
+        *a, causal=causal, window=window), *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    rnd = _bf16 if precision == "bf16" else (lambda x: x)
+    got = _sm90_backward_mirror(*map(torch.from_numpy, (q, k, v, g)),
+                                causal, window, rnd)
+    for x, w in zip(got, want):
+        assert _normwise(x.numpy(), np.asarray(w)) <= tol
 
 
 @pytest.mark.parametrize("rows,d", [(1, 1), (4, 768), (32768, 2560),

@@ -11,7 +11,7 @@ the arch's full width and depth in bf16 with remat "full", takes one
 warm-up step, times ``--steps`` steps on the host clock (synchronised), then
 profiles one step with ``torch.profiler``: kernel launches, the device's
 busy and idle shares, device time by kernel, and the shares of the
-backward kernels (``csrc/flash_attention_bwd.cu``, ``rmsnorm_bwd_*``,
+backward kernels (``csrc/flash_attention_bwd_sm90.cu``, ``rmsnorm_bwd_*``,
 ``ssd_scan_bwd_*``), of the forward kernels and of the rest; CUDA events
 around the optimizer's update give its share.  With no ``--arch`` it runs
 h2o-danube-1.8b (4 × 8192) and mamba2-130m (8 × 4096).  Needs a CUDA device;
