@@ -100,9 +100,10 @@ user entry points:
    full depth (layernorm and GELU: no ``rmsnorm``); mixtral-8x22b,
    command-r-plus-104b (the parallel block) and internvl2-76b at 2 layers of
    full width; jamba-1.5-large-398b's 8-layer period (``ssd_scan`` and MoE)
-   at a cut width (``ARCH_SERVES`` says why each cut); then each one's
-   float32 decode consistency, MoE at a capacity with no drops, internvl2
-   with vision embeds;
+   at its own width with int8 weights (``quantize_weights``: ~45 GB,
+   dequantized one block position at a time; ``ARCH_SERVES`` says why each
+   cut); then each one's float32 decode consistency, MoE at a capacity
+   with no drops, internvl2 with vision embeds, jamba's at a cut width;
 4. LM training: ``[train_kernels]`` holds the three backward kernels
    (rmsnorm's, flash_attention's and ssd_scan's) against their plain
    versions' autograd at the training shapes and times them beside
@@ -117,7 +118,20 @@ user entry points:
    ``[train_parity]`` holds the card's train
    step against the port's CPU step at 2 full-width layers in float32,
    grad accumulation and remat against none, and a run resumed through an
-   async checkpoint against the straight one.
+   async checkpoint against the straight one;
+5. the reference's remaining model options: ``[softcap]`` holds the
+   capped instantiations of the four flash kernels (``softcap=50``, Gemma
+   2's, on q and k scaled so that it bites) against the plain version and
+   its autograd on both routes at danube's prefill and training shapes and
+   at head dims 96 and 128, times them beside the uncapped kernels and
+   ``flex_attention`` with a tanh score_mod, holds the uncapped bf16
+   forward bit for bit against ``tools/flash_attention_sm90_uncapped.cu``
+   (``tools/flash_fwd_bitwise.py``), then drives the capped kernels through
+   danube's serve and two training steps and its float32 decode
+   consistency with a cap of 1; ``[quantize]`` holds danube's int8 weights
+   (``quantize_params``, full width and depth, float32) against its f32
+   weights on the reference's bounds; ``[head_merge]`` holds musicgen's
+   prefill with ``attn_head_merge`` bit for bit against the unmerged one.
 
 Each path's kernel launch counters (and per-route counters) are zeroed just
 before it and read just after it; every wall time is printed per phase, and
@@ -237,8 +251,9 @@ SERVES = (("h2o-danube-1.8b", 4, 4608, 32), ("mamba2-130m", 4, 4096, 32),
 # full depth mixtral, command-r and internvl2 hold 282, 208 and 140 GB of
 # bf16 weights, so they run 2 layers at full width (mixtral's prompt past
 # its 4096 window, so the ring buffer wraps); one 8-layer period of jamba
-# at its own width holds ~90 GB, so it runs one period (its pattern,
-# experts, SSM and head dims) at a cut width, ~6 GB
+# at its own width holds ~90 GB in bf16 and ~45 GB in int8, so it serves
+# one period (d_model 8192, 64 heads, kv 8, d_ff 24576) with
+# quantize_weights=True
 ARCH_SERVES = (
     ("olmoe-1b-7b", 4, 4064, 32, {}),
     ("musicgen-medium", 4, 2048, 32, {}),
@@ -246,11 +261,46 @@ ARCH_SERVES = (
     ("command-r-plus-104b", 4, 4096, 32, {"n_layers": 2}),
     ("internvl2-76b", 4, 4096, 32, {"n_layers": 2}),
     ("jamba-1.5-large-398b", 4, 4096, 32,
-     {"n_layers": 8, "d_model": 2048, "n_heads": 16, "n_kv_heads": 2,
-      "d_ff": 6144}),
+     {"n_layers": 8, "quantize_weights": True}),
 )
+# the float32 decode consistency of an arch whose serve cut does not fit in
+# f32: jamba's period at its own width is ~180 GB in f32, so its check runs
+# the period at a cut width (its pattern, experts, SSM and head dims), ~12 GB
+CONSISTENCY_CUTS = {"jamba-1.5-large-398b": {
+    "n_layers": 8, "d_model": 2048, "n_heads": 16, "n_kv_heads": 2,
+    "d_ff": 6144}}
 # flash_attention at olmoe-1b-7b's prefill: (B, H, KV, S, D), causal
 OLMOE_FLASH = (4, 16, 16, 4064, 128)
+# the attention logit softcap: Gemma 2's published attn_logit_softcapping
+# (50.0) for the capped kernels' agreement and timing, on q and k scaled by
+# SOFTCAP_QK so that the cap bites (unit-normal q and k give scaled scores
+# ~N(0, 1), where tanh(s/50) is linear to 1e-4 and a kernel that ignored the
+# cap would pass); the capped forward at danube's prefill and at D = 96 and
+# 128 causal, each route ((B, H, KV, S, D), window, dtype; f32 at batch 1),
+# the backward at danube's training shape (f32 at batch 1)
+SOFTCAP = 50.0
+SOFTCAP_QK = 8.0
+SOFTCAP_FWD_CASES = (((4, 32, 8, 4608, 80), 4096, "bfloat16"),
+                     ((1, 32, 8, 4608, 80), 4096, "float32"),
+                     ((4, 32, 32, 4064, 96), 0, "bfloat16"),
+                     ((1, 32, 32, 4064, 96), 0, "float32"),
+                     ((4, 16, 16, 4064, 128), 0, "bfloat16"),
+                     ((1, 16, 16, 4064, 128), 0, "float32"))
+SOFTCAP_BWD_CASES = (((4, 32, 8, 8192, 80), 4096, "bfloat16"),
+                     ((1, 32, 8, 8192, 80), 4096, "float32"))
+# the capped main paths: danube's serve (SERVES' batch, prompt, steps) and
+# training steps at [train]'s batch and sequence, in bf16 with SOFTCAP; and
+# danube's float32 decode consistency with a cap of 1, which its random
+# weights' scaled scores (~N(0, 1)) pass often
+SOFTCAP_TRAIN_STEPS = 2
+SOFTCAP_CONSISTENCY = 1.0
+# [quantize]: danube at full width and depth in float32, quantized against
+# unquantized on the reference's own bounds (tests/test_quantize.py:41-57):
+# (arch, B, S of the forwards, prompt and decode steps of the decode check)
+QUANT = ("h2o-danube-1.8b", 2, 256, 200, 8)
+QUANT_REL, QUANT_DECODE, QUANT_BYTES = 0.05, 2e-4, 2.5
+# head merge: musicgen-medium's prefill (batch, prompt), merged against not
+MERGE = ("musicgen-medium", 4, 2048)
 # LM training (`[train]`): repro_torch.launch.train at full width and depth
 # in bf16 with remat "full", (arch, global batch, seq, steps, ckpt every):
 # danube's 32,768 tokens a step run past its 4096 window; its 22 GB state is
@@ -973,9 +1023,9 @@ def rmsnorm_checks(torch):
 
 def flash_sm90_report():
     """The bf16 tensor-core flash kernels' build (the forward and the
-    backward's dq and dk/dv kernels): per head dim, registers and spills
-    from nvcc's ``-Xptxas -v`` log and the dynamic shared memory a block
-    takes."""
+    backward's dq and dk/dv kernels, uncapped and capped): per head dim,
+    registers and spills from nvcc's ``-Xptxas -v`` log and the dynamic
+    shared memory a block takes."""
     import ctypes
     import re
     from repro_torch.kernels._build import _lib_path, library
@@ -990,14 +1040,17 @@ def flash_sm90_report():
                "flash_bwd_dkv_sm90": lambda d: bwd_smem(d, 1)}
     for lib in ("flash_attention_sm90", "flash_attention_bwd_sm90"):
         log = _lib_path(lib).with_suffix(".log").read_text()
-        name = d = None
+        name = d = cap = None
         for line in log.splitlines():
-            entry = re.search(r"(flash_\w+?)ILi(\d+)E", line)
-            if entry and "Compiling entry" in line \
-                    and entry.group(1) in kernels:
+            # the kernel's own name, not the anonymous namespace's, which
+            # holds the file name ("..._flash_attention_sm90_cu_...")
+            entry = re.search(r"(" + "|".join(kernels)
+                              + r")ILi(\d+)ELb([01])E", line)
+            if entry and "Compiling entry" in line:
                 name, d = entry.group(1), int(entry.group(2))
+                cap = " softcap" if entry.group(3) == "1" else ""
             elif d is not None and ("registers" in line or "spill" in line):
-                print(f"[build] {name} D={d}: {line.strip()}"
+                print(f"[build] {name} D={d}{cap}: {line.strip()}"
                       + (f"; dynamic shared memory {kernels[name](d)} B per "
                          f"block" if "registers" in line else ""))
 
@@ -1140,6 +1193,256 @@ def flash_checks(torch):
     return worst80, t, worst96, t96, worst128, t128
 
 
+def flex_softcap(torch, S, W, gqa):
+    """The capped kernels' library yardstick: ``flex_attention`` under
+    ``torch.compile`` with a ``softcap·tanh(s / softcap)`` score_mod and a
+    causal (windowed) block mask → (call on (q, k, v), None) or (None, why
+    it does not run here).  The first call compiles it."""
+    try:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+    except ImportError as e:
+        return None, f"no flex_attention in torch {torch.__version__} ({e})"
+
+    def mask_mod(b, h, qi, ki):
+        ok = ki <= qi
+        return ok & (ki > qi - W) if W else ok
+
+    def score_mod(score, b, h, qi, ki):
+        return SOFTCAP * torch.tanh(score / SOFTCAP)
+    # the timing calls its backward again on one graph (retain_graph), which
+    # buffers donated to the compiled backward would forbid
+    import torch._functorch.config as functorch_config
+    functorch_config.donated_buffer = False
+    block = create_block_mask(mask_mod, None, None, S, S, device="cuda")
+    compiled = torch.compile(flex_attention)
+    return (lambda q, k, v: compiled(q, k, v, score_mod=score_mod,
+                                     block_mask=block, enable_gqa=gqa)), None
+
+
+def softcap_checks(torch):
+    """The capped flash kernels (``softcap`` = SOFTCAP, the capped
+    instantiation of each of the four kernels) against the plain version
+    and its autograd, on q and k scaled by SOFTCAP_QK so that the cap bites
+    (the share of one head's scaled scores past SOFTCAP / 2 is printed, and
+    the uncapped output must lie far past the tolerance): the forward on
+    both routes at SOFTCAP_FWD_CASES, the backward at SOFTCAP_BWD_CASES (one
+    (b, KV head) slice of the plain version at a time).  Then, at danube's
+    prefill and training shapes in bf16, the capped kernels' time beside
+    the uncapped ones' in the same run, the plain version's and
+    flex_attention's with a tanh score_mod → (worst forward error, forward
+    timing, worst backward error, backward timing)."""
+    import math
+    from repro_torch.kernels import flash_attention, flash_attention_ref
+    from repro_torch.kernels.flash_attention import flash_attention_backward
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    routes = {"float32": "simt_f32", "bfloat16": "wgmma_bf16"}
+
+    def qkv(B, H, KV, S, D, dtype):
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=gen, device="cuda")
+                    * scale).to(dtype)
+        return (rnd(B, H, S, D, scale=SOFTCAP_QK),
+                rnd(B, KV, S, D, scale=SOFTCAP_QK), rnd(B, KV, S, D))
+
+    def bites(q, k, D):
+        """Share of head (0, 0)'s scaled scores past SOFTCAP / 2."""
+        s = torch.einsum("sd,td->st", q[0, 0].float(),
+                         k[0, 0].float()) / math.sqrt(D)
+        return float((s.abs() > SOFTCAP / 2).float().mean())
+
+    worst_f, t_fwd = 0.0, None
+    for (B, H, KV, S, D), W, dt in SOFTCAP_FWD_CASES:
+        dtype, route = getattr(torch, dt), routes[dt]
+        name = (f"flash_attention[{route}] softcap {SOFTCAP:g} "
+                f"{(B, H, KV, S, D)} window={W} {dt}")
+        q, k, v = qkv(B, H, KV, S, D, dtype)
+        before = (flash_attention.route_launches[route],
+                  flash_attention.capped_launches)
+        got = flash_attention(q, k, v, window=W, softcap=SOFTCAP)
+        check((flash_attention.route_launches[route],
+               flash_attention.capped_launches)
+              == (before[0] + 1, before[1] + 1),
+              f"{name} did not launch the capped {route} kernel")
+        want = flash_attention_ref(q, k, v, window=W, softcap=SOFTCAP)
+        worst_f = lm_check(torch, name, got, want, dtype, worst_f)
+        far = rel_err(torch, flash_attention_ref(q, k, v, window=W).float(),
+                      want.float())
+        print(f"[softcap] {name}: {100 * bites(q, k, D):.1f} % of head "
+              f"(0, 0)'s scaled scores past {SOFTCAP / 2:g}; the uncapped "
+              f"output lies {far:.3e} from the capped one (normwise), "
+              f"{far / LM_TOL[str(dtype)]:.0f}x the tolerance")
+        check(far > 10 * LM_TOL[str(dtype)],
+              f"{name}: the cap does not bite")
+        del got, want
+        if (dt, S) == ("bfloat16", 4608):
+            t_fwd = softcap_fwd_timing(torch, q, k, v, W)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    worst_b, t_bwd = 0.0, None
+    for (B, H, KV, S, D), W, dt in SOFTCAP_BWD_CASES:
+        dtype, route = getattr(torch, dt), routes[dt]
+        G = H // KV
+        name = (f"flash_attention backward[{route}] softcap {SOFTCAP:g} "
+                f"{(B, H, KV, S, D)} window={W} {dt}")
+        q, k, v = qkv(B, H, KV, S, D, dtype)
+        dout = torch.randn(B, H, S, D, generator=gen, device="cuda").to(dtype)
+        before = (flash_attention_backward.route_launches[route],
+                  flash_attention_backward.capped_launches)
+        got = _grads(torch, lambda q, k, v: flash_attention(
+            q, k, v, window=W, softcap=SOFTCAP), [q, k, v], dout)
+        check((flash_attention_backward.route_launches[route],
+               flash_attention_backward.capped_launches)
+              == (before[0] + 1, before[1] + 1),
+              f"{name} did not launch the capped {route} kernels")
+        want = [torch.empty_like(t) for t in got]
+        far = 0.0
+        for b in range(B):
+            for j in range(KV):
+                hs = slice(j * G, (j + 1) * G)
+                sl = [q[b:b + 1, hs], k[b:b + 1, j:j + 1],
+                      v[b:b + 1, j:j + 1]]
+                g3 = _grads(torch, lambda q, k, v: flash_attention_ref(
+                    q, k, v, window=W, softcap=SOFTCAP), sl,
+                    dout[b:b + 1, hs])
+                u3 = _grads(torch, lambda q, k, v: flash_attention_ref(
+                    q, k, v, window=W), sl, dout[b:b + 1, hs])
+                far = max(far, max(rel_err(torch, u.float(), g.float())
+                                   for u, g in zip(u3, g3)))
+                want[0][b, hs], want[1][b, j], want[2][b, j] = \
+                    g3[0][0], g3[1][0, 0], g3[2][0, 0]
+                del g3, u3
+        worst_b = grad_check(torch, name, got, want, dtype, worst_b)
+        print(f"[softcap] {name}: {100 * bites(q, k, D):.1f} % of head "
+              f"(0, 0)'s scaled scores past {SOFTCAP / 2:g}; the uncapped "
+              f"gradients lie up to {far:.3e} from the capped ones "
+              f"(normwise), {far / LM_TOL[str(dtype)]:.0f}x the tolerance")
+        check(far > 10 * LM_TOL[str(dtype)],
+              f"{name}: the cap does not bite")
+        del got, want
+        if dt == "bfloat16":
+            t_bwd = softcap_bwd_timing(torch, q, k, v, dout, W)
+        del q, k, v, dout
+        torch.cuda.empty_cache()
+    return worst_f, t_fwd, worst_b, t_bwd
+
+
+def softcap_fwd_timing(torch, q, k, v, W):
+    """The capped bf16 forward's time beside the uncapped kernel's in the
+    same run (capped, uncapped, uncapped, capped), the plain capped
+    version's and flex_attention's → (ms, plain, bound, bound_by,
+    library)."""
+    from repro_torch.kernels import flash_attention_ref, flash_pairs
+    from repro_torch.kernels.flash_attention import flash_attention_forward
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+
+    def run(cap):
+        return lambda: flash_attention_forward(q, k, v, window=W,
+                                               softcap=cap)
+    ms1, host = cuda_ms(torch, run(SOFTCAP), 20)
+    unc1, _ = cuda_ms(torch, run(0.0), 20)
+    unc2, _ = cuda_ms(torch, run(0.0), 20)
+    ms2, _ = cuda_ms(torch, run(SOFTCAP), 20)
+    plain, _ = cuda_ms(torch, lambda: flash_attention_ref(
+        q, k, v, window=W, softcap=SOFTCAP), 2, 1)
+    lib, why = flex_softcap(torch, S, W, H != KV)
+    lib_ms = None
+    if lib is not None:
+        t0 = time.perf_counter()
+        lib_err = rel_err(torch, lib(q, k, v).float(), flash_attention_ref(
+            q, k, v, window=W, softcap=SOFTCAP).float())
+        compile_s = time.perf_counter() - t0
+        lib_ms, _ = cuda_ms(torch, lambda: lib(q, k, v), 10)
+        why = (f"flex_attention (tanh score_mod, block mask, compiled in "
+               f"{compile_s:.1f} s; rel err vs plain {lib_err:.2e}) "
+               f"{lib_ms:.4f} ms")
+    pairs, _ = flash_pairs(S, True, W)
+    nbytes = 2 * (2 * B * H * S * D + 2 * B * KV * S * D)
+    ops = 4 * B * H * D * pairs
+    b_ms, b_by = bound_ms_bf16(nbytes, ops)
+    t = (min(ms1, ms2), plain, b_ms, b_by, lib_ms)
+    print(f"[softcap] flash_attention forward timing {(B, H, KV, S, D)} "
+          f"window {W} bf16, softcap {SOFTCAP:g}: capped {ms1:.4f} / "
+          f"{ms2:.4f} ms, uncapped {unc1:.4f} / {unc2:.4f} ms on the card "
+          f"(capped, uncapped, uncapped, capped; {host:.4f} ms of host "
+          f"time), capped/uncapped {t[0] / min(unc1, unc2):.3f}x, "
+          f"{100 * b_ms / t[0]:.1f} % of the bound {b_ms:.6f} ms ({b_by}: "
+          f"the products of {pairs} unmasked pairs a head; the tanh is not "
+          f"counted); plain {plain:.3f} ms; library: {why}")
+    return t
+
+
+def softcap_bwd_timing(torch, q, k, v, dout, W):
+    """The capped bf16 backward's time beside the uncapped kernels' in the
+    same run, each from its own forward's output and log-sum-exp; the plain
+    capped backward's (each (b, KV head) slice's measured time, summed) and
+    flex_attention's backward → (ms, plain, bound, bound_by, library)."""
+    from repro_torch.kernels import flash_attention_ref, flash_pairs
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_forward)
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    G = H // KV
+    saved = {cap: flash_attention_forward(q, k, v, window=W, softcap=cap)
+             for cap in (SOFTCAP, 0.0)}
+
+    def run(cap):
+        out, lse = saved[cap]
+        return lambda: flash_attention_backward(q, k, v, out, dout, lse,
+                                                window=W, softcap=cap)
+    same = all(torch.equal(a, b) for a, b in zip(run(SOFTCAP)(),
+                                                 run(SOFTCAP)()))
+    check(same, "two capped flash backward launches differ")
+    ms1, host = cuda_ms(torch, run(SOFTCAP), 3, 1)
+    unc1, _ = cuda_ms(torch, run(0.0), 3, 1)
+    unc2, _ = cuda_ms(torch, run(0.0), 3, 1)
+    ms2, _ = cuda_ms(torch, run(SOFTCAP), 3, 1)
+    del saved
+    slice_ms = []
+    for b in range(B):
+        for j in range(KV):
+            hs = slice(j * G, (j + 1) * G)
+            qs = q[b:b + 1, hs].detach().requires_grad_(True)
+            ks, vs = (t[b:b + 1, j:j + 1].detach().requires_grad_(True)
+                      for t in (k, v))
+            o1 = flash_attention_ref(qs, ks, vs, window=W, softcap=SOFTCAP)
+            slice_ms.append(cuda_ms(torch, lambda: torch.autograd.grad(
+                o1, (qs, ks, vs), dout[b:b + 1, hs], retain_graph=True),
+                2, 1)[0])
+            del o1, qs, ks, vs
+    plain = sum(slice_ms)
+    lib, why = flex_softcap(torch, S, W, H != KV)
+    lib_ms = None
+    if lib is not None:
+        ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+        t0 = time.perf_counter()
+        lo = lib(ql, kl, vl)
+        torch.autograd.grad(lo, (ql, kl, vl), dout, retain_graph=True)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        lib_ms, _ = cuda_ms(torch, lambda: torch.autograd.grad(
+            lo, (ql, kl, vl), dout, retain_graph=True), 3, 1)
+        why = (f"flex_attention's backward (tanh score_mod, compiled in "
+               f"{compile_s:.1f} s) {lib_ms:.3f} ms")
+        del lo, ql, kl, vl
+    pairs, _ = flash_pairs(S, True, W)
+    nbytes = q.element_size() * (B * H * S * D * 3 + B * KV * S * D * 4)
+    ops = 10 * B * H * D * pairs
+    b_ms, b_by = bound_ms_bf16(nbytes, ops)
+    t = (min(ms1, ms2), plain, b_ms, b_by, lib_ms)
+    print(f"[softcap] flash_attention backward timing {(B, H, KV, S, D)} "
+          f"window {W} bf16, softcap {SOFTCAP:g}: capped {ms1:.3f} / "
+          f"{ms2:.3f} ms, uncapped {unc1:.3f} / {unc2:.3f} ms on the card "
+          f"(capped, uncapped, uncapped, capped; {host:.4f} ms of host "
+          f"time), capped/uncapped {t[0] / min(unc1, unc2):.3f}x, "
+          f"{100 * b_ms / t[0]:.2f} % of the bound {b_ms:.6f} ms ({b_by}); "
+          f"a second launch bit for bit: {same}; plain {plain:.3f} ms (the "
+          f"sum of {B * KV} slices); library: {why}")
+    return t
+
+
 def ssd_scan_checks(torch):
     """ssd_scan at mamba2-130m's prefill (B=4, prompt 4096, chunk 32 → C=128,
     H=24, P=64, N=128), f32."""
@@ -1186,6 +1489,7 @@ def serve_phase(torch, arch, batch, prompt, steps, cut=None):
     for routes in (flash_attention.route_launches, rmsnorm.route_launches):
         for route in routes:
             routes[route] = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     if cut:
         res = serve.serve(cfg, batch, prompt, steps)
@@ -1194,15 +1498,19 @@ def serve_phase(torch, arch, batch, prompt, steps, cut=None):
                           str(prompt), "--steps", str(steps)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     launches = {k.__name__: k.launches for k in kernels}
     launches.update(flash_attention.route_launches)
     launches["rmsnorm_routes"] = dict(rmsnorm.route_launches)
-    print(f"[serve] {arch} {cfg.dtype} B={batch} prompt={prompt} "
-          f"steps={steps}: prefill {res.prefill_ms:.3f} ms, decode "
-          f"{res.decode_ms:.3f} ms for {steps - 1} steps "
-          f"({res.decode_tok_s:.1f} tok/s), wall {wall:.3f} s (weights "
-          f"included; {res.weight_bytes} B of weights on the card); "
-          f"launches {launches}")
+    print(f"[serve] {arch} {cfg.dtype}"
+          f"{' int8 weights' if cfg.quantize_weights else ''} B={batch} "
+          f"prompt={prompt} steps={steps}: prefill {res.prefill_ms:.3f} ms, "
+          f"decode {res.decode_ms:.3f} ms for {steps - 1} steps "
+          f"({res.decode_ms / max(1, steps - 1):.3f} ms a step, "
+          f"{res.decode_tok_s:.1f} tok/s), wall {wall:.3f} s (weights "
+          f"included; {res.weight_bytes} B of weights on the card, peak "
+          f"{peak} B = {peak / 2**30:.2f} GiB allocated); launches "
+          f"{launches}")
     check(tuple(res.tokens.shape) == (batch, steps)
           and int(res.tokens.min()) >= 0
           and int(res.tokens.max()) < cfg.vocab_size,
@@ -1279,7 +1587,9 @@ def decode_consistency(torch, arch, prompt, n, batch=2, cut=None):
     routes B·prompt tokens a group and decode B, so with drops decode could
     not match forward (the reference's hybrid test raises the capacity for
     it, tests/test_models.py:63-75).  A VLM prefills and forwards with
-    random vision embeds."""
+    random vision embeds.  With a logit softcap prefill and forward run the
+    capped f32 kernel (counted) and decode the capped plain scores, and the
+    uncapped forward must lie far from the capped one."""
     import dataclasses
     from repro_torch.configs import get
     from repro_torch.models import (decode_step, forward, init_params,
@@ -1289,6 +1599,8 @@ def decode_consistency(torch, arch, prompt, n, batch=2, cut=None):
     if base.moe_experts:
         change["capacity_factor"] = base.moe_experts / base.moe_top_k
     cfg = dataclasses.replace(base, **change)
+    from repro_torch.kernels import flash_attention
+    flash_attention.capped_launches = 0
     t0 = time.perf_counter()
     with torch.inference_mode():
         params = init_params(cfg, seed=0, device="cuda")
@@ -1316,7 +1628,23 @@ def decode_consistency(torch, arch, prompt, n, batch=2, cut=None):
         full = forward(params, cfg, seq, vision_embeds=ve,
                        ssd_chunk=32)[:, prompt - 1:]
         got = torch.stack(steps, dim=1)
+        capped = flash_attention.capped_launches
+        if cfg.attn_logit_softcap:
+            far = rel_err(torch, forward(
+                params, dataclasses.replace(cfg, attn_logit_softcap=0.0),
+                seq, vision_embeds=ve, ssd_chunk=32)[:, prompt - 1:], full)
         torch.cuda.synchronize()
+    if cfg.attn_logit_softcap:
+        n_attn = cfg.pattern_repeats * sum(m == "attn"
+                                           for m, _ in cfg.block_pattern)
+        print(f"[consistency] {arch} float32 softcap "
+              f"{cfg.attn_logit_softcap:g}: the uncapped forward lies "
+              f"{far:.3e} from the capped one (normwise), "
+              f"{far / CONSISTENCY_TOL:.0f}x the tolerance; capped f32 flash "
+              f"launches {capped} (prefill and forward)")
+        check(far > 100 * CONSISTENCY_TOL, f"{arch}: the cap does not bite")
+        check(capped == 2 * n_attn, f"{arch}: {capped} capped flash "
+              f"launches, not {2 * n_attn}")
     err = rel_err(torch, got, full)
     same = bool(torch.equal(torch.cat(gen_toks, 1),
                             torch.argmax(full, -1).to(torch.int32)))
@@ -1331,6 +1659,178 @@ def decode_consistency(torch, arch, prompt, n, batch=2, cut=None):
     check(err <= CONSISTENCY_TOL and same,
           f"{arch} decode disagrees with forward")
     del params, caches
+
+
+def quantize_phase(torch):
+    """``[quantize]``: QUANT's arch at full width and depth in float32,
+    its ``quantize_params`` tree against the unquantized weights, on the
+    reference's own bounds (tests/test_quantize.py:41-57): the forward's
+    max-abs error relative to the max logit below QUANT_REL, the quantized
+    prefill + teacher-forced decode within QUANT_DECODE of the quantized
+    forward, the quantized weights' bytes below 1/QUANT_BYTES of the f32
+    tree's → the int8 tree's bytes."""
+    import dataclasses
+    from repro_torch.configs import get
+    from repro_torch.models import (decode_step, forward, init_params,
+                                    prefill, quantize_params)
+    from repro_torch.models.params import tree_leaves
+    arch, B, S, prompt, n = QUANT
+    cfg = dataclasses.replace(get(arch).config, dtype="float32")
+    qcfg = dataclasses.replace(cfg, quantize_weights=True)
+    gen = torch.Generator().manual_seed(9)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         dtype=torch.int32).cuda()
+    with torch.inference_mode():
+        params = init_params(cfg, seed=0, device="cuda")
+        f32_bytes = sum(a.numel() * a.element_size()
+                        for a in tree_leaves(params))
+        qp = quantize_params(params, cfg)
+        q_bytes = sum(a.numel() * a.element_size() for a in tree_leaves(qp))
+        base = forward(params, cfg, toks, ssd_chunk=32)
+        del params
+        out = forward(qp, qcfg, toks, ssd_chunk=32)
+        rel = float((base - out).abs().max() / base.abs().max())
+        del base, out
+        seq = toks[:, :prompt + n]
+        full = forward(qp, qcfg, seq, ssd_chunk=32)
+        _, caches = prefill(qp, qcfg, seq[:, :prompt], ssd_chunk=32,
+                            max_len=prompt + n)
+        err = 0.0
+        for t in range(prompt, prompt + n):
+            lg, caches = decode_step(qp, qcfg, seq[:, t:t + 1], caches, t)
+            err = max(err, float((lg[:, 0] - full[:, t]).abs().max()))
+        torch.cuda.synchronize()
+    print(f"[quantize] {arch} float32 at full width and depth, int8 "
+          f"weights: forward (B={B}, S={S}) max-abs error {rel:.4e} of the "
+          f"max logit (bound {QUANT_REL}); prefill {prompt} + {n} decode "
+          f"steps against the quantized forward: max abs {err:.3e} (bound "
+          f"{QUANT_DECODE:g}); weights {q_bytes} B int8 + scales against "
+          f"{f32_bytes} B f32, 1/{f32_bytes / q_bytes:.3f} (bound "
+          f"1/{QUANT_BYTES})")
+    check(rel < QUANT_REL, f"{arch}: the int8 forward is {rel:.3e} of the "
+          f"max logit from the f32 one")
+    check(err < QUANT_DECODE, f"{arch}: int8 decode is {err:.3e} from the "
+          f"int8 forward")
+    check(q_bytes < f32_bytes / QUANT_BYTES,
+          f"{arch}: the int8 tree takes {q_bytes} B of {f32_bytes}")
+    del qp, caches, full
+    return q_bytes
+
+
+def head_merge_phase(torch):
+    """musicgen's prefill with ``attn_head_merge=True`` (B·H merged into the
+    flash kernel's batch) against the unmerged prefill, at full width and
+    depth in bf16: the logits bit for bit, every layer on the bf16 kernel."""
+    import dataclasses
+    from repro_torch.configs import get
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import init_params, prefill
+    arch, B, S = MERGE
+    cfg = get(arch).config
+    merged = dataclasses.replace(cfg, attn_head_merge=True)
+    n_attn = cfg.pattern_repeats * sum(m == "attn"
+                                       for m, _ in cfg.block_pattern)
+    gen = torch.Generator().manual_seed(10)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         dtype=torch.int32).cuda()
+    with torch.inference_mode():
+        params = init_params(cfg, seed=0, device="cuda")
+        got = {}
+        for name, c in (("unmerged", cfg), ("merged", merged)):
+            before = flash_attention.route_launches["wgmma_bf16"]
+            got[name], _ = prefill(params, c, toks, max_len=S)
+            torch.cuda.synchronize()
+            check(flash_attention.route_launches["wgmma_bf16"]
+                  == before + n_attn,
+                  f"{arch} {name} prefill did not launch the bf16 flash "
+                  f"kernel once a layer")
+        same = torch.equal(got["merged"], got["unmerged"])
+    print(f"[head_merge] {arch} bf16 B={B} prompt={S}: prefill with "
+          f"attn_head_merge (the flash kernel on (B·H={B * cfg.n_heads}, 1, "
+          f"S, D)) against the unmerged one: logits bit for bit {same}; "
+          f"{n_attn} bf16 flash launches each")
+    check(same, f"{arch}: the merged prefill's logits differ from the "
+          f"unmerged ones")
+    del params, got
+
+
+def softcap_serve_phase(torch):
+    """The capped forward on a main path: danube's bf16 serve (SERVES'
+    shape) with ``attn_logit_softcap=SOFTCAP``, every prefill layer on the
+    capped bf16 kernel → (capped launches, the ServeResult)."""
+    import dataclasses
+    from repro_torch.configs import get
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch import serve
+    arch, batch, prompt, steps = SERVES[0]
+    cfg = dataclasses.replace(get(arch).config, attn_logit_softcap=SOFTCAP)
+    flash_attention.capped_launches = 0
+    flash_attention.route_launches["wgmma_bf16"] = 0
+    res = serve.serve(cfg, batch, prompt, steps)
+    launches = flash_attention.capped_launches
+    n_attn = cfg.pattern_repeats * sum(m == "attn"
+                                       for m, _ in cfg.block_pattern)
+    print(f"[softcap] {arch} bf16 serve with attn_logit_softcap={SOFTCAP:g} "
+          f"B={batch} prompt={prompt} steps={steps}: prefill "
+          f"{res.prefill_ms:.3f} ms, decode {res.decode_ms:.3f} ms "
+          f"({res.decode_tok_s:.1f} tok/s); capped flash launches "
+          f"{launches}")
+    check(launches == n_attn == flash_attention.route_launches["wgmma_bf16"],
+          f"{arch}: the capped serve launched the capped bf16 kernel "
+          f"{launches} times, not once a layer ({n_attn})")
+    check(tuple(res.tokens.shape) == (batch, steps),
+          f"{arch}: the capped serve returned invalid tokens")
+    return launches, res
+
+
+def softcap_train_phase(torch):
+    """The capped backward on a main path: ``make_train_step`` for danube
+    at full width and depth in bf16 with remat, ``attn_logit_softcap=
+    SOFTCAP``, SOFTCAP_TRAIN_STEPS steps at [train]'s batch and sequence
+    with the launcher's optimizer and data → capped backward launches."""
+    import dataclasses
+    import math
+    from repro_torch.configs import get
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention_backward
+    from repro_torch.models import TrainState, init_params, make_train_step
+    from repro_torch.optim import adamw, linear_warmup_cosine
+    arch, batch, seq = TRAINS[0][:3]
+    cfg = dataclasses.replace(get(arch).config, attn_logit_softcap=SOFTCAP)
+    steps = SOFTCAP_TRAIN_STEPS
+    opt = adamw(linear_warmup_cosine(3e-4, 10, steps), weight_decay=0.01)
+    step_fn = make_train_step(cfg, opt, ssd_chunk=32)
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                      global_batch=batch, seed=11), "cuda")
+    params = init_params(cfg, seed=0, device="cuda")
+    state = TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int32))
+    del params
+    flash_attention.capped_launches = 0
+    flash_attention_backward.capped_launches = 0
+    losses, walls = [], []
+    for step in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, data.batch(step))
+        losses.append(float(metrics["loss"]))
+        walls.append(time.perf_counter() - t0)
+    n_attn = cfg.pattern_repeats * sum(m == "attn"
+                                       for m, _ in cfg.block_pattern)
+    fwd, bwd = (flash_attention.capped_launches,
+                flash_attention_backward.capped_launches)
+    print(f"[softcap] {arch} bf16 train steps with attn_logit_softcap="
+          f"{SOFTCAP:g}, B={batch} S={seq}, remat: losses {losses}, step "
+          f"walls {[round(w, 4) for w in walls]} s; capped launches: "
+          f"forward {fwd}, backward {bwd}")
+    check(all(math.isfinite(x) for x in losses),
+          f"{arch}: a capped training loss is not finite")
+    check(fwd == steps * 2 * n_attn and bwd == steps * n_attn,
+          f"{arch}: the capped steps launched {fwd} forward and {bwd} "
+          f"backward capped kernels, not {steps * 2 * n_attn} and "
+          f"{steps * n_attn}")
+    del state, metrics
+    return bwd, walls
 
 
 def search_phase(torch, g, arrays, plat, cfg):
@@ -3689,7 +4189,16 @@ def main() -> int:
           f"card: {card}; allow_tf32 off for matmul and cuDNN")
 
     t0 = time.perf_counter()
+    # the bf16 forward as it was before the cap (tools/flash_fwd_bitwise.py
+    # holds the uncapped path bit for bit against it) builds beside them
+    import threading
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import flash_fwd_bitwise
+    old_build = threading.Thread(target=flash_fwd_bitwise.build_old,
+                                 args=(flash_fwd_bitwise.UNCAPPED,))
+    old_build.start()
     built = build_all()
+    old_build.join()
     print(f"[build] {time.perf_counter() - t0:.2f} s wall, nvcc per source "
           f"{ {k: round(v, 2) for k, v in built.items()} } into "
           f"{build_dir()}")
@@ -3865,7 +4374,7 @@ def main() -> int:
     for arch, *_, cut in ARCH_SERVES:
         # internvl2's prompt runs past its 256 vision tokens
         decode_consistency(torch, arch, 300 if arch == "internvl2-76b"
-                           else 200, 8, cut=cut)
+                           else 200, 8, cut=CONSISTENCY_CUTS.get(arch, cut))
         torch.cuda.empty_cache()
     print(f"[phase] six-arch decode consistency: "
           f"{time.perf_counter() - t_phase:.2f} s")
@@ -3902,6 +4411,37 @@ def main() -> int:
         torch.cuda.empty_cache()
         print(f"[phase] train_parity: {time.perf_counter() - t_phase:.2f} s")
     tdanube, tmamba = trained["h2o-danube-1.8b"], trained["mamba2-130m"]
+
+    # ---- the logit softcap: the four capped kernels against their plain
+    # versions, the uncapped bf16 forward bit for bit as it was before the
+    # cap, then the capped main paths (danube's serve and training steps,
+    # its f32 decode consistency); int8 weights; merged heads ----
+    t_phase = time.perf_counter()
+    cap_err, cap_t, cap_bwd_err, cap_bwd_t = softcap_checks(torch)
+    torch.cuda.empty_cache()
+    check(flash_fwd_bitwise.main([]) == 0, "the uncapped bf16 flash forward "
+          "is not bit for bit the kernel before the cap, or a capped launch "
+          "failed")
+    print(f"[phase] softcap kernels: {time.perf_counter() - t_phase:.2f} s")
+    t_phase = time.perf_counter()
+    cap_launches, res = softcap_serve_phase(torch)
+    del res
+    torch.cuda.empty_cache()
+    cap_bwd_launches, _ = softcap_train_phase(torch)
+    torch.cuda.empty_cache()
+    decode_consistency(torch, "h2o-danube-1.8b", 200, 8,
+                       cut={"attn_logit_softcap": SOFTCAP_CONSISTENCY})
+    torch.cuda.empty_cache()
+    print(f"[phase] softcap main paths: {time.perf_counter() - t_phase:.2f} "
+          f"s")
+    t_phase = time.perf_counter()
+    quantize_phase(torch)
+    torch.cuda.empty_cache()
+    print(f"[phase] quantize: {time.perf_counter() - t_phase:.2f} s")
+    t_phase = time.perf_counter()
+    head_merge_phase(torch)
+    torch.cuda.empty_cache()
+    print(f"[phase] head_merge: {time.perf_counter() - t_phase:.2f} s")
 
     kernels = [
         {"name": "level_makespan", "route": "cuda",
@@ -3963,6 +4503,15 @@ def main() -> int:
          "max_abs_err": flash128_err, "ms": flash128_t[0],
          "plain_ms": flash128_t[1], "bound_ms": flash128_t[2],
          "bound_by": flash128_t[3], "library_ms": flash128_t[4]},
+        {"name": f"flash_attention (softcap {SOFTCAP:g}, danube prefill)",
+         "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:35 with "
+                     "src/repro/models/layers.py:134 (_gqa_scores' softcap; "
+                     "the Pallas kernel has none)",
+         "launches": cap_launches, "max_abs_err": cap_err,
+         "ms": cap_t[0], "plain_ms": cap_t[1], "bound_ms": cap_t[2],
+         "bound_by": cap_t[3], "library_ms": cap_t[4]},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:27",
@@ -3978,6 +4527,16 @@ def main() -> int:
          "max_abs_err": fbwd_err, "ms": fbwd_t[0], "plain_ms": fbwd_t[1],
          "bound_ms": fbwd_t[2], "bound_by": fbwd_t[3],
          "library_ms": fbwd_t[4]},
+        {"name": f"flash_attention_bwd (softcap {SOFTCAP:g}, danube "
+                 f"training)", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:35 (its gradient, "
+                     "with src/repro/models/layers.py:134's softcap; the "
+                     "Pallas kernel has neither)",
+         "launches": cap_bwd_launches, "max_abs_err": cap_bwd_err,
+         "ms": cap_bwd_t[0], "plain_ms": cap_bwd_t[1],
+         "bound_ms": cap_bwd_t[2], "bound_by": cap_bwd_t[3],
+         "library_ms": cap_bwd_t[4]},
         {"name": "rmsnorm_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm.py:24 (its gradient; the "

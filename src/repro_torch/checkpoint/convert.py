@@ -15,7 +15,9 @@ The learned baselines' trees map the same way: Placeto's
 ``rnn_from_numpy``; ``params_to_numpy`` reads any of these modules back).
 
 The LM's parameters keep the reference's tree and layouts in the port, so
-``lm_params_from_numpy`` copies them leaf for leaf, and
+``lm_params_from_numpy`` copies them leaf for leaf (a reference
+``QTensor`` leaf of ``quantize_params``, int8 data and f32 scales, as the
+port's ``QTensor``), and
 ``lm_train_state_from_numpy`` carries a whole training state across: the
 parameters, the optimizer's ``OptState(step, mu, nu)`` (the moments in
 their own dtype, which may differ from the parameters') and the step, so a
@@ -161,7 +163,7 @@ def _leaf_tensor(a, path: str) -> torch.Tensor:
     a = np.ascontiguousarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
-    if a.dtype not in (np.float32, np.int32):
+    if a.dtype not in (np.float32, np.int32, np.int8):
         raise ValueError(f"{path}: unsupported leaf dtype {a.dtype}")
     return torch.from_numpy(a.copy())
 
@@ -172,11 +174,32 @@ def _lm_tree_from_numpy(tree: Dict, cfg, device, keep_dtype: bool) -> Dict:
     ``keep_dtype``, its dtype."""
     from ..models.lm import model_defs
     from ..models.params import ParamDef
+    from ..models.quantize import QTensor
     device = torch.device(device)
+
+    def quantized(defs, node, where):
+        """A reference ``QTensor(data, scale)`` for ``defs``."""
+        shape = defs.shape
+        scale_shape = (shape[0], shape[-1]) if len(shape) >= 3 \
+            else (shape[-1],)
+        data = _leaf_tensor(node.data, f"{where}/data")
+        scale = _leaf_tensor(node.scale, f"{where}/scale")
+        if data.dtype != torch.int8 or tuple(data.shape) != shape \
+                or scale.dtype != torch.float32 \
+                or tuple(scale.shape) != scale_shape:
+            raise ValueError(
+                f"{where}: a quantized leaf must be int8 data {shape} and "
+                f"float32 scales {scale_shape}; got {data.dtype} "
+                f"{tuple(data.shape)} and {scale.dtype} "
+                f"{tuple(scale.shape)}")
+        return QTensor(data.to(device), scale.to(device))
 
     def walk(defs, node, path):
         where = "/".join(map(str, path)) or "<root>"
         if isinstance(defs, ParamDef):
+            if isinstance(node, tuple) and getattr(node, "_fields", ()) \
+                    == ("data", "scale"):
+                return quantized(defs, node, where)
             if isinstance(node, (dict, list, tuple)) or node is None:
                 raise ValueError(f"{where}: expected an array leaf")
             t = _leaf_tensor(node, where)
@@ -205,7 +228,9 @@ def _lm_tree_from_numpy(tree: Dict, cfg, device, keep_dtype: bool) -> Dict:
 
 def lm_params_from_numpy(tree: Dict, cfg, device="cuda") -> Dict:
     """The reference LM's ``init_params`` tree (numpy leaves) as the port's
-    params for ``cfg`` on ``device``.
+    params for ``cfg`` on ``device``; a tree of the reference's
+    ``quantize_params`` carries its ``QTensor`` leaves (int8 data at the
+    leaf's shape, f32 scales) across as the port's ``QTensor``.
 
     Every leaf of the port's ``model_defs(cfg)`` must be in ``tree`` with the
     same shape and dtype, and ``tree`` may hold nothing else: a missing,

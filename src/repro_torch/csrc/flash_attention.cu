@@ -32,6 +32,13 @@
 // correction exp(-1e30 − m) wipes out; under causal masking every row has
 // its diagonal key, so no row ends fully masked.
 //
+// A logit softcap (softcap > 0, Gemma 2's attn_logit_softcapping) replaces
+// each scaled score s by softcap·tanh(s / softcap) before the mask, as
+// repro/models/layers.py::_gqa_scores does; it is a second instantiation of
+// the kernel (kCap), so the uncapped one runs the code it ran before, and
+// it takes the accurate tanhf (2 ulp), not tanh.approx.f32, whose relative
+// error near 2^-11 times a cap of 50 would move a score by ~0.02.
+//
 // What bounds it on this card: operations.  At the h2o-danube-1.8b prefill
 // shape it does ~900 multiply-adds per byte of q, k, v and o, on the f32
 // units from shared memory (one shared load per multiply-add).
@@ -66,13 +73,18 @@ __device__ __forceinline__ void load_tile(const float* __restrict__ src,
   }
 }
 
-template <int D>
+// softcap·tanh(x / softcap), in the plain version's order of operations
+__device__ __forceinline__ float capped(float x, float softcap) {
+  return __fmul_rn(softcap, tanhf(__fdiv_rn(x, softcap)));
+}
+
+template <int D, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
                        int H, int KV, int S, float scale, int causal,
-                       int window) {
+                       int window, float softcap) {
   static_assert(D % 4 == 0, "D must be a multiple of 4");
   constexpr int kDP = D + 1;         // padded row stride
   constexpr int kAcc = D / 4;        // accumulator columns per thread
@@ -145,7 +157,9 @@ flash_attention_kernel(const float* __restrict__ q,
         ok = ok && t <= i;
         if (window > 0) ok = ok && t > i - window;
       }
-      s[j] = ok ? __fmul_rn(s[j], scale) : kNegInf;
+      float x = __fmul_rn(s[j], scale);
+      if constexpr (kCap) x = capped(x, softcap);
+      s[j] = ok ? x : kNegInf;
       m_cur = fmaxf(m_cur, s[j]);
     }
     m_cur = fmaxf(m_cur, __shfl_xor_sync(0xffffffffu, m_cur, 1));
@@ -189,8 +203,9 @@ flash_attention_kernel(const float* __restrict__ q,
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int H, int KV, int S, float scale, int causal, int window,
-           cudaStream_t stream) {
-  auto* kernel = flash_attention_kernel<D>;
+           float softcap, cudaStream_t stream) {
+  auto* kernel = softcap > 0.f ? flash_attention_kernel<D, true>
+                               : flash_attention_kernel<D, false>;
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -200,30 +215,35 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), H, KV, S,
-      scale, causal, window);
+      scale, causal, window, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // One launch on `stream`; all tensors contiguous.  H must be a multiple of
-// KV and D one of 64, 80, 96, 128 (else cudaErrorInvalidValue).  Allocates
-// nothing; returns the launch's cudaError_t (0 on success).
+// KV and D one of 64, 80, 96, 128 (else cudaErrorInvalidValue); softcap 0
+// for none.  Allocates nothing; returns the launch's cudaError_t (0 on
+// success).
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* out, int B, int H,
                                    int KV, int S, int D, float scale,
-                                   int causal, int window, void* stream) {
+                                   int causal, int window, float softcap,
+                                   void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch<64>(q, k, v, out, B, H, KV, S, scale, causal, window, s);
+      return launch<64>(q, k, v, out, B, H, KV, S, scale, causal, window,
+                        softcap, s);
     case 80:
-      return launch<80>(q, k, v, out, B, H, KV, S, scale, causal, window, s);
+      return launch<80>(q, k, v, out, B, H, KV, S, scale, causal, window,
+                        softcap, s);
     case 96:
-      return launch<96>(q, k, v, out, B, H, KV, S, scale, causal, window, s);
+      return launch<96>(q, k, v, out, B, H, KV, S, scale, causal, window,
+                        softcap, s);
     case 128:
       return launch<128>(q, k, v, out, B, H, KV, S, scale, causal, window,
-                         s);
+                         softcap, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

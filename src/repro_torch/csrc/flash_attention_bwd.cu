@@ -36,6 +36,13 @@
 // flash_tile_plan and flash_bwd_tile_plan).  Masked scores are -1e30 in
 // pass 1, as in the forward, and p = 0 in pass 2 and in kernel B.
 //
+// A logit softcap (softcap > 0) takes each scaled score s to
+// softcap·tanh(s / softcap) before the mask, as the forward does; both
+// kernels recompute t = tanh(s / softcap) from the score and scale dS by the
+// cap's derivative 1 − t² before dq and dk take their final ·scale.  The cap
+// is a second instantiation of each kernel (kCap), so the uncapped ones run
+// the code they ran before.
+//
 // What bounds it on this card: operations.  About 8 products of the
 // visited (query, key) pairs by D, on the f32 units from shared memory.
 #include <cuda_runtime.h>
@@ -71,6 +78,13 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src, int t0,
   }
 }
 
+// The scaled score x capped, softcap·tanh(x / softcap), in the plain
+// version's order of operations; `t` gets tanh(x / softcap).
+__device__ __forceinline__ float capped(float x, float softcap, float& t) {
+  t = tanhf(__fdiv_rn(x, softcap));
+  return __fmul_rn(softcap, t);
+}
+
 __device__ __forceinline__ bool visible(int i, int t, int S, int causal,
                                         int window) {
   bool ok = i < S && t < S;
@@ -81,13 +95,14 @@ __device__ __forceinline__ bool visible(int i, int t, int S, int causal,
   return ok;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const T* __restrict__ o,
              const T* __restrict__ dout, T* __restrict__ dq,
              float* __restrict__ lse_out, float* __restrict__ dsum_out,
-             int H, int KV, int S, float scale, int causal, int window) {
+             int H, int KV, int S, float scale, int causal, int window,
+             float softcap) {
   constexpr int kDP = D + 1;
   constexpr int kAcc = D / 4;
   extern __shared__ float smem[];
@@ -169,7 +184,12 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < kPer; ++j) {
       const bool ok = !need_mask || visible(i, t0 + qt + 4 * j, S, causal,
                                             window);
-      s[j] = ok ? __fmul_rn(s[j], scale) : kNegInf;
+      float x = __fmul_rn(s[j], scale);
+      if constexpr (kCap) {
+        float t;
+        x = capped(x, softcap, t);
+      }
+      s[j] = ok ? x : kNegInf;
       m_cur = fmaxf(m_cur, s[j]);
     }
     m_cur = fmaxf(m_cur, __shfl_xor_sync(0xffffffffu, m_cur, 1));
@@ -221,9 +241,14 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < kPer; ++j) {
       const bool ok = !need_mask || visible(i, t0 + qt + 4 * j, S, causal,
                                             window);
-      const float p =
-          ok ? expf(__fsub_rn(__fmul_rn(s[j], scale), lse)) : 0.f;
+      float x = __fmul_rn(s[j], scale);
+      float t = 0.f;
+      if constexpr (kCap) x = capped(x, softcap, t);
+      const float p = ok ? expf(__fsub_rn(x, lse)) : 0.f;
       s[j] = __fmul_rn(p, __fsub_rn(dp[j], dsum));   // ds
+      if constexpr (kCap) {
+        s[j] = __fmul_rn(s[j], __fsub_rn(1.f, __fmul_rn(t, t)));
+      }
     }
     // acc[row, c] += Σ_key ds[row, key] · k[key, c]; the ds of key kk
     // lives in s[kk / 4] of the row's thread kk % 4.
@@ -250,13 +275,13 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ dsum,
               T* __restrict__ dk, T* __restrict__ dv, int H, int KV, int S,
-              float scale, int causal, int window) {
+              float scale, int causal, int window, float softcap) {
   constexpr int kDP = D + 1;
   constexpr int kAcc = D / 4;
   extern __shared__ float smem[];
@@ -340,9 +365,14 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < kPer; ++j) {
         const int qi = qq + 4 * j;
         const bool ok = !need_mask || visible(q0 + qi, t, S, causal, window);
-        const float pj =
-            ok ? expf(__fsub_rn(__fmul_rn(p[j], scale), ls[qi])) : 0.f;
+        float x = __fmul_rn(p[j], scale);
+        float th = 0.f;
+        if constexpr (kCap) x = capped(x, softcap, th);
+        const float pj = ok ? expf(__fsub_rn(x, ls[qi])) : 0.f;
         ds[j] = __fmul_rn(pj, __fsub_rn(ds[j], dss[qi]));
+        if constexpr (kCap) {
+          ds[j] = __fmul_rn(ds[j], __fsub_rn(1.f, __fmul_rn(th, th)));
+        }
         p[j] = pj;
       }
       // dv[key, c] += Σ_query p · dout[query, c], dk[key, c] += Σ_query
@@ -380,10 +410,11 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, void* dq, void* dk, void* dv, void* lse,
            void* dsum, int B, int H, int KV, int S, float scale, int causal,
-           int window, cudaStream_t stream) {
+           int window, float softcap, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
-  auto* ka = flash_bwd_dq<T, D>;
-  auto* kb = flash_bwd_dkv<T, D>;
+  const bool cap = softcap > 0.f;
+  auto* ka = cap ? flash_bwd_dq<T, D, true> : flash_bwd_dq<T, D, false>;
+  auto* kb = cap ? flash_bwd_dkv<T, D, true> : flash_bwd_dkv<T, D, false>;
   cudaError_t err = cudaFuncSetAttribute(
       ka, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -397,13 +428,13 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   ka<<<dim3((S + kBQ - 1) / kBQ, H, B), kThreads, smem, stream>>>(
       qp, kp, vp, static_cast<const T*>(o), dop, static_cast<T*>(dq),
       static_cast<float*>(lse), static_cast<float*>(dsum), H, KV, S, scale,
-      causal, window);
+      causal, window, softcap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   kb<<<dim3((S + kBK - 1) / kBK, KV, B), kThreads, smem, stream>>>(
       qp, kp, vp, dop, static_cast<const float*>(lse),
       static_cast<const float*>(dsum), static_cast<T*>(dk),
-      static_cast<T*>(dv), H, KV, S, scale, causal, window);
+      static_cast<T*>(dv), H, KV, S, scale, causal, window, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -411,14 +442,14 @@ template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* o,
              const void* dout, void* dq, void* dk, void* dv, void* lse,
              void* dsum, int B, int H, int KV, int S, int D, float scale,
-             int causal, int window, void* stream) {
+             int causal, int window, float softcap, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (KV <= 0 || H % KV) return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
 #define FLASH_BWD(DIM)                                                     \
   case DIM:                                                                \
     return launch<T, DIM>(q, k, v, o, dout, dq, dk, dv, lse, dsum, B, H,   \
-                          KV, S, scale, causal, window, s);
+                          KV, S, scale, causal, window, softcap, s);
     FLASH_BWD(64) FLASH_BWD(80) FLASH_BWD(96) FLASH_BWD(128)
 #undef FLASH_BWD
     default:
@@ -431,16 +462,16 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
 // The backward: two launches on `stream` (kernel A: dq, and lse and D_i
 // into the (B, H, S) f32 scratch `lse` and `dsum`; kernel B: dk and dv).
 // q, o, dout, dq are (B, H, S, D), k, v, dk, dv (B, KV, S, D), contiguous
-// f32.  Allocates nothing; returns the first launch error (0 on
-// success; cudaErrorInvalidValue for a head dim or grouping it is not
-// built for).
+// f32; softcap 0 for none.  Allocates nothing; returns the first launch
+// error (0 on success; cudaErrorInvalidValue for a head dim or grouping it
+// is not built for).
 extern "C" int flash_attention_bwd_f32(const void* q, const void* k,
                                        const void* v, const void* o,
                                        const void* dout, void* dq, void* dk,
                                        void* dv, void* lse, void* dsum,
                                        int B, int H, int KV, int S, int D,
                                        float scale, int causal, int window,
-                                       void* stream) {
+                                       float softcap, void* stream) {
   return dispatch<float>(q, k, v, o, dout, dq, dk, dv, lse, dsum, B, H, KV,
-                         S, D, scale, causal, window, stream);
+                         S, D, scale, causal, window, softcap, stream);
 }

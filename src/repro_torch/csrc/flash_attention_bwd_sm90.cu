@@ -70,6 +70,15 @@
 // lse = log2 Σ_t 2^(s_t·c), so that p = exp2(s·c − lse) is one fused
 // multiply-add and one ex2.approx, as in the forward's softmax.
 //
+// A logit softcap (softcap > 0) is a second instantiation of both kernels
+// (kCap; the uncapped ones are the code that ran before it).  As the
+// forward does, each raw score s becomes the capped score in raw units,
+// (softcap/scale)·t with t = tanh(s·scale/softcap) recomputed from S by the
+// accurate tanhf, and p = exp2 of that against the forward's log-sum-exp of
+// the capped scores; dS then takes the cap's derivative, dS = p∘(dP − D_i)∘
+// (1 − t²), before dq's and dk's final ·scale.  t is recomputed where it is
+// used and not kept live: the dk/dv kernel already spills at D >= 80.
+//
 // Tried on the card (tools/flash_bwd_variants.py times such variants;
 // PERF.md §6): a loading warp (288 threads) instead of a warpgroup, 9 %
 // slower at danube's shape; a third ring stage, within 2 % either way;
@@ -435,17 +444,25 @@ __device__ __forceinline__ float row_dot(const __nv_bfloat16* __restrict__ o,
 // One key tile of kernel A on this thread's scores s and dp (query rows i0
 // and i0 + 8, keys t0 + 8·(j/4) + cq + (j&1), the m64n64 accumulator
 // layout): p = exp2(s·c − lse), masked p = 0 if kMask, dS = p·(dp − D_i)
-// into dp.
-template <bool kMask>
+// into dp; with kCap s is capped first (cap_r·t, t = tanh(s·cap_in)) and
+// dS takes the factor 1 − t².
+template <bool kMask, bool kCap>
 __device__ __forceinline__ void dq_tile(const float (&s)[kSAcc],
                                         float (&dp)[kSAcc], int t0, int i0,
                                         int cq, int S, int causal, int window,
-                                        float c, float lse0, float lse1,
-                                        float di0, float di1) {
+                                        float c, float cap_r, float cap_in,
+                                        float lse0, float lse1, float di0,
+                                        float di1) {
 #pragma unroll
   for (int j = 0; j < kSAcc; ++j) {
     const bool hi = j & 2;
-    float p = exp2_approx(fmaf(s[j], c, -(hi ? lse1 : lse0)));
+    float x = s[j];
+    float t = 0.f;
+    if constexpr (kCap) {
+      t = tanhf(x * cap_in);
+      x = cap_r * t;
+    }
+    float p = exp2_approx(fmaf(x, c, -(hi ? lse1 : lse0)));
     if constexpr (kMask) {
       if (!visible(hi ? i0 + 8 : i0, t0 + 8 * (j / 4) + cq + (j & 1), S,
                    causal, window)) {
@@ -453,18 +470,21 @@ __device__ __forceinline__ void dq_tile(const float (&s)[kSAcc],
       }
     }
     dp[j] = p * (dp[j] - (hi ? di1 : di0));
+    if constexpr (kCap) dp[j] *= 1.f - t * t;
   }
 }
 
 // One query tile of kernel B on this thread's transposed scores (key rows
 // t0 and t0 + 8, queries q0 + 8·(j/4) + cq + (j&1)): Pᵀ into s, dSᵀ into dp,
-// with each query's lse and D_i from the stage's rows in shared memory.
-template <bool kMask>
+// with each query's lse and D_i from the stage's rows in shared memory;
+// with kCap as dq_tile.
+template <bool kMask, bool kCap>
 __device__ __forceinline__ void dkv_tile(float (&s)[kSAcc],
                                          float (&dp)[kSAcc], int q0, int t0,
                                          int cq, int S, int causal,
-                                         int window, float c,
-                                         const float* lse, const float* di) {
+                                         int window, float c, float cap_r,
+                                         float cap_in, const float* lse,
+                                         const float* di) {
 #pragma unroll
   for (int g = 0; g < kSAcc / 4; ++g) {
     const int col = 8 * g + cq;
@@ -473,7 +493,13 @@ __device__ __forceinline__ void dkv_tile(float (&s)[kSAcc],
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int j = 4 * g + e;
-      float p = exp2_approx(fmaf(s[j], c, -((e & 1) ? l.y : l.x)));
+      float x = s[j];
+      float t = 0.f;
+      if constexpr (kCap) {
+        t = tanhf(x * cap_in);
+        x = cap_r * t;
+      }
+      float p = exp2_approx(fmaf(x, c, -((e & 1) ? l.y : l.x)));
       if constexpr (kMask) {
         if (!visible(q0 + col + (e & 1), (e & 2) ? t0 + 8 : t0, S, causal,
                      window)) {
@@ -482,6 +508,7 @@ __device__ __forceinline__ void dkv_tile(float (&s)[kSAcc],
       }
       s[j] = p;
       dp[j] = p * (dp[j] - ((e & 1) ? d.y : d.x));
+      if constexpr (kCap) dp[j] *= 1.f - t * t;
     }
   }
 }
@@ -510,7 +537,7 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst,
   }
 }
 
-template <int D>
+template <int D, bool kCap>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tq_tail,
@@ -524,7 +551,8 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq,
                   const __nv_bfloat16* __restrict__ dout,
                   const float* __restrict__ lse,
                   __nv_bfloat16* __restrict__ dq, float* __restrict__ dsum,
-                  int H, int KV, int S, float scale, int causal, int window) {
+                  int H, int KV, int S, float scale, int causal, int window,
+                  float cap_r, float cap_in) {
   using P = Dims<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t q_s = (smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -639,11 +667,11 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq,
     if (t0 + kDqBK > S ||
         (causal && (t0 + kDqBK - 1 > q0 ||
                     (window > 0 && t0 <= q0 + kDqBQ - 1 - window)))) {
-      dq_tile<true>(s, dp, t0, i0, cq, S, causal, window, c, lse0, lse1, di0,
-                    di1);
+      dq_tile<true, kCap>(s, dp, t0, i0, cq, S, causal, window, c, cap_r,
+                          cap_in, lse0, lse1, di0, di1);
     } else {
-      dq_tile<false>(s, dp, t0, i0, cq, S, causal, window, c, lse0, lse1,
-                     di0, di1);
+      dq_tile<false, kCap>(s, dp, t0, i0, cq, S, causal, window, c, cap_r,
+                           cap_in, lse0, lse1, di0, di1);
     }
     pack(a, dp);
 
@@ -661,7 +689,7 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq,
   store_rows<D>(dq + hs * D, acc, scale, i0, cq, S);
 }
 
-template <int D>
+template <int D, bool kCap>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tk_tail,
@@ -675,7 +703,8 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tk,
                    const float* __restrict__ dsum,
                    __nv_bfloat16* __restrict__ dk,
                    __nv_bfloat16* __restrict__ dv, int H, int KV, int S,
-                   float scale, int causal, int window) {
+                   float scale, int causal, int window, float cap_r,
+                   float cap_in) {
   using P = Dims<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t pad = ((smem_addr(smem_raw) + 1023u) & ~1023u) -
@@ -805,10 +834,11 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tk,
     if (q0 + kDkvBQ > S || k0 + kDkvBK > S ||
         (causal && (k0 + kDkvBK - 1 > q0 ||
                     (window > 0 && q0 + kDkvBQ - 1 - k0 >= window)))) {
-      dkv_tile<true>(s, dp, q0, t0, cq, S, causal, window, c, r, r + kDkvBQ);
+      dkv_tile<true, kCap>(s, dp, q0, t0, cq, S, causal, window, c, cap_r,
+                           cap_in, r, r + kDkvBQ);
     } else {
-      dkv_tile<false>(s, dp, q0, t0, cq, S, causal, window, c, r,
-                      r + kDkvBQ);
+      dkv_tile<false, kCap>(s, dp, q0, t0, cq, S, causal, window, c, cap_r,
+                            cap_in, r, r + kDkvBQ);
     }
     pack(pa, s);
     pack(da, dp);
@@ -898,10 +928,13 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, void* dq, void* dk, void* dv, const void* lse,
            void* dsum, int B, int H, int KV, int S, float scale, int causal,
-           int window, cudaStream_t stream) {
+           int window, float softcap, cudaStream_t stream) {
   using P = Dims<D>;
-  auto* ka = flash_bwd_dq_sm90<D>;
-  auto* kb = flash_bwd_dkv_sm90<D>;
+  const bool cap = softcap > 0.f;
+  auto* ka = cap ? flash_bwd_dq_sm90<D, true> : flash_bwd_dq_sm90<D, false>;
+  auto* kb = cap ? flash_bwd_dkv_sm90<D, true> : flash_bwd_dkv_sm90<D, false>;
+  const float cap_r = cap ? softcap / scale : 0.f;
+  const float cap_in = cap ? scale / softcap : 0.f;
   cudaError_t err = cudaFuncSetAttribute(
       ka, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kDqSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -934,14 +967,15 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       static_cast<const __nv_bfloat16*>(o),
       static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<__nv_bfloat16*>(dq),
-      static_cast<float*>(dsum), H, KV, S, scale, causal, window);
+      static_cast<float*>(dsum), H, KV, S, scale, causal, window, cap_r,
+      cap_in);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   kb<<<dim3(KV, B, n_kt), kThreads, P::kDkvSmem, stream>>>(
       bk, bk_t, bv, bv_t, bq, bq_t, bdo, bdo_t,
       static_cast<const float*>(lse), static_cast<const float*>(dsum),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H,
-      KV, S, scale, causal, window);
+      KV, S, scale, causal, window, cap_r, cap_in);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -951,22 +985,23 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 // (B, H, S) f32 scratch `dsum`; kernel B: dk and dv).  q, o, dout, dq are
 // (B, H, S, D) and k, v, dk, dv (B, KV, S, D), contiguous bf16, 16-byte
 // aligned; `lse` is the forward's (B, H, S) f32 log-sum-exp in base 2 of the
-// scores scaled by scale·log2(e).  The argument list is the f32 entry's of
-// flash_attention_bwd.cu, where `lse` is scratch the kernel writes.
+// scores scaled by scale·log2(e) (capped, under a softcap; 0 for none).
+// The argument list is the f32 entry's of flash_attention_bwd.cu, where
+// `lse` is scratch the kernel writes.
 // Allocates nothing; returns the first launch error (0 on success;
 // cudaErrorInvalidValue for a head dim or grouping it is not built for).
 extern "C" int flash_attention_bwd_bf16_sm90(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, void* lse, void* dsum,
     int B, int H, int KV, int S, int D, float scale, int causal, int window,
-    void* stream) {
+    float softcap, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (KV <= 0 || H % KV) return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
 #define FLASH_BWD(DIM)                                                    \
   case DIM:                                                               \
     return launch<DIM>(q, k, v, o, dout, dq, dk, dv, lse, dsum, B, H, KV, \
-                       S, scale, causal, window, s);
+                       S, scale, causal, window, softcap, s);
     FLASH_BWD(64) FLASH_BWD(80) FLASH_BWD(96) FLASH_BWD(128)
 #undef FLASH_BWD
     default:

@@ -23,6 +23,15 @@ of ``repro/kernels/ref.py::flash_attention_ref``), which autograd
 differentiates.  All apply ``window`` only under ``causal``, as ``ref.py``
 does.
 
+``softcap`` > 0 caps the scaled scores at ``softcap·tanh(s / softcap)``
+before the mask (Gemma 2's attention logit softcapping, the reference's
+``attn_logit_softcap`` in ``repro/models/layers.py::_gqa_scores``; its
+Pallas kernel has none).  Each of the four kernels has a capped
+instantiation beside the uncapped one, which stays the code it was; a CUDA
+tensor with a cap launches the capped kernels
+(``flash_attention.capped_launches``, ``flash_attention_backward
+.capped_launches``).
+
 ``flash_tile_plan`` is the Python mirror of the loops that walk key tiles
 for a query tile (the forwards, and the dq kernels at their own tile sizes):
 which key tiles each query tile visits and which of them apply the in-tile
@@ -80,16 +89,19 @@ def flash_mask(s: int, causal: bool, window: int,
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True,
-                        window: int = 0) -> torch.Tensor:
+                        *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0) -> torch.Tensor:
     """Plain PyTorch version: q (B, H, S, D), k/v (B, KV, S, D) → (B, H, S, D)
-    in q's dtype; f32 softmax."""
+    in q's dtype; f32 softmax, the scaled scores capped at
+    ``softcap·tanh(s / softcap)`` when ``softcap`` > 0."""
     b, h, s, d = q.shape
     kv = k.shape[1]
     g = h // kv
     qg = q.reshape(b, kv, g, s, d).to(torch.float32)
     scores = torch.einsum("bkgsd,bktd->bkgst", qg, k.to(torch.float32)) \
         / math.sqrt(d)
+    if softcap > 0:
+        scores = softcap * torch.tanh(scores / softcap)
     mask = flash_mask(s, causal, window, q.device)
     if mask is not None:
         scores = torch.where(mask, scores, torch.tensor(-1e30,
@@ -210,20 +222,28 @@ _BWD_ROUTES = {torch.float32: ("flash_attention_bwd",
                                 "wgmma_bf16")}
 
 
+def _argtypes(dtype: torch.dtype, backward: bool = False) -> list:
+    """The ctypes parameter list of the C entry of ``dtype``'s route: the
+    tensors' pointers, B, H, KV, S, D, scale, causal, window, softcap and
+    the stream."""
+    n_ptr = 10 if backward else 4 + (dtype == torch.bfloat16)
+    return [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 \
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+           ctypes.c_void_p]
+
+
 def _lib(dtype: torch.dtype, backward: bool = False):
     from ._build import library
     lib_name, entry, _ = (_BWD_ROUTES if backward else _ROUTES)[dtype]
     fn = getattr(library(lib_name), entry)
     if fn.argtypes is None:
-        n_ptr = 10 if backward else 4 + (dtype == torch.bfloat16)
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 \
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = _argtypes(dtype, backward)
     return fn
 
 
 def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                window: int) -> str:
+                window: int, softcap: float = 0.0) -> str:
     """Raise on what the CUDA kernels do not take; → the route for q's
     dtype (``"wgmma_bf16"`` or ``"simt_f32"``)."""
     if q.ndim != 4 or q.dtype not in _ROUTES or not q.is_contiguous():
@@ -251,6 +271,9 @@ def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window < 0:
         raise ValueError(f"flash_attention: window must be >= 0; got "
                          f"{window}")
+    if not (softcap >= 0 and math.isfinite(softcap)):
+        raise ValueError(f"flash_attention: softcap must be finite and >= 0 "
+                         f"(0 for none); got {softcap}")
     route = _ROUTES[q.dtype][2]
     if route == "wgmma_bf16" and q.device.type != "meta" and any(
             t.data_ptr() % 16 for t in (q, k, v)):
@@ -261,12 +284,12 @@ def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, *, causal: bool = True,
-                            window: int = 0
+                            window: int = 0, softcap: float = 0.0
                             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The forward kernel on CUDA tensors, outside autograd → (output, the
-    rows' (B, H, S) f32 log-sum-exp in base 2 of the scores scaled by
-    log2(e)/sqrt(D) on the bf16 route, None on the f32 route)."""
-    route = _check_args(q, k, v, window)
+    rows' (B, H, S) f32 log-sum-exp in base 2 of the (capped) scores scaled
+    by log2(e)/sqrt(D) on the bf16 route, None on the f32 route)."""
+    route = _check_args(q, k, v, window, softcap)
     b, h, s, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device) \
@@ -276,13 +299,14 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()) \
         + (() if lse is None else (lse.data_ptr(),))
     err = _lib(q.dtype)(*ptrs, b, h, k.shape[1], s, d, 1.0 / math.sqrt(d),
-                        int(causal), int(window),
+                        int(causal), int(window), float(softcap),
                         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed ({route}): "
                            f"CUDA error {err}")
     flash_attention.launches += 1
     flash_attention.route_launches[route] += 1
+    flash_attention.capped_launches += softcap > 0
     return out, lse
 
 
@@ -290,14 +314,15 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, out: torch.Tensor,
                              dout: torch.Tensor,
                              lse: Optional[torch.Tensor] = None, *,
-                             causal: bool = True, window: int = 0
+                             causal: bool = True, window: int = 0,
+                             softcap: float = 0.0
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """The backward kernels on CUDA tensors: the forward's q, k, v and
     output, the output's gradient (all contiguous, one dtype) and, on the
-    bf16 route, the log-sum-exp ``flash_attention_forward`` returned →
-    (dq, dk, dv) in that dtype."""
-    route = _check_args(q, k, v, window)
+    bf16 route, the log-sum-exp ``flash_attention_forward`` returned (with
+    the same ``softcap``) → (dq, dk, dv) in that dtype."""
+    route = _check_args(q, k, v, window, softcap)
     for name, t in (("out", out), ("dout", dout)):
         if t.device != q.device or t.dtype != q.dtype \
                 or t.shape != q.shape or not t.is_contiguous():
@@ -332,17 +357,20 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         lse.data_ptr(), dsum.data_ptr(), b, h, k.shape[1], s, d,
-        1.0 / math.sqrt(d), int(causal), int(window),
+        1.0 / math.sqrt(d), int(causal), int(window), float(softcap),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention backward kernel launch failed "
                            f"({route}): CUDA error {err}")
     flash_attention_backward.launches += 1
     flash_attention_backward.route_launches[route] += 1
+    flash_attention_backward.capped_launches += softcap > 0
     return dq, dk, dv
 
 
 flash_attention_backward.launches = 0
+#: launches of the capped kernels (``softcap`` > 0), on either route
+flash_attention_backward.capped_launches = 0
 #: backward launches per route (the kernel pair, per dtype)
 flash_attention_backward.route_launches = {"simt_f32": 0, "wgmma_bf16": 0}
 
@@ -353,11 +381,11 @@ class FlashAttentionFn(torch.autograd.Function):
     rows' log-sum-exp; a recompute under remat saves them again)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, softcap):
         out, lse = flash_attention_forward(q, k, v, causal=causal,
-                                           window=window)
+                                           window=window, softcap=softcap)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.softcap = causal, window, softcap
         return out
 
     @staticmethod
@@ -365,14 +393,15 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward(
             q, k, v, out, dout.contiguous(), lse, causal=ctx.causal,
-            window=ctx.window)
-        return dq, dk, dv, None, None
+            window=ctx.window, softcap=ctx.softcap)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
     """q (B, H, S, D), k/v (B, KV, S, D), contiguous, all f32 or all bf16 →
-    (B, H, S, D) in q's dtype.
+    (B, H, S, D) in q's dtype; ``softcap`` > 0 caps the scaled scores.
 
     CUDA tensors go through ``FlashAttentionFn`` (D in ``HEAD_DIMS``): bf16
     launches ``csrc/flash_attention_sm90.cu`` and, for the gradient,
@@ -381,14 +410,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``flash_attention_ref``.
     """
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention takes CPU or CUDA tensors; got "
                          f"{q.device}")
-    _check_args(q, k, v, window)
-    return FlashAttentionFn.apply(q, k, v, bool(causal), int(window))
+    _check_args(q, k, v, window, softcap)
+    return FlashAttentionFn.apply(q, k, v, bool(causal), int(window),
+                                  float(softcap))
 
 
 flash_attention.launches = 0
+#: launches of the capped kernels (``softcap`` > 0), on either route
+flash_attention.capped_launches = 0
 #: launches per route: the bf16 tensor-core kernel and the f32 SIMT kernel
 flash_attention.route_launches = {"wgmma_bf16": 0, "simt_f32": 0}

@@ -10,7 +10,14 @@ Random weights from seed 0 and random prompts from seed 1; a VLM serves its
 text path (no vision embeds), as the reference's launcher does.  Runs on the
 card unless ``--device cpu`` is given.  ``main`` returns the generated tokens
 and the timings; ``serve`` does the same for a config the caller built (a
-registered one cut to fit a card).
+registered one cut to fit a card, or with ``quantize_weights=True``).
+
+With ``cfg.quantize_weights`` the weights are int8 with f32 scales
+(``models/quantize.py``), the reference's serving dry run's
+``quantize_params(init_params(cfg))``: built leaf by leaf, each drawn as
+``init_params`` draws it and quantized at once, so no bf16 tree is ever
+resident, and dequantized one sub-layer (an MoE layer one expert) at a
+time as the model runs.
 """
 from __future__ import annotations
 
@@ -28,7 +35,8 @@ class ServeResult(NamedTuple):
     prefill_ms: float        # host clock around prefill, synchronised
     decode_ms: float         # host clock around steps-1 decode steps
     decode_tok_s: float      # batch·(steps-1) / decode time
-    weight_bytes: int        # bytes of the weights on the device
+    weight_bytes: int        # bytes of the weights on the device (int8 data
+    #                          and f32 scales when quantized)
 
 
 def _sync(device: torch.device) -> None:
@@ -57,14 +65,22 @@ def main(argv=None) -> ServeResult:
 def serve(cfg, batch: int, prompt: int, steps: int,
           device="cuda") -> ServeResult:
     """Prefill ``batch`` random prompts of ``prompt`` tokens with ``cfg``'s
-    random weights, then decode greedily to ``steps`` tokens each."""
+    random weights (int8 with ``cfg.quantize_weights``), then decode
+    greedily to ``steps`` tokens each."""
     from .._device import resolve_device
-    from ..models import init_params, make_serve_step, prefill
+    from ..models import (init_params, init_quantized_params,
+                          make_serve_step, prefill)
     from ..models.params import tree_leaves
 
     device = resolve_device(device)
     with torch.inference_mode():
-        params = init_params(cfg, seed=0, device=device)
+        init = init_quantized_params if cfg.quantize_weights else init_params
+        params = init(cfg, seed=0, device=device)
+        if cfg.quantize_weights and device.type == "cuda":
+            # hand back the blocks of the full-size f32 draws the int8 tree
+            # was quantized from, so the prefill's large blocks do not have
+            # to fit between them
+            torch.cuda.empty_cache()
         weight_bytes = sum(a.numel() * a.element_size()
                            for a in tree_leaves(params))
         serve_step = make_serve_step(cfg)

@@ -2,10 +2,10 @@
 
 Port of ``repro/models/config.py`` holding the fields the ported serving
 and training paths read, with the reference's defaults; ``dtype_`` is a
-torch dtype.  The options the port does not run yet (logit softcap,
-merged-head attention, int8 weights) stay as fields so that
-``check_ported`` can reject them; the sharding knobs (scan, FSDP, the
-optimizer state dtype of the dry-runs) come with ``launch/mesh``.
+torch dtype.  Every option the reference's model runs is here (the logit
+softcap, merged-head attention, int8 weight serving); the sharding knobs
+(scan, FSDP, the optimizer state dtype of the dry-runs) come with
+``launch/mesh``.
 
 ``block_pattern`` is the repeating unit of (mixer, ffn) pairs; the decoder
 loops over ``n_layers // len(pattern)`` repeats of it.

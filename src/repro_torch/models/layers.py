@@ -9,6 +9,14 @@ runs the ``rmsnorm`` kernel; prefill and training self-attention runs the
 through its backward kernel; decode attention (one query against the
 ring-buffer cache) and the MoE layer are plain PyTorch, as the reference
 computes them outside any kernel too.
+
+Two attention options of the reference: ``attn_logit_softcap`` caps the
+scaled scores at ``cap·tanh(s / cap)`` before the mask, in prefill (the
+flash kernels' capped instantiations) and in decode (``_gqa_scores``);
+``attn_head_merge`` runs prefill self-attention with (batch × heads)
+merged into the kernel's batch.  The reference's merged path applies no
+cap, so with both options prefill is uncapped and decode capped, as
+there.
 """
 from __future__ import annotations
 
@@ -22,30 +30,13 @@ from ..kernels.flash_attention import flash_attention
 from ..kernels.rmsnorm import rmsnorm
 from .config import ModelConfig
 from .params import ParamDef, ones_init, scaled_init, zeros_init
+from .quantize import QTensor, dequantize
 
 __all__ = [
     "rms_norm", "layer_norm", "norm_defs", "apply_norm",
     "rope", "attn_defs", "attention", "AttnCache", "init_attn_cache",
     "ffn_defs", "dense_ffn", "moe_defs", "moe_ffn", "moe_route", "MoERoute",
-    "check_ported",
 ]
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for options the port does not run yet.
-
-    No registered config sets any of them: they are the reference's
-    ``launch/perf.py`` variants."""
-    waiting = (
-        (cfg.attn_head_merge, "attn_head_merge"),
-        (cfg.attn_logit_softcap > 0, "attn_logit_softcap > 0"),
-        (cfg.quantize_weights, "quantize_weights (int8 serving)"),
-    )
-    for on, what in waiting:
-        if on:
-            raise NotImplementedError(
-                f"{cfg.name}: {what} is not ported to repro_torch yet "
-                f"(ROADMAP.md queue 1, 'LM substrate')")
 
 
 # ------------------------------------------------------------------- norms
@@ -150,14 +141,18 @@ def _project_qkv(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     return q, k, v
 
 
-def _gqa_scores(q, k, scale):
-    """q: (B,S,H,Dh), k: (B,T,KV,Dh) → scores (B,KV,G,S,T) in f32."""
+def _gqa_scores(q, k, scale, softcap: float = 0.0):
+    """q: (B,S,H,Dh), k: (B,T,KV,Dh) → scores (B,KV,G,S,T) in f32, capped
+    at ``softcap·tanh(s / softcap)`` when ``softcap`` > 0."""
     b, s, h, dh = q.shape
     kvh = k.shape[2]
     g = h // kvh
     qg = q.reshape(b, s, kvh, g, dh)
-    return torch.einsum("bskgd,btkd->bkgst", qg.to(torch.float32),
-                        k.to(torch.float32)) * scale
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    if softcap > 0:
+        scores = softcap * torch.tanh(scores / softcap)
+    return scores
 
 
 def _attend(scores, v, mask):
@@ -179,9 +174,10 @@ def attention(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     Prefill: ``cache=None`` → causal (+sliding window) self-attention over
     ``x`` through the flash kernel, with ``positions`` = 0..S-1 (the kernel
-    masks by index); returns (y, None), or (y, (k, v)) with ``return_kv``
-    — the rotated (B, S, KV, Dh) keys and values the prefill cache is
-    packed from.
+    masks by index), capped by ``cfg.attn_logit_softcap`` or, with
+    ``cfg.attn_head_merge``, merged over (batch × heads) and uncapped;
+    returns (y, None), or (y, (k, v)) with ``return_kv`` — the rotated
+    (B, S, KV, Dh) keys and values the prefill cache is packed from.
 
     Decode: ``cache`` holds past KV, ``cache_index`` is the current absolute
     position; x has S=1.  The cache is updated in place and returned.
@@ -191,11 +187,15 @@ def attention(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     q, k, v = _project_qkv(p, x, cfg, positions)
 
     if cache is None:
-        y = flash_attention(q.transpose(1, 2).contiguous(),
-                            k.transpose(1, 2).contiguous(),
-                            v.transpose(1, 2).contiguous(),
-                            causal=True, window=cfg.sliding_window)
-        y = y.transpose(1, 2)                                # (B,S,H,Dh)
+        if cfg.attn_head_merge:
+            y = _head_merged_attention(q, k, v, cfg)
+        else:
+            y = flash_attention(q.transpose(1, 2).contiguous(),
+                                k.transpose(1, 2).contiguous(),
+                                v.transpose(1, 2).contiguous(),
+                                causal=True, window=cfg.sliding_window,
+                                softcap=cfg.attn_logit_softcap)
+            y = y.transpose(1, 2)                            # (B,S,H,Dh)
         new_cache = (k, v) if return_kv else None
     else:
         # decode: write this token's K/V into its ring-buffer slot.  The
@@ -219,7 +219,7 @@ def attention(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
         mask = causal[:, None, None, :, :]
         k_all = cache.k.transpose(1, 2)                      # (B,W,KV,Dh)
         v_all = cache.v.transpose(1, 2)
-        scores = _gqa_scores(q, k_all, scale)
+        scores = _gqa_scores(q, k_all, scale, cfg.attn_logit_softcap)
         y = _attend(scores, v_all, mask)
         new_cache = cache
 
@@ -227,6 +227,26 @@ def attention(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     h, dh = y.shape[2], y.shape[3]
     out = y.reshape(b, s, h * dh) @ p["wo"].reshape(h * dh, -1)
     return out, new_cache
+
+
+def _head_merged_attention(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Prefill self-attention with (batch × heads) merged into the batch
+    (the reference's ``_head_merged_attention``, its TP fallback for head
+    counts that do not divide the model axis): GQA K/V repeated to full
+    heads, the flash kernel on (B·H, 1, S, Dh), no logit cap (the
+    reference's merged path applies none).  A head's work in the kernel does
+    not depend on where it sits in the grid, so this equals the unmerged
+    uncapped attention.  q: (B,S,H,Dh), k/v: (B,S,KV,Dh) → (B,S,H,Dh)."""
+    b, s, h, dh = q.shape
+    g = h // k.shape[2]
+    if g > 1:
+        k = k.repeat_interleave(g, dim=2)
+        v = v.repeat_interleave(g, dim=2)
+    qm, km, vm = (t.transpose(1, 2).reshape(b * h, 1, s, dh)
+                  for t in (q, k, v))
+    ym = flash_attention(qm, km, vm, causal=True, window=cfg.sliding_window)
+    return ym.reshape(b, h, s, dh).transpose(1, 2)
 
 
 # ---------------------------------------------------------------- dense FFN
@@ -303,7 +323,10 @@ def moe_route(router: torch.Tensor, x: torch.Tensor,
     g = n // sg
     cap = min(int(math.ceil(sg * k * cfg.capacity_factor / e / 4.0) * 4), sg)
 
-    probs = torch.softmax(x.to(torch.float32) @ router, dim=-1)   # (n, E)
+    # a quantized tree dequantizes the f32 router to the model dtype, which
+    # the reference's einsum promotes back to f32
+    probs = torch.softmax(x.to(torch.float32) @ router.to(torch.float32),
+                          dim=-1)                                 # (n, E)
     vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     vals, ids = vals[:, :k], ids[:, :k]
     gates = vals / vals.sum(-1, keepdim=True).clamp(min=1e-9)
@@ -325,17 +348,40 @@ def moe_route(router: torch.Tensor, x: torch.Tensor,
                     gates)
 
 
+def _experts(p: Dict, xe: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Each expert's FFN on its (E, R, d) rows → (E, R, d): batched
+    products, or with int8 weights (``QTensor``s of (E, d, f)) one expert
+    at a time, its slices dequantized just before its products, so that no
+    dequantized copy of all E experts exists."""
+    def ffn(w_gate, w_up, w_down, xs):
+        if cfg.activation == "swiglu":
+            h = F.silu(torch.matmul(xs, w_gate)) * torch.matmul(xs, w_up)
+        else:
+            h = F.gelu(torch.matmul(xs, w_gate), approximate="tanh")
+        return torch.matmul(h, w_down)
+    names = ("w_gate", "w_up", "w_down")
+    if not isinstance(p["w_gate"], QTensor):
+        return ffn(*(p[k] for k in names), xe)
+    out = torch.empty_like(xe)
+    for i in range(cfg.moe_experts):
+        ws = [dequantize(QTensor(p[k].data[i], p[k].scale), cfg.dtype_)
+              for k in names]
+        out[i] = ffn(*ws, xe[i])
+    return out
+
+
 def moe_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """GShard-style capacity-routed top-k MoE.
 
     Routes with :func:`moe_route`, gathers each expert's kept tokens into
-    an (E, G·C, d) batch, runs the experts as batched products, then sums
-    each token's kept expert outputs weighted by its gates cast to the
-    activation dtype (the reference's ``combine.astype(ye.dtype)``)."""
+    an (E, G·C, d) batch, runs the experts as batched products (one expert
+    at a time on int8 weights, ``_experts``), then sums each token's kept
+    expert outputs weighted by its gates cast to the activation dtype (the
+    reference's ``combine.astype(ye.dtype)``)."""
     b, s, d = x.shape
     n, e = b * s, cfg.moe_experts
     xf = x.reshape(n, d)
-    route = moe_route(p["router"], xf, cfg)
+    route = moe_route(dequantize(p["router"], cfg.dtype_), xf, cfg)
     rows = route.rows
     k = route.slot.shape[1]
     # the token in each slot of the expert batch; an empty slot computes on
@@ -345,11 +391,7 @@ def moe_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     tokens[route.slot.reshape(-1)] = torch.arange(
         n, device=x.device).repeat_interleave(k)
     xe = xf[tokens[:rows]].view(e, -1, d)
-    if cfg.activation == "swiglu":
-        h = F.silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
-    else:
-        h = F.gelu(torch.bmm(xe, p["w_gate"]), approximate="tanh")
-    ye = torch.bmm(h, p["w_down"]).view(rows, d)
+    ye = _experts(p, xe, cfg).view(rows, d)
     kept = route.kept()
     w = torch.where(kept, route.gates, 0.0).to(ye.dtype)
     picked = ye[torch.where(kept, route.slot, 0)]          # (n, k, d)

@@ -25,10 +25,19 @@ Steps:
 
 Every architecture of the reference's registry runs: dense, sliding-window,
 Mamba-2, MoE and hybrid patterns, the parallel attn∥FFN block and
-vision-token prefixes.  On the card the gradient goes through the kernels'
-backward kernels (``RMSNormFn``, ``FlashAttentionFn``, ``SSDScanFn``).  Int8
-weight serving waits for a later slice (ROADMAP.md queue 1, 'LM
-substrate').
+vision-token prefixes, with every option of ``ModelConfig``.  On the card
+the gradient goes through the kernels' backward kernels (``RMSNormFn``,
+``FlashAttentionFn``, ``SSDScanFn``).
+
+Int8 weight-only serving (``models/quantize.py``): a tree whose leaves are
+``QTensor``s serves as the reference's does, the embedding, the unembed and
+each block's weights dequantized to ``cfg.dtype_`` where they are used.
+Eager PyTorch holds what XLA would fuse, so the port dequantizes tighter
+than the reference's whole repeat (one jamba period is 88 GB of bf16): one
+sub-layer (a position's mixer, then its FFN) of one repeat at a time, an
+MoE layer's experts one expert at a time, in slabs of at most 2^26
+elements, the same values bit for bit.  Training never quantizes, as the
+reference's train step never reads ``quantize_weights``.
 """
 from __future__ import annotations
 
@@ -38,10 +47,11 @@ import torch
 
 from .config import ModelConfig
 from .layers import (AttnCache, apply_norm, attention, attn_defs,
-                     check_ported, dense_ffn, ffn_defs, init_attn_cache,
-                     moe_defs, moe_ffn, norm_defs)
+                     dense_ffn, ffn_defs, init_attn_cache, moe_defs, moe_ffn,
+                     norm_defs)
 from .params import (ParamDef, init_tree, normal_init, ones_init,
                      tree_leaves, tree_map)
+from .quantize import QTensor, dequant_tree, dequantize
 from .ssm import init_ssm_cache, ssd_forward, ssm_decode_step, ssm_defs
 
 __all__ = ["model_defs", "init_params", "forward", "prefill", "decode_step",
@@ -69,7 +79,6 @@ def _ffn_defs(cfg: ModelConfig, ffn: str, reps: int):
 
 
 def model_defs(cfg: ModelConfig) -> Dict:
-    check_ported(cfg)
     reps = cfg.pattern_repeats
     defs: Dict[str, Any] = {
         "embed": ParamDef((cfg.vocab_size, cfg.d_model), cfg.dtype_,
@@ -106,12 +115,15 @@ def _apply_block_position(cfg: ModelConfig, pos: int, bp: Dict,
                           cache=None, cache_index=None,
                           ssd_chunk: int = 256, want_cache: bool = False,
                           cache_len: int = 0):
-    """One (mixer, ffn) position of the pattern for one repeat."""
+    """One (mixer, ffn) position of the pattern for one repeat.  Quantized
+    weights are dequantized one sub-layer (the mixer, then the FFN) at a
+    time, just before it runs (norms are never quantized)."""
     mixer, ffn = cfg.block_pattern[pos]
     new_cache = None
     h_in = apply_norm(cfg, bp["norm1"]["scale"], x)
+    mp = dequant_tree(bp["mixer"], cfg.dtype_)
     if mixer == "attn":
-        y, new_cache = attention(bp["mixer"], h_in, cfg, positions=positions,
+        y, new_cache = attention(mp, h_in, cfg, positions=positions,
                                  cache=cache, cache_index=cache_index,
                                  return_kv=want_cache)
         if cache is None and want_cache:
@@ -119,23 +131,26 @@ def _apply_block_position(cfg: ModelConfig, pos: int, bp: Dict,
                                                   cache_len)
     else:  # mamba
         if cache is not None:
-            y, new_cache = ssm_decode_step(bp["mixer"], h_in, cache, cfg)
+            y, new_cache = ssm_decode_step(mp, h_in, cache, cfg)
         else:
-            y, new_cache = ssd_forward(bp["mixer"], h_in, cfg,
-                                       chunk=ssd_chunk,
+            y, new_cache = ssd_forward(mp, h_in, cfg, chunk=ssd_chunk,
                                        return_final_state=want_cache)
+    del mp
 
-    apply_ffn = moe_ffn if ffn == "moe" else dense_ffn
-    if cfg.parallel_block and ffn != "none":
+    if ffn == "none":
+        return x + y, new_cache
+    if ffn == "moe":
+        # int8 experts dequantize one expert at a time inside moe_ffn
+        apply_ffn, fp = moe_ffn, bp["ffn"]
+    else:
+        apply_ffn, fp = dense_ffn, dequant_tree(bp["ffn"], cfg.dtype_)
+    if cfg.parallel_block:
         # command-r style: attn and ffn read the same normed input (norm2
         # stays in the tree, unused, as in the reference's)
-        x = x + y + apply_ffn(bp["ffn"], h_in, cfg)
-    else:
-        x = x + y
-        if ffn != "none":
-            h2 = apply_norm(cfg, bp["norm2"]["scale"], x)
-            x = x + apply_ffn(bp["ffn"], h2, cfg)
-    return x, new_cache
+        return x + y + apply_ffn(fp, h_in, cfg), new_cache
+    x = x + y
+    h2 = apply_norm(cfg, bp["norm2"]["scale"], x)
+    return x + apply_ffn(fp, h2, cfg), new_cache
 
 
 def _build_prefill_attn_cache(k: torch.Tensor, v: torch.Tensor,
@@ -177,8 +192,15 @@ def _build_prefill_attn_cache(k: torch.Tensor, v: torch.Tensor,
 def _embed_tokens(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                   vision_embeds: Optional[torch.Tensor]) -> torch.Tensor:
     """Token embeddings; a VLM's ``vision_embeds`` (B, nv, d) replace the
-    first nv positions."""
-    x = params["embed"][tokens.long()]
+    first nv positions.  A quantized table dequantizes only the rows it
+    gathers (elementwise, so the values of the reference's whole-table
+    dequantize)."""
+    embed = params["embed"]
+    if isinstance(embed, QTensor):
+        x = (embed.data[tokens.long()].to(torch.float32) * embed.scale) \
+            .to(cfg.dtype_)
+    else:
+        x = embed[tokens.long()]
     if cfg.vision_tokens and vision_embeds is not None:
         nv = vision_embeds.shape[1]
         x = torch.cat([vision_embeds.to(x.dtype), x[:, nv:]], dim=1)
@@ -188,8 +210,8 @@ def _embed_tokens(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
 def _unembed(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = apply_norm(cfg, params["final_norm"], x)
     if cfg.tie_embeddings:
-        return x @ params["embed"].T
-    return x @ params["lm_head"]
+        return x @ dequantize(params["embed"], cfg.dtype_).T
+    return x @ dequantize(params["lm_head"], cfg.dtype_)
 
 
 def _layer(tree, r: int):
@@ -248,7 +270,6 @@ def _run_blocks(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     repeats, or None.  Decode updates them in place and returns them;
     prefill (``want_cache``) returns newly stacked ones.  A forward without
     caches under gradients runs each repeat under ``cfg.remat``."""
-    check_ported(cfg)
     npos = len(cfg.block_pattern)
     reps = cfg.pattern_repeats
     layers = [_unstack(params["blocks"][pos], reps) for pos in range(npos)]

@@ -31,8 +31,10 @@ class ParamDef:
 
 
 def _normal(gen, shape, device, std: float) -> torch.Tensor:
+    # scaled in place: the same values as ``* std`` without a second f32
+    # copy of the leaf
     return torch.randn(shape, generator=gen, dtype=torch.float32,
-                       device=device) * std
+                       device=device).mul_(std)
 
 
 def normal_init(stddev: float = 0.02) -> Init:
@@ -91,14 +93,25 @@ def tree_map(fn, tree, is_leaf=None):
     return fn(tree)
 
 
-def init_tree(defs, seed: int, device) -> Any:
+def init_tree(defs, seed: int, device, leaf_fn=None) -> Any:
     """Materialise a ParamDef tree on ``device``: one generator seeded with
-    ``seed`` draws the leaves in ``tree_leaves`` order."""
+    ``seed`` draws the leaves in ``tree_leaves`` order.  ``leaf_fn(path,
+    tensor)``, when given, replaces each leaf as soon as it is drawn (the
+    path a tuple of dict keys and list indices)."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    is_def = lambda x: isinstance(x, ParamDef)  # noqa: E731
-    vals = {}
-    for d in tree_leaves(defs, is_def):
-        vals[id(d)] = (d.init or normal_init())(gen, d.shape, d.dtype,
-                                                device)
-    return tree_map(lambda d: vals[id(d)], defs, is_def)
+
+    def walk(node, path):
+        if isinstance(node, ParamDef):
+            t = (node.init or normal_init())(gen, node.shape, node.dtype,
+                                             device)
+            return t if leaf_fn is None else leaf_fn(path, t)
+        if isinstance(node, dict):
+            # drawn in sorted key order, kept in the defs' order
+            vals = {k: walk(node[k], path + (k,)) for k in sorted(node)}
+            return {k: vals[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, path + (i,))
+                              for i, v in enumerate(node))
+        return None
+    return walk(defs, ())

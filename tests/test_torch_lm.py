@@ -205,18 +205,19 @@ def test_serve_main_on_cpu(arch, monkeypatch):
 
 
 def test_unported_options_and_archs_raise():
-    """The three options the port does not run raise; every reference arch
-    is registered, and an unknown one is a ``KeyError``."""
+    """Every reference arch is registered, and an unknown one is a
+    ``KeyError``; every option of ``ModelConfig`` runs (none is refused any
+    more: their parity is in tests/test_torch_quantize.py and
+    tests/test_torch_attn_options.py)."""
     from repro_torch.models import init_params
     assert all_archs() == ref_all_archs() == tuple(ARCHS)
     cfg = get("h2o-danube-1.8b").smoke_config
     params = init_params(cfg, device="cpu")
     with pytest.raises(KeyError, match="registered"):
         get("no-such-arch")
+    toks = torch.zeros(1, 4, dtype=torch.int32)
     for change in (dict(attn_logit_softcap=30.0), dict(quantize_weights=True),
                    dict(attn_head_merge=True)):
-        bad = dataclasses.replace(cfg, **change)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_params(bad, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            forward(params, bad, torch.zeros(1, 4, dtype=torch.int32))
+        opt = dataclasses.replace(cfg, **change)
+        init_params(opt, device="cpu")
+        assert forward(params, opt, toks).shape == (1, 4, cfg.vocab_size)

@@ -69,15 +69,17 @@ def build(name: str, src: str):
     kernel = None
     for line in (res.stdout + res.stderr).splitlines():
         m = re.search(r"Compiling entry function '.*?(flash_bwd_\w+?_sm90)"
-                      r"ILi(\d+)E", line)
+                      r"ILi(\d+)ELb([01])E", line)
         if m:
-            kernel = f"{m.group(1)} D={m.group(2)}"
+            kernel = (f"{m.group(1)} D={m.group(2)}"
+                      f"{' softcap' if m.group(3) == '1' else ''}")
         elif kernel and ("registers" in line or "spill" in line):
             print(f"[build] {name} {kernel}: {line.strip()}")
     fn = ctypes.CDLL(str(lib)).flash_attention_bwd_bf16_sm90
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 \
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+           ctypes.c_void_p]
     return fn
 
 
@@ -118,7 +120,7 @@ def main(argv=None) -> int:
                             out.data_ptr(), dout.data_ptr(),
                             *(g.data_ptr() for g in grads), lse.data_ptr(),
                             dsum.data_ptr(), b, h, kv, s, d,
-                            1.0 / math.sqrt(d), 1, window,
+                            1.0 / math.sqrt(d), 1, window, 0.0,
                             torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"{name}: CUDA error {err}")
