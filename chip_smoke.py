@@ -111,7 +111,15 @@ user entry points:
    ``[train]`` (this slice's main path) runs ``repro_torch.launch.train``
    at full width and depth in bf16 with remat, h2o-danube-1.8b at 4 x 8192
    tokens and mamba2-130m at 8 x 4096, 3 steps each, and checks the
-   launches every step implies; ``[train_witness]`` runs the launcher's
+   launches every step implies; ``[dryrun]`` dry-runs those two steps
+   (``repro_torch.launch.dryrun`` on a 1x1 fake mesh, on the host) and holds
+   their parameter, gradient and optimizer-state bytes equal to the card's,
+   prints the predicted peak beside ``max_memory_allocated``, requires the
+   roofline bound at ``launch/roofline.HW`` to be at or below the measured
+   step wall and prints the step's ``roofline_fraction``, while a child
+   process runs danube's step on a one-rank NCCL mesh with ``shard()``
+   active (DTensor state, the pipeline's per-rank rows), bit for bit the
+   unsharded step with equal launches; ``[train_witness]`` runs the launcher's
    steps on danube at full depth through the kernels and through the plain
    versions, from the same weights and batches, to tell a trajectory the
    model and optimizer make from one the kernels make;
@@ -158,11 +166,6 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32
-# outside the tensor cores.
-H100_BYTES_PER_S = 3.35e12
-H100_F32_FLOPS = 67e12
-H100_BF16_FLOPS = 989e12     # dense bf16 on the tensor cores
 # flash_attention's bf16 time at danube's prefill shape on the SIMT kernel,
 # before the tensor-core kernel took bf16 (PERF.md section 6: chip_smoke.py
 # on an NVIDIA H100 80GB HBM3 at 700 W)
@@ -307,6 +310,11 @@ MERGE = ("musicgen-medium", 4, 2048)
 # not written (--ckpt-every 0), mamba2's is, every 2 steps and at the end
 TRAINS = (("h2o-danube-1.8b", 4, 8192, 3, 0),
           ("mamba2-130m", 8, 4096, 3, 2))
+# `[dryrun]`: each of TRAINS' steps dry-run (repro_torch.launch.dryrun) on a
+# 1x1 fake mesh against the [train] run; then TRAINS[0]'s step for real on a
+# one-rank NCCL mesh with shard() active, with DRYRUN_STEP_CUT applied to its
+# config (nothing: full width and depth), bit for bit the unsharded step
+DRYRUN_STEP_CUT = {}
 # `[train_witness]`: danube at full width and depth in bf16, the launcher's
 # optimizer, schedule and data, 3 steps through the kernels and the same 3
 # through the plain versions on the card from the same weights and batches,
@@ -442,9 +450,13 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2):
     return start.elapsed_time(end) / iters, host_ms
 
 
-def bound_ms(nbytes: float, ops: float):
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = ops / H100_F32_FLOPS * 1e3
+def bound_ms(nbytes: float, ops: float, peak: str = "peak_flops_f32"):
+    """The least time for ``nbytes`` moved and ``ops`` done (float32
+    outside the tensor cores by default) at the H100 SXM's published rates
+    (``repro_torch.launch.roofline.HW``) → (ms, what binds)."""
+    from repro_torch.launch.roofline import HW
+    t_bytes = nbytes / HW["hbm_bw"] * 1e3
+    t_ops = ops / HW[peak] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -864,9 +876,7 @@ def sage_checks(torch, graphs):
 
 def bound_ms_bf16(nbytes: float, ops: float):
     """As ``bound_ms`` for work on the bf16 tensor cores."""
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = ops / H100_BF16_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound_ms(nbytes, ops, "peak_flops")
 
 
 def lm_check(torch, name, got, want, dtype, worst):
@@ -955,7 +965,7 @@ def rmsnorm_checks(torch):
     beside ``F.rms_norm``'s, summed above its bound over one main-path
     run."""
     import torch.nn.functional as F
-    from repro_torch.kernels import rmsnorm, rmsnorm_ref
+    from repro_torch.kernels import rmsnorm, rmsnorm_ref, rmsnorm_work
     from repro_torch.kernels.rmsnorm import rmsnorm_launch_plan
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst, per_route = rmsnorm_route_sweep(torch, gen, 0.0)
@@ -968,8 +978,7 @@ def rmsnorm_checks(torch):
     # the library call takes the weight in x's dtype: a yardstick of speed
     w16 = scale.bfloat16()
     lib, _ = cuda_ms(torch, lambda: F.rms_norm(x, (d,), w16, 1e-6), 50)
-    nbytes = 2 * rows * d * 2 + 4 * d
-    ops = 4 * rows * d
+    ops, nbytes = rmsnorm_work(rows, d, x.dtype)
     t = (ms, plain, *bound_ms(nbytes, ops), lib)
     print(f"[lm-kernels] rmsnorm timing {rows}x{d} bf16: kernel {ms:.4f} ms "
           f"on the card ({host:.4f} ms of host time to launch), plain "
@@ -994,8 +1003,8 @@ def rmsnorm_checks(torch):
         ms_s, host_s = cuda_ms(torch, lambda: rmsnorm(x, scale), iters)
         lib_s, _ = cuda_ms(torch, lambda: F.rms_norm(x, (d,), w, 1e-6),
                            iters)
-        nbytes = 2 * rows * d * x.element_size() + 4 * d
-        b_ms, _ = bound_ms(nbytes, 4 * rows * d)
+        ops, nbytes = rmsnorm_work(rows, d, x.dtype)
+        b_ms, _ = bound_ms(nbytes, ops)
         excess += n * max(ms_s - b_ms, 0.0)
         hosts.append(host_s)
         if ms_s > lib_s:
@@ -1070,7 +1079,7 @@ def flash_checks(torch):
     phi3-mini's timing, worst at olmoe's shape, olmoe's timing)."""
     import torch.nn.functional as F
     from repro_torch.kernels import (flash_attention, flash_attention_ref,
-                                     flash_pairs)
+                                     flash_attention_work, flash_pairs)
     from repro_torch.kernels.flash_attention import flash_mask
     gen = torch.Generator(device="cuda").manual_seed(3)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -1158,8 +1167,10 @@ def flash_checks(torch):
         # the pair count comes from the kernel's own tile plan
         pairs, visited = flash_pairs(S, True, W)
         check(pairs == int(mask.sum()), "flash_pairs disagrees with the mask")
-        nbytes = 2 * (2 * B * H * S * D + 2 * B * KV * S * D)
-        ops = 4 * B * H * D * pairs
+        ops, nbytes = flash_attention_work(B, H, KV, S, D, q.dtype,
+                                           window=W)
+        check(ops == 4 * B * H * D * pairs,
+              "flash_attention_work disagrees with flash_pairs")
         t = (min(ms, ms2), plain, *bound_ms_bf16(nbytes, ops), lib)
         print(f"[lm-kernels] flash_attention timing {(B, H, KV, S, D)} "
               f"window {W} bf16: tensor-core kernel {ms:.4f} / {ms2:.4f} ms "
@@ -1333,7 +1344,8 @@ def softcap_fwd_timing(torch, q, k, v, W):
     same run (capped, uncapped, uncapped, capped), the plain capped
     version's and flex_attention's → (ms, plain, bound, bound_by,
     library)."""
-    from repro_torch.kernels import flash_attention_ref, flash_pairs
+    from repro_torch.kernels import (flash_attention_ref,
+                                     flash_attention_work, flash_pairs)
     from repro_torch.kernels.flash_attention import flash_attention_forward
     B, H, S, D = q.shape
     KV = k.shape[1]
@@ -1359,8 +1371,7 @@ def softcap_fwd_timing(torch, q, k, v, W):
                f"{compile_s:.1f} s; rel err vs plain {lib_err:.2e}) "
                f"{lib_ms:.4f} ms")
     pairs, _ = flash_pairs(S, True, W)
-    nbytes = 2 * (2 * B * H * S * D + 2 * B * KV * S * D)
-    ops = 4 * B * H * D * pairs
+    ops, nbytes = flash_attention_work(B, H, KV, S, D, q.dtype, window=W)
     b_ms, b_by = bound_ms_bf16(nbytes, ops)
     t = (min(ms1, ms2), plain, b_ms, b_by, lib_ms)
     print(f"[softcap] flash_attention forward timing {(B, H, KV, S, D)} "
@@ -1379,7 +1390,8 @@ def softcap_bwd_timing(torch, q, k, v, dout, W):
     same run, each from its own forward's output and log-sum-exp; the plain
     capped backward's (each (b, KV head) slice's measured time, summed) and
     flex_attention's backward → (ms, plain, bound, bound_by, library)."""
-    from repro_torch.kernels import flash_attention_ref, flash_pairs
+    from repro_torch.kernels import (flash_attention_ref,
+                                     flash_attention_work, flash_pairs)
     from repro_torch.kernels.flash_attention import (
         flash_attention_backward, flash_attention_forward)
     B, H, S, D = q.shape
@@ -1428,8 +1440,8 @@ def softcap_bwd_timing(torch, q, k, v, dout, W):
                f"{compile_s:.1f} s) {lib_ms:.3f} ms")
         del lo, ql, kl, vl
     pairs, _ = flash_pairs(S, True, W)
-    nbytes = q.element_size() * (B * H * S * D * 3 + B * KV * S * D * 4)
-    ops = 10 * B * H * D * pairs
+    ops, nbytes = flash_attention_work(B, H, KV, S, D, q.dtype, window=W,
+                                       backward=True)
     b_ms, b_by = bound_ms_bf16(nbytes, ops)
     t = (min(ms1, ms2), plain, b_ms, b_by, lib_ms)
     print(f"[softcap] flash_attention backward timing {(B, H, KV, S, D)} "
@@ -1446,7 +1458,7 @@ def softcap_bwd_timing(torch, q, k, v, dout, W):
 def ssd_scan_checks(torch):
     """ssd_scan at mamba2-130m's prefill (B=4, prompt 4096, chunk 32 → C=128,
     H=24, P=64, N=128), f32."""
-    from repro_torch.kernels import ssd_scan, ssd_scan_ref
+    from repro_torch.kernels import ssd_scan, ssd_scan_ref, ssd_scan_work
     gen = torch.Generator(device="cuda").manual_seed(4)
     B, C, H, P, N = 4, 128, 24, 64, 128
     dec = 0.3 + 0.699 * torch.rand(B, C, H, generator=gen, device="cuda")
@@ -1460,8 +1472,7 @@ def ssd_scan_checks(torch):
     del kb, kf, rb, rf
     ms, host = cuda_ms(torch, lambda: ssd_scan(dec, dbx), 20)
     plain, _ = cuda_ms(torch, lambda: ssd_scan_ref(dec, dbx), 3, 1)
-    nbytes = 4 * (B * C * H + 2 * B * C * H * P * N + B * H * P * N)
-    ops = 2 * B * C * H * P * N
+    ops, nbytes = ssd_scan_work(B, C, H, P, N)
     t = (ms, plain, *bound_ms(nbytes, ops), None)
     print(f"[lm-kernels] ssd_scan timing {(B, C, H, P, N)}: kernel "
           f"{ms:.4f} ms on the card ({host:.4f} ms of host time to launch), "
@@ -3606,7 +3617,7 @@ def flash_bwd_checks(torch):
     from repro_torch.kernels import flash_attention, flash_attention_ref
     from repro_torch.kernels.flash_attention import (
         BLOCK_K, BLOCK_Q, flash_attention_backward, flash_attention_forward,
-        flash_mask, flash_pairs, flash_tile_plan)
+        flash_attention_work, flash_mask, flash_pairs, flash_tile_plan)
     gen = torch.Generator(device="cuda").manual_seed(21)
     routes = {"bfloat16": "wgmma_bf16", "float32": "simt_f32"}
     worst, timings = 0.0, []
@@ -3721,9 +3732,9 @@ def flash_bwd_checks(torch):
             q, k, v, out, dout, lse, window=W), 3, 1)
         del lo, ql, kl, vl, mask
         pairs, visited = flash_pairs(S, True, W)
-        esize = q.element_size()
-        nbytes = esize * (B * H * S * D * 3 + B * KV * S * D * 4)
-        ops = 10 * B * H * D * pairs     # 5 products of the unmasked pairs
+        # 5 products of the unmasked pairs
+        ops, nbytes = flash_attention_work(B, H, KV, S, D, q.dtype,
+                                           window=W, backward=True)
         b_ms, b_by = bound_ms_bf16(nbytes, ops)
         t = (min(ms, ms2), plain, b_ms, b_by, lib)
         before_ms = FLASH_BWD_SIMT_BF16_MS[len(timings)]
@@ -3754,7 +3765,7 @@ def rmsnorm_bwd_checks(torch):
     RMS_BWD_CASES (and a ragged width), timed at danube's training rows
     beside the plain backward and F.rms_norm's → (worst, timing)."""
     import torch.nn.functional as F
-    from repro_torch.kernels import rmsnorm, rmsnorm_ref
+    from repro_torch.kernels import rmsnorm, rmsnorm_ref, rmsnorm_work
     from repro_torch.kernels.rmsnorm import rmsnorm_backward
     gen = torch.Generator(device="cuda").manual_seed(22)
     worst, timing = 0.0, None
@@ -3781,8 +3792,8 @@ def rmsnorm_bwd_checks(torch):
             lo = F.rms_norm(xl, (d,), wl, 1e-6)
             lib, _ = cuda_ms(torch, lambda: torch.autograd.grad(
                 lo, (xl, wl), g, retain_graph=True), 20)
-            nbytes = 3 * rows * d * x.element_size() + 8 * d
-            b_ms, b_by = bound_ms(nbytes, 8 * rows * d)
+            ops, nbytes = rmsnorm_work(rows, d, x.dtype, backward=True)
+            b_ms, b_by = bound_ms(nbytes, ops)
             timing = (ms, plain, b_ms, b_by, lib)
             print(f"[train_kernels] rmsnorm backward timing {rows}x{d} {dt}: "
                   f"kernel {ms:.4f} ms on the card ({host:.4f} ms of host "
@@ -3793,17 +3804,16 @@ def rmsnorm_bwd_checks(torch):
             del o, lo
         else:
             ms, _ = cuda_ms(torch, lambda: rmsnorm_backward(x, scale, g), 20)
-            nbytes = 3 * rows * d * x.element_size() + 8 * d
+            ops, nbytes = rmsnorm_work(rows, d, x.dtype, backward=True)
             print(f"[train_kernels] rmsnorm backward {rows}x{d} {dt}: kernel "
-                  f"{ms:.4f} ms, bound {bound_ms(nbytes, 8 * rows * d)[0]:.6f}"
-                  f" ms")
+                  f"{ms:.4f} ms, bound {bound_ms(nbytes, ops)[0]:.6f} ms")
     return worst, timing
 
 
 def ssd_bwd_checks(torch):
     """The ssd_scan reverse-scan kernel against the plain version's
     autograd at mamba2's training shape → (worst, timing)."""
-    from repro_torch.kernels import ssd_scan, ssd_scan_ref
+    from repro_torch.kernels import ssd_scan, ssd_scan_ref, ssd_scan_work
     from repro_torch.kernels.ssd_scan import ssd_scan_backward
     gen = torch.Generator(device="cuda").manual_seed(23)
     B, C, H, P, N = SSD_BWD_SHAPE
@@ -3824,8 +3834,8 @@ def ssd_bwd_checks(torch):
     plain, _ = cuda_ms(torch, lambda: torch.autograd.grad(
         o, (dr, xr), (gb, gf), retain_graph=True), 2, 1)
     del o
-    nbytes = 4 * (3 * B * C * H * P * N + B * H * P * N + 2 * B * C * H)
-    b_ms, b_by = bound_ms(nbytes, 4 * B * C * H * P * N)
+    ops, nbytes = ssd_scan_work(B, C, H, P, N, backward=True)
+    b_ms, b_by = bound_ms(nbytes, ops)
     print(f"[train_kernels] ssd_scan backward timing {SSD_BWD_SHAPE}: kernel "
           f"{ms:.4f} ms on the card ({host:.4f} ms of host time to launch), "
           f"{100 * b_ms / ms:.1f} % of the bound; plain {plain:.3f} ms; "
@@ -3922,6 +3932,241 @@ def train_phase(torch, arch, batch, seq, steps, ckpt_every, workdir):
         check(saved == want_saved, f"{arch}: checkpoints {saved}, not "
               f"{want_saved}")
     return launches, res
+
+
+def launcher_opt(steps: int):
+    """The AdamW and schedule ``repro_torch.launch.train`` trains with."""
+    from repro_torch.optim import adamw, linear_warmup_cosine
+    return adamw(linear_warmup_cosine(3e-4, 10, steps), weight_decay=0.01)
+
+
+def launcher_step(cfg, steps: int, record):
+    """The launcher's train step for ``cfg`` (its optimizer and Mamba-2
+    chunk), whose optimizer hands ``record`` the gradients first."""
+    from repro_torch.models import make_train_step
+    from repro_torch.optim import GradientTransform
+    opt = launcher_opt(steps)
+
+    def update(grads, state, params=None):
+        record(grads)
+        return opt.update(grads, state, params)
+    return make_train_step(cfg, GradientTransform(opt.init, update),
+                           ssd_chunk=32)
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.models.params import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def card_state_bytes(torch, arch, batch, seq, steps, res):
+    """The bytes [train]'s parameters, optimizer state and gradients take on
+    the card: the first two from its final state, the gradients from one
+    more launcher step on that state, whose optimizer records them."""
+    from repro_torch.configs import get
+    from repro_torch.data import DataConfig, SyntheticTokens
+    cfg = get(arch).config
+    seen = {}
+    step = launcher_step(cfg, steps, lambda g: seen.__setitem__(
+        "grads", tree_bytes(g)))
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=seq, global_batch=batch,
+                                      seed=11), "cuda")
+    opt = res.state.opt_state
+    out = {"params": tree_bytes(res.state.params),
+           "opt_state": tree_bytes((opt.mu, opt.nu))}
+    new, _ = step(res.state, data.batch(steps))
+    del new
+    out["grads"] = seen["grads"]
+    return out
+
+
+def dryrun_phase(torch, facts):
+    """``[dryrun]``: each of TRAINS' steps dry-run by
+    ``repro_torch.launch.dryrun.run_cell`` on a 1x1 fake mesh (on the host,
+    no card): its parameter, gradient and optimizer-state bytes must equal
+    the card's (``facts``: [train]'s bytes, walls and peak), its predicted
+    peak is printed beside ``max_memory_allocated``, and its roofline bound
+    (``launch/roofline.roofline_terms`` at ``HW``) must not exceed the
+    measured step wall, whose ``roofline_fraction`` it prints.
+    :func:`dryrun_step_child` runs meanwhile in a child process on the card
+    (the dry runs hold only the host) → the child's launches."""
+    import tempfile
+    t_child = time.perf_counter()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    # the child's output goes to files, so that it never waits on a pipe
+    # while the dry runs hold this process
+    with tempfile.TemporaryFile("w+") as out, \
+            tempfile.TemporaryFile("w+") as err:
+        child = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                  "--dryrun-step"], env=env, stdout=out,
+                                 stderr=err, text=True)
+        try:
+            _dryrun_cells(facts)
+            child.wait(timeout=600)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        out.seek(0)
+        err.seek(0)
+        stdout, stderr = out.read(), err.read()
+    for line in stdout.splitlines():
+        print(line)
+    check(child.returncode == 0, f"[dryrun] the step child exited "
+                                 f"{child.returncode}:\n{stderr[-3000:]}")
+    print(f"[dryrun] the 1x1 step's child, beside the dry runs: "
+          f"{time.perf_counter() - t_child:.2f} s")
+    line = [x for x in stdout.splitlines()
+            if x.startswith("[dryrun] launches ")][-1]
+    return json.loads(line[len("[dryrun] launches "):])
+
+
+def _dryrun_cells(facts):
+    """``[dryrun]``'s host half: each of TRAINS' steps on a 1x1 fake mesh
+    against ``facts``, and its roofline against the measured wall."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.roofline import HW, roofline_terms
+    for arch, batch, seq, steps, _ in TRAINS:
+        t0 = time.perf_counter()
+        f = facts[arch]
+        cell = run_cell(arch, ShapeSpec(f"train_{batch}x{seq}", "train", seq,
+                                        batch), mesh_shape=(1, 1),
+                        optimizer=launcher_opt(steps), ssd_chunk=32)
+        dry = cell["state_bytes"]
+        peak = cell["memory"]["peak_bytes"]
+        print(f"[dryrun] {arch} B={batch} S={seq} on a 1x1 fake mesh in "
+              f"{time.perf_counter() - t0:.2f} s: params / grads / optimizer "
+              f"state {dry['params']} / {dry['grads']} / {dry['opt_state']} "
+              f"B, the card's {f['bytes']['params']} / {f['bytes']['grads']} "
+              f"/ {f['bytes']['opt_state']} B; predicted peak {peak} B "
+              f"({peak / 2**30:.2f} GiB), the card's max_memory_allocated "
+              f"{f['peak']} B ({f['peak'] / 2**30:.2f} GiB), ratio "
+              f"{peak / f['peak']:.3f}; kernels counted "
+              f"{ {k: v['calls'] for k, v in cell['kernels'].items()} }")
+        check(dry == f["bytes"], f"[dryrun] {arch}: the dry run's state "
+              f"bytes {dry} are not the card's {f['bytes']}")
+        r = roofline_terms(cell)
+        wall = min(f["walls"][1:])
+        share = r["model_flops"] / HW["peak_flops"] / wall
+        print(f"[dryrun] {arch} roofline at HW (H100 SXM constants): compute "
+              f"{r['compute_s'] * 1e3:.2f} ms ({cell['flops']:.4e} FLOP, "
+              f"{cell['aten_flops']:.4e} of them aten ops), memory "
+              f"{r['memory_s'] * 1e3:.2f} ms ({cell['bytes_accessed']:.4e} "
+              f"B), collective {r['collective_s'] * 1e3:.2f} ms; bound "
+              f"{r['bound_s'] * 1e3:.2f} ms ({r['dominant']}), measured "
+              f"step wall {wall * 1e3:.2f} ms (the best of [train]'s steps "
+              f"after the first), {100 * r['bound_s'] / wall:.1f} % of it; "
+              f"6·N·D {r['model_flops']:.4e} FLOP, useful ratio "
+              f"{r['useful_ratio']:.3f}; whole-step roofline_fraction "
+              f"{100 * share:.2f} % of {HW['peak_flops']:.3g} FLOP/s")
+        check(r["bound_s"] <= wall, f"[dryrun] {arch}: the roofline bound "
+              f"{r['bound_s']} s exceeds the measured wall {wall} s")
+
+
+def dryrun_step_child() -> int:
+    """``[dryrun]``'s child (``chip_smoke.py --dryrun-step``): TRAINS[0]'s
+    launcher step (at ``DRYRUN_STEP_CUT``) on card 0, unsharded, then on a
+    1x1 mesh over a one-rank NCCL group: parameters and AdamW moments as
+    DTensors (``launch.train.place_state``), the batch made by the
+    pipeline's per-rank rows (``SyntheticTokens(mesh=)``), the step under
+    ``use_rules`` so that every ``shard()`` lays its activation out.  The
+    loss and every gradient must be bit for bit the unsharded step's, with
+    the same LM kernel launches, each counted from zero.  Deterministic
+    algorithms are on, as warnings, in both runs."""
+    import dataclasses
+    import tempfile
+    import warnings
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, SRC)
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import ShapeSpec, get
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.launch.dryrun import _rules_for
+    from repro_torch.launch.train import place_state
+    from repro_torch.models import TrainState, init_params
+    from repro_torch.models.params import tree_leaves
+    torch.cuda.set_device(0)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    arch, batch, seq, steps, _ = TRAINS[0]
+    cfg = dataclasses.replace(get(arch).config, **DRYRUN_STEP_CUT)
+    grads = []
+    step = launcher_step(cfg, steps, grads.append)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=batch, seed=11)
+    counters = _lm_counters()
+
+    def run(state, batch_, rules=None, mesh=None):
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        if mesh is None:
+            new, met = step(state, batch_)
+        else:
+            with use_rules(mesh, rules):
+                new, met = step(state, batch_)
+        torch.cuda.synchronize()
+        return (new, met, {k: fn.launches for k, fn in counters.items()},
+                time.perf_counter() - t0)
+
+    params = init_params(cfg, seed=0, device="cuda")
+    state = TrainState(params, launcher_opt(steps).init(params),
+                       torch.zeros((), dtype=torch.int32))
+    new_u, met_u, launches_u, wall_u = run(
+        state, SyntheticTokens(data, "cuda").batch(0))
+    g_u = grads.pop()
+    with tempfile.TemporaryDirectory() as d, \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(d, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh("cuda", (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            rules = _rules_for(arch, ShapeSpec("train", "train", seq, batch),
+                               False)
+            placed = place_state(state, cfg, mesh, rules)
+            sbatch = SyntheticTokens(data, "cuda", mesh=mesh).batch(0)
+            new_s, met_s, launches_s, wall_s = run(placed, sbatch, rules,
+                                                   mesh)
+            g_s = grads.pop()
+        finally:
+            dist.destroy_process_group()
+    local = (lambda t: t.to_local() if isinstance(t, DTensor) else t)
+    leaves_u, leaves_s = tree_leaves(g_u), tree_leaves(g_s)
+    n_dt = sum(isinstance(t, DTensor) for t in leaves_s)
+    same = [torch.equal(local(a), b) for a, b in zip(leaves_s, leaves_u)]
+    loss_u, loss_s = met_u["loss"], local(met_s["loss"])
+    p_same = sum(torch.equal(local(a), b) for a, b in
+                 zip(tree_leaves(new_s.params), tree_leaves(new_u.params)))
+    nondet = sorted({str(w.message)[:120] for w in caught})
+    print(f"[dryrun] {arch} step at {DRYRUN_STEP_CUT or 'full width and depth'}"
+          f" B={batch} S={seq}: unsharded {wall_u:.3f} s, 1x1 NCCL mesh with "
+          f"shard() active {wall_s:.3f} s; loss {float(loss_u)!r} vs "
+          f"{float(loss_s)!r} (bitwise {torch.equal(loss_u, loss_s)}); "
+          f"gradients bitwise in {sum(same)} of {len(same)} leaves "
+          f"({n_dt} of them DTensors); parameters after the update bitwise "
+          f"in {p_same} of {len(same)} leaves; launches {launches_s}, "
+          f"unsharded {launches_u}; deterministic-algorithm warnings "
+          f"{nondet}")
+    check(n_dt == len(leaves_s), "[dryrun] the mesh step's gradients are "
+          "not all DTensors")
+    check(torch.equal(loss_u, loss_s), "[dryrun] the mesh step's loss is "
+          "not the unsharded step's bit for bit")
+    check(all(same), "[dryrun] the mesh step's gradients are not the "
+          "unsharded step's bit for bit")
+    check(launches_s == launches_u and all(launches_u[k] for k in (
+        "rmsnorm", "rmsnorm_bwd", "flash_attention", "flash_attention_bwd")),
+        f"[dryrun] launches {launches_s} differ from the unsharded "
+        f"{launches_u}, or a kernel was not launched")
+    print(f"[dryrun] launches {json.dumps(launches_s)}")
+    return 0
 
 
 def train_witness_phase(torch):
@@ -4391,16 +4636,22 @@ def main() -> int:
     print(f"[phase] train_kernels: {time.perf_counter() - t_phase:.2f} s")
     with tempfile.TemporaryDirectory() as workdir:
         t_phase = time.perf_counter()
-        trained = {}
+        trained, facts = {}, {}
         for arch, batch, seq, steps, every in TRAINS:
             t_arch = time.perf_counter()
             trained[arch], res = train_phase(torch, arch, batch, seq, steps,
                                              every, workdir)
+            facts[arch] = {"walls": res.walls, "peak": res.peak_bytes}
+            facts[arch]["bytes"] = card_state_bytes(torch, arch, batch, seq,
+                                                    steps, res)
             del res
             torch.cuda.empty_cache()
             print(f"[phase] train {arch}: {time.perf_counter() - t_arch:.2f}"
                   f" s")
         print(f"[phase] train: {time.perf_counter() - t_phase:.2f} s")
+        t_phase = time.perf_counter()
+        mesh_launches = dryrun_phase(torch, facts)
+        print(f"[phase] dryrun: {time.perf_counter() - t_phase:.2f} s")
         t_phase = time.perf_counter()
         train_witness_phase(torch)
         torch.cuda.empty_cache()
@@ -4477,13 +4728,15 @@ def main() -> int:
          "source": "src/repro_torch/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm.py:24",
          "launches": danube["rmsnorm"] + mamba["rmsnorm"] + phi3["rmsnorm"]
-         + sum(a["rmsnorm"] for a in arch_served.values()),
+         + sum(a["rmsnorm"] for a in arch_served.values())
+         + mesh_launches["rmsnorm"],
          "max_abs_err": rms_err, "ms": rms_t[0], "plain_ms": rms_t[1],
          "bound_ms": rms_t[2], "bound_by": rms_t[3], "library_ms": rms_t[4]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
          "replaces": "src/repro/kernels/flash_attention.py:35",
-         "launches": danube["wgmma_bf16"] + mamba["wgmma_bf16"],
+         "launches": danube["wgmma_bf16"] + mamba["wgmma_bf16"]
+         + mesh_launches["flash_attention"],
          "max_abs_err": flash_err, "ms": flash_t[0], "plain_ms": flash_t[1],
          "bound_ms": flash_t[2], "bound_by": flash_t[3],
          "library_ms": flash_t[4]},
@@ -4523,7 +4776,8 @@ def main() -> int:
          "source": "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
          "replaces": "src/repro/kernels/flash_attention.py:35 (its "
                      "gradient; the Pallas kernel has no backward)",
-         "launches": tdanube["flash_attention_bwd"],
+         "launches": tdanube["flash_attention_bwd"]
+         + mesh_launches["flash_attention_bwd"],
          "max_abs_err": fbwd_err, "ms": fbwd_t[0], "plain_ms": fbwd_t[1],
          "bound_ms": fbwd_t[2], "bound_by": fbwd_t[3],
          "library_ms": fbwd_t[4]},
@@ -4541,7 +4795,8 @@ def main() -> int:
          "source": "src/repro_torch/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm.py:24 (its gradient; the "
                      "Pallas kernel has no backward)",
-         "launches": tdanube["rmsnorm_bwd"] + tmamba["rmsnorm_bwd"],
+         "launches": tdanube["rmsnorm_bwd"] + tmamba["rmsnorm_bwd"]
+         + mesh_launches["rmsnorm_bwd"],
          "max_abs_err": rbwd_err, "ms": rbwd_t[0], "plain_ms": rbwd_t[1],
          "bound_ms": rbwd_t[2], "bound_by": rbwd_t[3],
          "library_ms": rbwd_t[4]},
@@ -4565,8 +4820,10 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(sharded_child() if sys.argv[1:] == ["--sharded"]
-                 else main())
+        child = {"--sharded": sharded_child,
+                 "--dryrun-step": dryrun_step_child}.get(
+                     " ".join(sys.argv[1:]))
+        sys.exit(child() if child else main())
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         sys.exit(1)

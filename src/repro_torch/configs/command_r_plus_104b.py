@@ -11,6 +11,7 @@ CONFIG = ModelConfig(
     block_pattern=(("attn", "dense"),),
     norm="layernorm", parallel_block=True,
     tie_embeddings=True,          # Cohere ties embeddings
+    fsdp=True,
 )
 
 SMOKE = ModelConfig(
@@ -24,5 +25,8 @@ SMOKE = ModelConfig(
 register("command-r-plus-104b", ArchSpec(
     config=CONFIG,
     smoke_config=SMOKE,
+    rules={"kv_heads": None},     # kv=8 < model=16 → replicate KV
+    skip={"long_500k": "pure full-attention arch — no sub-quadratic path "
+                       "(see DESIGN.md §5)"},
     source="hf:CohereForAI/c4ai-command-r-plus",
 ))

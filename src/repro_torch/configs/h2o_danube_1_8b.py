@@ -22,5 +22,7 @@ SMOKE = ModelConfig(
 register("h2o-danube-1.8b", ArchSpec(
     config=CONFIG,
     smoke_config=SMOKE,
+    rules={"kv_heads": None},      # kv=8 < model=16 → replicate KV
+    skip={},                       # SWA ⇒ long_500k runs
     source="arXiv:2401.16818",
 ))

@@ -16,6 +16,7 @@ CONFIG = ModelConfig(
     block_pattern=(("attn", "dense"),),
     vision_tokens=256,
     tie_embeddings=False,
+    fsdp=True,
 )
 
 SMOKE = ModelConfig(
@@ -28,5 +29,8 @@ SMOKE = ModelConfig(
 register("internvl2-76b", ArchSpec(
     config=CONFIG,
     smoke_config=SMOKE,
+    rules={"kv_heads": None},
+    skip={"long_500k": "pure full-attention arch — no sub-quadratic path "
+                       "(see DESIGN.md §5)"},
     source="arXiv:2404.16821",
 ))

@@ -23,6 +23,8 @@ CONFIG = ModelConfig(
     moe_experts=16, moe_top_k=2,
     ssm_state=128, ssm_head_dim=64, ssm_expand=2,
     tie_embeddings=False,
+    fsdp=True,
+    optimizer_state_dtype="bfloat16",   # 398B: fp32 moments blow the HBM
 )
 
 SMOKE = ModelConfig(
@@ -38,5 +40,7 @@ SMOKE = ModelConfig(
 register("jamba-1.5-large-398b", ArchSpec(
     config=CONFIG,
     smoke_config=SMOKE,
+    rules={"kv_heads": None},     # kv=8 < model=16; experts 16/16 EP is fine
+    skip={},   # hybrid: long_500k runs (mamba state + 9 attn layers of cache)
     source="arXiv:2403.19887",
 ))

@@ -24,5 +24,14 @@ SMOKE = ModelConfig(
 register("mamba2-130m", ArchSpec(
     config=CONFIG,
     smoke_config=SMOKE,
+    rules={
+        # 50280 (vocab), 3352 (packed SSM projection) and 24 (SSM heads)
+        # don't divide model=16 — at 130M params full replication of these
+        # dims is the right call (TP would be latency-negative anyway).
+        "vocab": None,
+        "qkv": None,
+        "heads": None,
+    },
+    skip={},   # SSM: long_500k is the showcase shape (O(1) state decode)
     source="arXiv:2405.21060",
 ))

@@ -11,6 +11,7 @@ CONFIG = ModelConfig(
     moe_experts=8, moe_top_k=2,
     sliding_window=4096,
     tie_embeddings=False,
+    fsdp=True,
 )
 
 SMOKE = ModelConfig(
@@ -26,5 +27,13 @@ SMOKE = ModelConfig(
 register("mixtral-8x22b", ArchSpec(
     config=CONFIG,
     smoke_config=SMOKE,
+    rules={
+        # kv=8 and E=8 don't divide model=16: replicate KV heads, shard the
+        # experts' mlp dim (TP-inside-expert) instead of EP.
+        "kv_heads": None,
+        "experts": None,
+        "expert_mlp": "model",
+    },
+    skip={},   # SWA ⇒ long_500k runs (O(window) cache)
     source="arXiv:2401.04088",
 ))

@@ -29,5 +29,13 @@ SMOKE = ModelConfig(
 register("musicgen-medium", ArchSpec(
     config=CONFIG,
     smoke_config=SMOKE,
+    rules={
+        # 24 heads don't divide model=16: replicate attention TP-wise and
+        # keep TP on the FFN (6144/16) and vocab (2048/16) dims.
+        "heads": None,
+        "kv_heads": None,
+    },
+    skip={"long_500k": "pure full-attention arch — no sub-quadratic path "
+                       "(see DESIGN.md §5)"},
     source="arXiv:2306.05284",
 ))

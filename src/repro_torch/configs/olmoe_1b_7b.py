@@ -25,5 +25,8 @@ SMOKE = ModelConfig(
 register("olmoe-1b-7b", ArchSpec(
     config=CONFIG,
     smoke_config=SMOKE,
+    rules={},           # 16 heads, 16 kv, 64 experts all divide model=16
+    skip={"long_500k": "pure full-attention arch — no sub-quadratic path "
+                       "(see DESIGN.md §5)"},
     source="arXiv:2409.02060",
 ))

@@ -21,5 +21,8 @@ SMOKE = ModelConfig(
 register("phi3-mini-3.8b", ArchSpec(
     config=CONFIG,
     smoke_config=SMOKE,
+    rules={},                      # 32 heads/kv divide model=16; 32064/16 ok
+    skip={"long_500k": "pure full-attention arch — no sub-quadratic path "
+                       "(see DESIGN.md §5)"},
     source="arXiv:2404.14219",
 ))

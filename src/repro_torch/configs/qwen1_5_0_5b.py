@@ -22,5 +22,8 @@ SMOKE = ModelConfig(
 register("qwen1.5-0.5b", ArchSpec(
     config=CONFIG,
     smoke_config=SMOKE,
+    rules={},
+    skip={"long_500k": "pure full-attention arch — no sub-quadratic path "
+                       "(see DESIGN.md §5)"},
     source="hf:Qwen/Qwen1.5-0.5B",
 ))

@@ -21,7 +21,8 @@ import threading
 from typing import Optional, Sequence, Tuple, Union
 
 __all__ = ["AxisRules", "DEFAULT_RULES", "ROLLOUT_RULES", "use_rules",
-           "logical_spec", "shard", "param_specs", "current_mesh",
+           "logical_spec", "shard", "gather_params", "param_specs",
+           "spec_tree", "placements_for", "distribute_tree", "current_mesh",
            "with_rules"]
 
 MeshAxes = Union[None, str, Tuple[str, ...]]
@@ -76,7 +77,8 @@ _CTX = _Ctx()
 
 @contextlib.contextmanager
 def use_rules(mesh, rules: Optional[AxisRules] = None):
-    """Activate a mesh + logical rules for :func:`shard`.
+    """Activate a mesh + logical rules for :func:`shard`, with DTensor's
+    implicit replication of plain tensors.
 
     Nesting-safe under exceptions: the merged rules table is built before
     the context is touched (a bad ``rules`` mapping raises with the outer
@@ -84,11 +86,18 @@ def use_rules(mesh, rules: Optional[AxisRules] = None):
     """
     merged = dict(DEFAULT_RULES, **(rules or {}))
     prev = (_CTX.mesh, _CTX.rules)
-    _CTX.mesh, _CTX.rules = mesh, merged
-    try:
-        yield
-    finally:
-        _CTX.mesh, _CTX.rules = prev
+    with contextlib.ExitStack() as stack:
+        if mesh is not None:
+            # constants the model makes (positions, masks) meet DTensor
+            # activations as replicated tensors
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+            stack.enter_context(implicit_replication())
+        _CTX.mesh, _CTX.rules = mesh, merged
+        try:
+            yield
+        finally:
+            _CTX.mesh, _CTX.rules = prev
 
 
 def with_rules(rules: Optional[AxisRules]) -> AxisRules:
@@ -130,7 +139,7 @@ def logical_spec(axes: Sequence[Optional[str]],
     return _resolve(axes, rules, mesh)
 
 
-def _placements(spec: Sequence[MeshAxes], mesh) -> list:
+def placements_for(spec: Sequence[MeshAxes], mesh) -> list:
     """A resolved spec → DTensor placements over ``mesh``: ``Shard(d)`` on
     each mesh dim that tensor dim d maps to, ``Replicate()`` elsewhere.  A
     tensor dim mapped to several mesh axes is sharded over each of them in
@@ -150,19 +159,62 @@ def _placements(spec: Sequence[MeshAxes], mesh) -> list:
 
 def shard(x, *axes: Optional[str]):
     """Lay ``x`` out as its logical axes say on the active mesh: a DTensor
-    is redistributed, a plain tensor (the same on every rank) distributed.
-    The identity outside a :func:`use_rules` context.
-
-    Nothing in the port calls it yet: its first caller comes with the LM
-    substrate's mesh (ROADMAP.md 'Modules to port' item 11).
+    is redistributed, a plain tensor (the same on every rank) is taken as
+    replicated and then laid out, both differentiably.  The identity
+    outside a :func:`use_rules` context, at the cost of one attribute
+    check.  The model calls it at the reference's sites
+    (``models/layers.py``, ``models/lm.py``, ``models/ssm.py``).
     """
-    if _CTX.mesh is None or _CTX.rules is None:
+    if _CTX.mesh is None:
         return x
-    from torch.distributed.tensor import DTensor, distribute_tensor
-    place = _placements(_resolve(axes, _CTX.rules, _CTX.mesh), _CTX.mesh)
-    if isinstance(x, DTensor):
-        return x.redistribute(_CTX.mesh, place)
-    return distribute_tensor(x, _CTX.mesh, place)
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = _CTX.mesh
+    place = placements_for(_resolve(axes, _CTX.rules, mesh), mesh)
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    if tuple(x.placements) == tuple(place):
+        return x
+    return x.redistribute(mesh, place)
+
+
+def gather_params(tree):
+    """FSDP's all-gather: the DTensor leaves of a parameter (sub)tree made
+    whole along the mesh axes the batch shards over (the rules' "batch":
+    "pod" and "data"), just before the layer that reads them; their
+    gradients go back as the matching reduce-scatter.  Without it DTensor
+    would meet a weight split on "data" against a batch split on "data" by
+    moving the activations instead.  The identity outside
+    :func:`use_rules`, and for every leaf no such axis shards (all rule
+    sets but FSDP's)."""
+    if _CTX.mesh is None:
+        return tree
+    mesh = _CTX.mesh
+    names = list(mesh.mesh_dim_names)
+    batch = _resolve(("batch",), _CTX.rules, mesh)[0]
+    dims = {names.index(a) for a in ((batch,) if isinstance(batch, str)
+                                     else batch or ())}
+    if not dims:
+        return tree
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    def leaf(t):
+        if not isinstance(t, DTensor) or not any(
+                i in dims and isinstance(p, Shard)
+                for i, p in enumerate(t.placements)):
+            return t
+        return t.redistribute(mesh, [Replicate() if i in dims else p
+                                     for i, p in enumerate(t.placements)])
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(walk(v) for v in node))
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return leaf(node)
+    return walk(tree)
 
 
 def _is_axes(x) -> bool:
@@ -170,18 +222,50 @@ def _is_axes(x) -> bool:
                                         for a in x)
 
 
-def param_specs(axes_tree, mesh, rules: Optional[AxisRules] = None):
-    """Map a logical-axes tree (dicts and lists whose leaves are tuples of
-    logical names) to a tree of DTensor placements on ``mesh``."""
+def _map_axes(fn, axes_tree):
+    if _is_axes(axes_tree):
+        return fn(axes_tree)
+    if isinstance(axes_tree, dict):
+        return {k: _map_axes(fn, v) for k, v in axes_tree.items()}
+    if isinstance(axes_tree, tuple) and hasattr(axes_tree, "_fields"):
+        return type(axes_tree)(*(_map_axes(fn, v) for v in axes_tree))
+    if isinstance(axes_tree, (list, tuple)):
+        return type(axes_tree)(_map_axes(fn, v) for v in axes_tree)
+    raise TypeError(f"param_specs: unexpected leaf {axes_tree!r}")
+
+
+def spec_tree(axes_tree, mesh, rules: Optional[AxisRules] = None):
+    """Map a logical-axes tree to the resolved specs (the reference's
+    ``PartitionSpec`` entries) of each leaf on ``mesh``."""
     rules = with_rules(rules)
+    return _map_axes(lambda a: _resolve(a, rules, mesh), axes_tree)
 
-    def walk(node):
-        if _is_axes(node):
-            return _placements(_resolve(node, rules, mesh), mesh)
-        if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return type(node)(walk(v) for v in node)
-        raise TypeError(f"param_specs: unexpected leaf {node!r}")
 
-    return walk(axes_tree)
+def param_specs(axes_tree, mesh, rules: Optional[AxisRules] = None):
+    """Map a logical-axes tree (dicts, lists and NamedTuples whose leaves
+    are tuples of logical names) to a tree of DTensor placements on
+    ``mesh``."""
+    rules = with_rules(rules)
+    return _map_axes(lambda a: placements_for(_resolve(a, rules, mesh), mesh),
+                     axes_tree)
+
+
+def distribute_tree(tree, specs, mesh):
+    """Each tensor leaf of ``tree`` (dicts, lists, NamedTuples), the same
+    on every rank, as a DTensor with the placements at the same place in
+    ``specs`` (``param_specs``' output): each rank keeps its slice, with no
+    communication."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    if isinstance(tree, torch.Tensor):
+        return distribute_tensor(tree, mesh, specs, src_data_rank=None)
+    if isinstance(tree, dict):
+        return {k: distribute_tree(v, specs[k], mesh)
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(distribute_tree(v, sp, mesh)
+                            for v, sp in zip(tree, specs)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(distribute_tree(v, sp, mesh)
+                          for v, sp in zip(tree, specs))
+    return tree

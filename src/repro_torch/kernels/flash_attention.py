@@ -46,7 +46,10 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
+from . import _work
+
 __all__ = ["flash_attention", "flash_attention_ref", "flash_mask",
+           "flash_attention_work",
            "flash_tile_plan", "flash_pairs", "TileVisit", "HEAD_DIMS",
            "BLOCK_Q", "BLOCK_K", "FlashAttentionFn",
            "flash_attention_backward", "flash_attention_forward",
@@ -397,6 +400,40 @@ class FlashAttentionFn(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+def flash_attention_work(b: int, h: int, kv: int, s: int, d: int,
+                         dtype: torch.dtype, causal: bool = True,
+                         window: int = 0, backward: bool = False):
+    """(operations, bytes) of one launch at q (B, H, S, D), k and v (B, KV,
+    S, D) in ``dtype``, over the unmasked (query, key) pairs
+    (``flash_pairs``' first count).  The forward reads q, k, v and writes
+    the output: 4·D operations a pair (two products); the backward reads q,
+    k, v, the output and its gradient and writes dq, dk, dv: 10·D a pair
+    (its five products)."""
+    pairs = _work.causal_pairs(s, causal, window)
+    esize = dtype.itemsize
+    if backward:
+        return (10 * b * h * d * pairs,
+                esize * (3 * b * h * s * d + 4 * b * kv * s * d))
+    return (4 * b * h * d * pairs,
+            esize * (2 * b * h * s * d + 2 * b * kv * s * d))
+
+
+def _counted(q, k, v, causal, window, softcap):
+    """The shape-only / counted route (``kernels/_work.py``); the bf16
+    route's Function also saves the rows' f32 log-sum-exp."""
+    b, h, s, d = q.shape
+    lse = [((b, h, s), torch.float32)] if q.dtype == torch.bfloat16 else []
+    spec = _work.KernelSpec(
+        "flash_attention",
+        lambda q_, k_, v_: flash_attention_ref(q_, k_, v_, causal=causal,
+                                               window=window,
+                                               softcap=softcap),
+        [(tuple(q.shape), q.dtype)], lse,
+        lambda bwd: flash_attention_work(b, h, k.shape[1], s, d, q.dtype,
+                                         causal, window, bwd))
+    return _work.counted_call(spec, q, k, v)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
@@ -407,8 +444,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     launches ``csrc/flash_attention_sm90.cu`` and, for the gradient,
     ``csrc/flash_attention_bwd_sm90.cu``; f32 ``csrc/flash_attention.cu`` and
     ``csrc/flash_attention_bwd.cu``.  CPU tensors take
-    ``flash_attention_ref``.
+    ``flash_attention_ref``.  DTensors run each rank's (batch, head) slice
+    on its local tensors (``kernels/_dtensor.py``); fake tensors, and meta
+    or CPU tensors while the work counter is active, take the counting
+    routes of ``kernels/_work.py``.
     """
+    if type(q) is not torch.Tensor or _work.COUNTER.active:
+        if _work.is_dtensor(q):
+            from ._dtensor import flash_attention_local
+            return flash_attention_local(q, k, v, causal=causal,
+                                         window=window, softcap=softcap)
+        if _work.is_shape_only(q) or (_work.COUNTER.active
+                                      and q.device.type == "cpu"):
+            return _counted(q, k, v, causal, window, softcap)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap)

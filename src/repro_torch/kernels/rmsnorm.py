@@ -22,7 +22,10 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["rmsnorm", "rmsnorm_ref", "rmsnorm_launch_plan", "RmsnormPlan",
+from . import _work
+
+__all__ = ["rmsnorm", "rmsnorm_ref", "rmsnorm_work", "rmsnorm_launch_plan",
+           "RmsnormPlan",
            "ROUTES", "FEW_ROWS", "RMSNormFn", "rmsnorm_backward",
            "rmsnorm_bwd_plan", "RmsnormBwdPlan"]
 
@@ -262,14 +265,47 @@ class RMSNormFn(torch.autograd.Function):
         return dx, dscale, None
 
 
+def rmsnorm_work(rows: int, d: int, dtype: torch.dtype,
+                 backward: bool = False):
+    """(operations, bytes) of one launch on ``rows`` rows of width ``d`` in
+    ``dtype``: the forward reads x and the f32 scale and writes the output
+    (4 operations an element); the backward reads x, the output's gradient
+    and the scale and writes dx and the f32 dscale (8 an element)."""
+    n, esize = rows * d, dtype.itemsize
+    if backward:
+        return 8 * n, 3 * n * esize + 8 * d
+    return 4 * n, 2 * n * esize + 4 * d
+
+
+def _counted(x: torch.Tensor, scale: torch.Tensor, eps: float):
+    """The shape-only / counted route (``kernels/_work.py``)."""
+    from ._work import KernelSpec, counted_call
+    d = x.shape[-1]
+    rows = x.numel() // max(d, 1)
+    spec = KernelSpec(
+        "rmsnorm", lambda a, w: rmsnorm_ref(a, w, eps),
+        [(tuple(x.shape), x.dtype)], [],
+        lambda bwd: rmsnorm_work(rows, d, x.dtype, bwd))
+    return counted_call(spec, x, scale)
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """x (..., d) contiguous f32 or bf16, scale (d,) f32 → x's shape/dtype.
 
     CUDA tensors go through ``RMSNormFn`` (the forward kernel on the route
     ``rmsnorm_launch_plan`` gives, the backward kernel for the gradient);
-    CPU tensors take ``rmsnorm_ref``.
+    CPU tensors take ``rmsnorm_ref``.  A DTensor runs each rank's rows on
+    its local tensors (``kernels/_dtensor.py``); a fake tensor, and a meta
+    or CPU tensor while the work counter is active, take the counting
+    routes of ``kernels/_work.py``.
     """
+    if type(x) is not torch.Tensor or _work.COUNTER.active:
+        if _work.is_dtensor(x):
+            from ._dtensor import rmsnorm_local
+            return rmsnorm_local(x, scale, eps)
+        if _work.is_shape_only(x) or (_work.COUNTER.active and x.is_cpu):
+            return _counted(x, scale, eps)
     if x.is_cpu:
         return rmsnorm_ref(x, scale, eps)
     _check(x, scale)

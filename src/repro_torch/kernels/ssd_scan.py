@@ -18,8 +18,10 @@ from typing import Tuple
 
 import torch
 
+from . import _work
+
 __all__ = ["ssd_scan", "ssd_scan_ref", "ssd_scan_backward", "SSDScanFn",
-           "ssd_scan_bwd_plan"]
+           "ssd_scan_bwd_plan", "ssd_scan_work"]
 
 #: threads of a backward block (``kBwdThreads`` in ``csrc/ssd_scan.cu``)
 BWD_THREADS = 512
@@ -161,6 +163,29 @@ class SSDScanFn(torch.autograd.Function):
                                  g_final.contiguous())
 
 
+def ssd_scan_work(b: int, c: int, h: int, p: int, n: int,
+                  backward: bool = False):
+    """(operations, bytes) of one launch at dbx (B, C, H, P, N), all f32:
+    the forward reads the decay and dbx and writes h_before and h_final (2
+    operations a state element a chunk); the backward reads the decay,
+    h_before and both outputs' gradients and writes d_dbx and d_decay (4)."""
+    state = b * c * h * p * n
+    if backward:
+        return 4 * state, 4 * (3 * state + b * h * p * n + 2 * b * c * h)
+    return 2 * state, 4 * (b * c * h + 2 * state + b * h * p * n)
+
+
+def _counted(chunk_decay: torch.Tensor, dbx: torch.Tensor):
+    """The shape-only / counted route (``kernels/_work.py``)."""
+    from ._work import KernelSpec, counted_call
+    b, c, hh, p, n = dbx.shape
+    spec = KernelSpec(
+        "ssd_scan", ssd_scan_ref,
+        [(tuple(dbx.shape), torch.float32), ((b, hh, p, n), torch.float32)],
+        [], lambda bwd: ssd_scan_work(b, c, hh, p, n, bwd))
+    return counted_call(spec, chunk_decay, dbx)
+
+
 def ssd_scan(chunk_decay: torch.Tensor, dbx: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """chunk_decay (B, C, H) f32, dbx (B, C, H, P, N) f32, both contiguous
@@ -168,7 +193,18 @@ def ssd_scan(chunk_decay: torch.Tensor, dbx: torch.Tensor
 
     CUDA tensors go through ``SSDScanFn`` (``csrc/ssd_scan.cu``'s scan and,
     for the gradient, its reverse scan); CPU tensors take ``ssd_scan_ref``.
+    A DTensor scans each rank's (batch, head) slice on its local tensors
+    (``kernels/_dtensor.py``); a fake tensor, and a meta or CPU tensor
+    while the work counter is active, take the counting routes of
+    ``kernels/_work.py``.
     """
+    if type(dbx) is not torch.Tensor or _work.COUNTER.active:
+        if _work.is_dtensor(dbx):
+            from ._dtensor import ssd_scan_local
+            return ssd_scan_local(chunk_decay, dbx)
+        if _work.is_shape_only(dbx) or (_work.COUNTER.active
+                                        and dbx.device.type == "cpu"):
+            return _counted(chunk_decay, dbx)
     if dbx.device.type == "cpu":
         return ssd_scan_ref(chunk_decay, dbx)
     _check(chunk_decay, dbx)

@@ -29,7 +29,26 @@ from typing import List, NamedTuple
 
 import torch
 
-__all__ = ["TrainResult", "main"]
+__all__ = ["TrainResult", "main", "place_state"]
+
+
+def place_state(state, cfg, mesh, rules=None):
+    """A ``TrainState`` (the same on every rank) as DTensors on ``mesh``:
+    parameters and both AdamW moments laid out by ``param_specs`` of the
+    parameters' logical axes under ``rules``; the step counters stay as
+    they are.  Run the train step under ``use_rules(mesh, rules)``, so that
+    the model's ``shard()`` calls lay its activations out, on a batch from
+    ``SyntheticTokens(..., mesh=mesh)``."""
+    from ..distributed.sharding import distribute_tree, param_specs
+    from ..models import TrainState, param_axes
+    from ..optim import OptState
+    specs = param_specs(param_axes(cfg), mesh, rules)
+    opt = state.opt_state
+    return TrainState(
+        distribute_tree(state.params, specs, mesh),
+        OptState(opt.step, distribute_tree(opt.mu, specs, mesh),
+                 distribute_tree(opt.nu, specs, mesh)),
+        state.step)
 
 
 class TrainResult(NamedTuple):

@@ -1,11 +1,19 @@
 """ModelConfig — one declarative config covering the LM families.
 
-Port of ``repro/models/config.py`` holding the fields the ported serving
-and training paths read, with the reference's defaults; ``dtype_`` is a
-torch dtype.  Every option the reference's model runs is here (the logit
-softcap, merged-head attention, int8 weight serving); the sharding knobs
-(scan, FSDP, the optimizer state dtype of the dry-runs) come with
-``launch/mesh``.
+Port of ``repro/models/config.py``: every field, with the reference's
+defaults; ``dtype_`` is a torch dtype.  ``fsdp`` is read by the dry run's
+rules (``launch/dryrun.py``: "embed" → "data" for training shapes) and
+``optimizer_state_dtype`` is the AdamW state dtype of its train step.
+
+Three fields keep the reference's names and defaults but have no effect in
+the port, so a config that sets one to another value is refused
+(``UNREAD``) rather than silently run as the default:
+  * ``attn_q_chunk`` bounds the reference's live (chunk, S) scores in its
+    XLA attention; the flash kernel never holds scores beyond a tile;
+  * ``scan_layers`` picks the reference's scanned or unrolled program; the
+    port loops over layers in Python, so its dry run counts every layer
+    and needs no unrolled variant;
+  * ``max_seq_len`` sizes nothing in the reference's model either.
 
 ``block_pattern`` is the repeating unit of (mixer, ffn) pairs; the decoder
 loops over ``n_layers // len(pattern)`` repeats of it.
@@ -22,7 +30,10 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["ModelConfig"]
+__all__ = ["ModelConfig", "UNREAD"]
+
+#: fields the port reads nowhere; each must keep its default
+UNREAD = ("attn_q_chunk", "scan_layers", "max_seq_len")
 
 Pattern = Tuple[Tuple[str, str], ...]
 
@@ -49,6 +60,7 @@ class ModelConfig:
     sliding_window: int = 0              # 0 = full attention
     rope_theta: float = 10_000.0
     attn_logit_softcap: float = 0.0
+    attn_q_chunk: int = 2048             # the reference's XLA query chunk
     attn_head_merge: bool = False        # merged (batch × heads) attention
     # SSM (mamba2 / SSD)
     ssm_state: int = 0
@@ -67,8 +79,19 @@ class ModelConfig:
     remat: bool = True
     remat_policy: str = "full"           # "full" | "dots" (save matmul outputs
     # — less recompute, more resident bytes) | applies when remat=True
+    scan_layers: bool = True             # the reference's scan
+    fsdp: bool = False                   # shard params on "data" too (ZeRO-3)
     grad_accum: int = 1                  # microbatch accumulation steps
     quantize_weights: bool = False       # int8 weight-only serving (B2)
+    optimizer_state_dtype: str = "float32"
+    max_seq_len: int = 8192
+
+    def __post_init__(self):
+        for f in dataclasses.fields(self):
+            if f.name in UNREAD and getattr(self, f.name) != f.default:
+                raise ValueError(
+                    f"{self.name}: {f.name}={getattr(self, f.name)!r} has no "
+                    f"effect in repro_torch; leave it at {f.default!r}")
 
     # ------------------------------------------------------------- derived
     @property
@@ -92,6 +115,16 @@ class ModelConfig:
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
+
+    @property
+    def is_subquadratic(self) -> bool:
+        """Eligible for the long_500k shape (SSM / hybrid / sliding-window):
+        a hybrid's state is O(1) per mamba layer and its decode attention
+        O(S)."""
+        mixers = {m for m, _ in self.block_pattern}
+        if "mamba" in mixers:
+            return True
+        return self.sliding_window > 0
 
     def num_params(self) -> float:
         """Analytic parameter count (per-family; used for 6·N·D roofline)."""

@@ -26,6 +26,8 @@ from typing import Dict, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import shard
+from ..kernels._work import is_dtensor
 from ..kernels.flash_attention import flash_attention
 from ..kernels.rmsnorm import rmsnorm
 from .config import ModelConfig
@@ -41,8 +43,8 @@ __all__ = [
 
 # ------------------------------------------------------------------- norms
 def norm_defs(cfg: ModelConfig, reps: int) -> Dict[str, ParamDef]:
-    return {"scale": ParamDef((reps, cfg.d_model), torch.float32,
-                              ones_init())}
+    return {"scale": ParamDef((reps, cfg.d_model), ("layers", "embed"),
+                              torch.float32, ones_init())}
 
 
 def rms_norm(scale: torch.Tensor, x: torch.Tensor,
@@ -89,15 +91,22 @@ def attn_defs(cfg: ModelConfig, reps: int) -> Dict[str, ParamDef]:
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     dt = cfg.dtype_
     defs = {
-        "wq": ParamDef((reps, d, h, dh), dt, scaled_init(1)),
-        "wk": ParamDef((reps, d, kv, dh), dt, scaled_init(1)),
-        "wv": ParamDef((reps, d, kv, dh), dt, scaled_init(1)),
-        "wo": ParamDef((reps, h, dh, d), dt, scaled_init(1)),
+        "wq": ParamDef((reps, d, h, dh), ("layers", "embed", "heads",
+                                          "head_dim"), dt, scaled_init(1)),
+        "wk": ParamDef((reps, d, kv, dh), ("layers", "embed", "kv_heads",
+                                           "head_dim"), dt, scaled_init(1)),
+        "wv": ParamDef((reps, d, kv, dh), ("layers", "embed", "kv_heads",
+                                           "head_dim"), dt, scaled_init(1)),
+        "wo": ParamDef((reps, h, dh, d), ("layers", "heads", "head_dim",
+                                          "embed"), dt, scaled_init(1)),
     }
     if cfg.qkv_bias:
-        defs["bq"] = ParamDef((reps, h, dh), dt, zeros_init())
-        defs["bk"] = ParamDef((reps, kv, dh), dt, zeros_init())
-        defs["bv"] = ParamDef((reps, kv, dh), dt, zeros_init())
+        defs["bq"] = ParamDef((reps, h, dh), ("layers", "heads", "head_dim"),
+                              dt, zeros_init())
+        defs["bk"] = ParamDef((reps, kv, dh), ("layers", "kv_heads",
+                                               "head_dim"), dt, zeros_init())
+        defs["bv"] = ParamDef((reps, kv, dh), ("layers", "kv_heads",
+                                               "head_dim"), dt, zeros_init())
     return defs
 
 
@@ -138,6 +147,9 @@ def _project_qkv(p: Dict, x: torch.Tensor, cfg: ModelConfig,
         v = v + p["bv"]
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    q = shard(q, "batch", "act_seq", "heads", "head_dim")
+    k = shard(k, "batch", "act_seq", "kv_heads", "head_dim")
+    v = shard(v, "batch", "act_seq", "kv_heads", "head_dim")
     return q, k, v
 
 
@@ -189,6 +201,13 @@ def attention(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     if cache is None:
         if cfg.attn_head_merge:
             y = _head_merged_attention(q, k, v, cfg)
+        elif is_dtensor(q):
+            # under a mesh each rank transposes its local slices
+            from ..kernels._dtensor import flash_attention_local
+            y = flash_attention_local(q, k, v, causal=True,
+                                      window=cfg.sliding_window,
+                                      softcap=cfg.attn_logit_softcap,
+                                      heads_dim=2)
         else:
             y = flash_attention(q.transpose(1, 2).contiguous(),
                                 k.transpose(1, 2).contiguous(),
@@ -205,9 +224,20 @@ def attention(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
         # gives the same values without a pass over the whole cache.
         w = cache.k.shape[2]
         slot = int(cache_index) % w
-        cache.k[:, :, slot] = k[:, 0]
-        cache.v[:, :, slot] = v[:, 0]
-        cache.slot_pos[:, slot] = positions[:, 0].to(torch.int32)
+        if is_dtensor(cache.k):
+            # a sharded cache takes the reference's blend, elementwise over
+            # its (possibly "model"-sharded) slots, into new tensors
+            hit = torch.arange(w, device=x.device) == slot
+            hk = hit.view(1, 1, w, 1).to(cache.k.dtype)
+            cache = AttnCache(
+                cache.k * (1 - hk) + k.transpose(1, 2) * hk,
+                cache.v * (1 - hk) + v.transpose(1, 2) * hk,
+                torch.where(hit.view(1, w), positions[:, :1].to(torch.int32),
+                            cache.slot_pos))
+        else:
+            cache.k[:, :, slot] = k[:, 0]
+            cache.v[:, :, slot] = v[:, 0]
+            cache.slot_pos[:, slot] = positions[:, 0].to(torch.int32)
 
         t_pos = cache.slot_pos                               # (B,W)
         valid = t_pos >= 0
@@ -224,9 +254,10 @@ def attention(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
         new_cache = cache
 
     y = y.to(x.dtype)
+    y = shard(y, "batch", "act_seq", "heads", "head_dim")
     h, dh = y.shape[2], y.shape[3]
     out = y.reshape(b, s, h * dh) @ p["wo"].reshape(h * dh, -1)
-    return out, new_cache
+    return shard(out, "batch", "act_seq", "act_embed"), new_cache
 
 
 def _head_merged_attention(q: torch.Tensor, k: torch.Tensor,
@@ -243,8 +274,8 @@ def _head_merged_attention(q: torch.Tensor, k: torch.Tensor,
     if g > 1:
         k = k.repeat_interleave(g, dim=2)
         v = v.repeat_interleave(g, dim=2)
-    qm, km, vm = (t.transpose(1, 2).reshape(b * h, 1, s, dh)
-                  for t in (q, k, v))
+    qm, km, vm = (shard(t.transpose(1, 2).reshape(b * h, 1, s, dh),
+                        "merged_bh", None, None, None) for t in (q, k, v))
     ym = flash_attention(qm, km, vm, causal=True, window=cfg.sliding_window)
     return ym.reshape(b, h, s, dh).transpose(1, 2)
 
@@ -254,22 +285,32 @@ def ffn_defs(cfg: ModelConfig, reps: int) -> Dict[str, ParamDef]:
     d, f, dt = cfg.d_model, cfg.d_ff, cfg.dtype_
     if cfg.activation == "swiglu":
         return {
-            "w_gate": ParamDef((reps, d, f), dt, scaled_init(1)),
-            "w_up": ParamDef((reps, d, f), dt, scaled_init(1)),
-            "w_down": ParamDef((reps, f, d), dt, scaled_init(1)),
+            "w_gate": ParamDef((reps, d, f), ("layers", "embed", "mlp"), dt,
+                               scaled_init(1)),
+            "w_up": ParamDef((reps, d, f), ("layers", "embed", "mlp"), dt,
+                             scaled_init(1)),
+            "w_down": ParamDef((reps, f, d), ("layers", "mlp", "embed"), dt,
+                               scaled_init(1)),
         }
     return {
-        "w_in": ParamDef((reps, d, f), dt, scaled_init(1)),
-        "w_out": ParamDef((reps, f, d), dt, scaled_init(1)),
+        "w_in": ParamDef((reps, d, f), ("layers", "embed", "mlp"), dt,
+                         scaled_init(1)),
+        "w_out": ParamDef((reps, f, d), ("layers", "mlp", "embed"), dt,
+                          scaled_init(1)),
     }
 
 
 def dense_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.activation == "swiglu":
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-        return h @ p["w_down"]
-    # jax.nn.gelu defaults to the tanh approximation
-    return F.gelu(x @ p["w_in"], approximate="tanh") @ p["w_out"]
+        h = shard(h, "batch", "act_seq", "mlp")
+        out = h @ p["w_down"]
+    else:
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(x @ p["w_in"], approximate="tanh")
+        h = shard(h, "batch", "act_seq", "mlp")
+        out = h @ p["w_out"]
+    return shard(out, "batch", "act_seq", "act_embed")
 
 
 # ---------------------------------------------------------------------- MoE
@@ -280,10 +321,17 @@ def moe_defs(cfg: ModelConfig, reps: int) -> Dict[str, ParamDef]:
     # the router's scaled_init(0) takes the repeat count as its fan-in, as
     # the reference's does
     return {
-        "router": ParamDef((reps, d, e), torch.float32, scaled_init(0)),
-        "w_gate": ParamDef((reps, e, d, f), dt, scaled_init(-2)),
-        "w_up": ParamDef((reps, e, d, f), dt, scaled_init(-2)),
-        "w_down": ParamDef((reps, e, f, d), dt, scaled_init(-2)),
+        "router": ParamDef((reps, d, e), ("layers", "embed", "experts"),
+                           torch.float32, scaled_init(0)),
+        "w_gate": ParamDef((reps, e, d, f), ("layers", "experts", "embed",
+                                             "expert_mlp"), dt,
+                           scaled_init(-2)),
+        "w_up": ParamDef((reps, e, d, f), ("layers", "experts", "embed",
+                                           "expert_mlp"), dt,
+                         scaled_init(-2)),
+        "w_down": ParamDef((reps, e, f, d), ("layers", "experts",
+                                             "expert_mlp", "embed"), dt,
+                           scaled_init(-2)),
     }
 
 
@@ -363,11 +411,89 @@ def _experts(p: Dict, xe: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if not isinstance(p["w_gate"], QTensor):
         return ffn(*(p[k] for k in names), xe)
     out = torch.empty_like(xe)
-    for i in range(cfg.moe_experts):
+    for i in range(xe.shape[0]):
         ws = [dequantize(QTensor(p[k].data[i], p[k].scale), cfg.dtype_)
               for k in names]
         out[i] = ffn(*ws, xe[i])
     return out
+
+
+def _moe(p: Dict, router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig,
+         e0: int = 0) -> torch.Tensor:
+    """The MoE layer on plain tensors whose expert weights hold experts
+    e0, e0+1, ... (all of them by default): route, gather each held
+    expert's kept tokens, run the experts, sum each token's kept outputs
+    of those experts weighted by its gates.  With every expert held this is
+    the whole layer; with a slice, the rank's partial sum."""
+    b, s, d = x.shape
+    n, e = b * s, cfg.moe_experts
+    wg = p["w_gate"]
+    el = (wg.data if isinstance(wg, QTensor) else wg).shape[0]
+    xf = x.reshape(n, d)
+    route = moe_route(router, xf, cfg)
+    rows = route.rows
+    k = route.slot.shape[1]
+    # the token in each slot of the expert batch; an empty slot computes on
+    # token 0 and nothing reads it, and dropped assignments all write the
+    # spare last entry
+    tokens = torch.zeros(rows + 1, dtype=torch.int64, device=x.device)
+    tokens[route.slot.reshape(-1)] = torch.arange(
+        n, device=x.device).repeat_interleave(k)
+    lo, hi = e0 * (rows // e), (e0 + el) * (rows // e)
+    xe = xf[tokens[lo:hi]].view(el, -1, d)
+    ye = _experts(p, xe, cfg).view(hi - lo, d)
+    kept = route.kept()
+    if el != e:
+        kept = kept & (route.slot >= lo) & (route.slot < hi)
+    w = torch.where(kept, route.gates, 0.0).to(ye.dtype)
+    picked = ye[torch.where(kept, route.slot - lo, 0)]      # (n, k, d)
+    y = torch.bmm(w[:, None, :], picked)[:, 0]
+    return y.view(b, s, d).to(x.dtype)
+
+
+def _moe_dtensor(p: Dict, x, cfg: ModelConfig):
+    """The MoE layer on DTensors: each rank routes its own tokens (batch
+    sharded as x is) with the replicated router and runs the experts it
+    holds — a slice of the experts ("experts" sharded, EP) or of their
+    hidden dim ("expert_mlp" sharded, TP inside each expert).  Where a mesh
+    dim shards the weights, the output is a partial sum over it, which the
+    next layout reduces; a mesh dim that shards the tokens gathers the
+    weights (FSDP's all-gather)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = x.device_mesh
+    px = [p_ if p_ == Shard(0) else Replicate() for p_ in x.placements]
+    names = ("w_gate", "w_up", "w_down")
+    # int8 weights dequantize whole (each rank's shards) under a mesh
+    p = {n: dequantize(p[n], cfg.dtype_) for n in names + ("router",)}
+    # each weight's expert dim 0 and hidden dim (2 for w_gate/w_up, 1 for
+    # w_down) may stay sharded on a mesh dim the tokens do not use
+    pw = {n: [q if isinstance(q, Shard) and px[i] == Replicate()
+              and q.dim in ((0, 2) if n != "w_down" else (0, 1))
+              else Replicate() for i, q in enumerate(p[n].placements)]
+          for n in names}
+    # the three weights must agree on an even split of the experts
+    e0, chunk = 0, cfg.moe_experts
+    for i in range(mesh.ndim):
+        if any(pw[n][i] == Shard(0) for n in names) and (
+                chunk % mesh.size(i)
+                or not all(pw[n][i] == Shard(0) for n in names)):
+            for n in names:
+                pw[n][i] = Replicate()
+        if pw["w_gate"][i] == Shard(0):
+            chunk //= mesh.size(i)
+            e0 += mesh.get_local_rank(i) * chunk
+    from ..kernels._dtensor import _local
+    wl = {n: _local(p[n], mesh, pw[n]) for n in names}
+    router = p["router"]
+    if isinstance(router, DTensor):
+        router = _local(router, mesh, [Replicate()] * mesh.ndim)
+    xl = _local(x, mesh, px)
+    y = _moe(wl, router, xl, cfg, e0)
+    py = [Partial() if any(isinstance(pw[n][i], Shard) for n in names)
+          else px[i] for i in range(mesh.ndim)]
+    return DTensor.from_local(y.contiguous(), mesh, py, run_check=False,
+                              shape=x.shape, stride=(x.shape[1] * x.shape[2],
+                                                     x.shape[2], 1))
 
 
 def moe_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -377,23 +503,10 @@ def moe_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     an (E, G·C, d) batch, runs the experts as batched products (one expert
     at a time on int8 weights, ``_experts``), then sums each token's kept
     expert outputs weighted by its gates cast to the activation dtype (the
-    reference's ``combine.astype(ye.dtype)``)."""
-    b, s, d = x.shape
-    n, e = b * s, cfg.moe_experts
-    xf = x.reshape(n, d)
-    route = moe_route(dequantize(p["router"], cfg.dtype_), xf, cfg)
-    rows = route.rows
-    k = route.slot.shape[1]
-    # the token in each slot of the expert batch; an empty slot computes on
-    # token 0 and nothing reads it, and dropped assignments all write the
-    # spare last entry
-    tokens = torch.zeros(rows + 1, dtype=torch.int64, device=x.device)
-    tokens[route.slot.reshape(-1)] = torch.arange(
-        n, device=x.device).repeat_interleave(k)
-    xe = xf[tokens[:rows]].view(e, -1, d)
-    ye = _experts(p, xe, cfg).view(rows, d)
-    kept = route.kept()
-    w = torch.where(kept, route.gates, 0.0).to(ye.dtype)
-    picked = ye[torch.where(kept, route.slot, 0)]          # (n, k, d)
-    y = torch.bmm(w[:, None, :], picked)[:, 0]
-    return y.view(b, s, d).to(x.dtype)
+    reference's ``combine.astype(ye.dtype)``).  Under a mesh each rank does
+    this for its own tokens and experts (``_moe_dtensor``)."""
+    if is_dtensor(x):
+        y = _moe_dtensor(p, x, cfg)
+    else:
+        y = _moe(p, dequantize(p["router"], cfg.dtype_), x, cfg)
+    return shard(y, "batch", "act_seq", "act_embed")

@@ -45,16 +45,20 @@ from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
 
+from ..distributed.sharding import gather_params, shard
+from ..kernels._dtensor import along
+from ..kernels._work import is_dtensor
 from .config import ModelConfig
 from .layers import (AttnCache, apply_norm, attention, attn_defs,
                      dense_ffn, ffn_defs, init_attn_cache, moe_defs, moe_ffn,
                      norm_defs)
-from .params import (ParamDef, init_tree, normal_init, ones_init,
-                     tree_leaves, tree_map)
+from .params import (ParamDef, abstract_tree, axes_tree, init_tree,
+                     normal_init, ones_init, tree_leaves, tree_map)
 from .quantize import QTensor, dequant_tree, dequantize
 from .ssm import init_ssm_cache, ssd_forward, ssm_decode_step, ssm_defs
 
-__all__ = ["model_defs", "init_params", "forward", "prefill", "decode_step",
+__all__ = ["model_defs", "init_params", "abstract_params", "param_axes",
+           "forward", "prefill", "decode_step",
            "cross_entropy", "make_train_step", "make_serve_step",
            "init_cache", "TrainState"]
 
@@ -81,13 +85,15 @@ def _ffn_defs(cfg: ModelConfig, ffn: str, reps: int):
 def model_defs(cfg: ModelConfig) -> Dict:
     reps = cfg.pattern_repeats
     defs: Dict[str, Any] = {
-        "embed": ParamDef((cfg.vocab_size, cfg.d_model), cfg.dtype_,
-                          normal_init(0.02)),
-        "final_norm": ParamDef((cfg.d_model,), torch.float32, ones_init()),
+        "embed": ParamDef((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                          cfg.dtype_, normal_init(0.02)),
+        "final_norm": ParamDef((cfg.d_model,), ("embed",), torch.float32,
+                               ones_init()),
     }
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_size),
-                                   cfg.dtype_, normal_init(0.02))
+                                   ("embed", "vocab"), cfg.dtype_,
+                                   normal_init(0.02))
     blocks = []
     for mixer, ffn in cfg.block_pattern:
         blk: Dict[str, Any] = {
@@ -107,6 +113,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict:
     """Random weights from ``seed`` on ``device``, the reference's
     distributions (not its bits)."""
     return init_tree(model_defs(cfg), seed, device)
+
+
+def abstract_params(cfg: ModelConfig) -> Dict:
+    """The parameter tree as meta-device tensors: shapes and dtypes, nothing
+    allocated (the dry run's parameters, for any config)."""
+    return abstract_tree(model_defs(cfg))
+
+
+def param_axes(cfg: ModelConfig) -> Dict:
+    """Each parameter's logical axes, in the parameter tree's structure."""
+    return axes_tree(model_defs(cfg))
 
 
 # ------------------------------------------------------------------ blocks
@@ -138,7 +155,7 @@ def _apply_block_position(cfg: ModelConfig, pos: int, bp: Dict,
     del mp
 
     if ffn == "none":
-        return x + y, new_cache
+        return shard(x + y, "batch", "res_seq", "act_embed"), new_cache
     if ffn == "moe":
         # int8 experts dequantize one expert at a time inside moe_ffn
         apply_ffn, fp = moe_ffn, bp["ffn"]
@@ -147,10 +164,12 @@ def _apply_block_position(cfg: ModelConfig, pos: int, bp: Dict,
     if cfg.parallel_block:
         # command-r style: attn and ffn read the same normed input (norm2
         # stays in the tree, unused, as in the reference's)
-        return x + y + apply_ffn(fp, h_in, cfg), new_cache
-    x = x + y
-    h2 = apply_norm(cfg, bp["norm2"]["scale"], x)
-    return x + apply_ffn(fp, h2, cfg), new_cache
+        x = x + y + apply_ffn(fp, h_in, cfg)
+    else:
+        x = x + y
+        h2 = apply_norm(cfg, bp["norm2"]["scale"], x)
+        x = x + apply_ffn(fp, h2, cfg)
+    return shard(x, "batch", "res_seq", "act_embed"), new_cache
 
 
 def _build_prefill_attn_cache(k: torch.Tensor, v: torch.Tensor,
@@ -182,9 +201,10 @@ def _build_prefill_attn_cache(k: torch.Tensor, v: torch.Tensor,
     # kept positions p0..s-1 occupy slots (p0..s-1) % w — a contiguous cyclic
     # range, so packing is a roll by p0 % w.
     shift = p0 % w
-    kc = torch.roll(kw, shift, dims=2)
-    vc = torch.roll(vw, shift, dims=2)
-    pc = torch.roll(pos_keep, shift, dims=1)
+
+    def roll(t, dim):
+        return along(lambda u: torch.roll(u, shift, dims=dim), t, dim)
+    kc, vc, pc = roll(kw, 2), roll(vw, 2), roll(pos_keep, 1)
     return AttnCache(k=kc.to(cfg.dtype_), v=vc.to(cfg.dtype_), slot_pos=pc)
 
 
@@ -199,19 +219,26 @@ def _embed_tokens(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     if isinstance(embed, QTensor):
         x = (embed.data[tokens.long()].to(torch.float32) * embed.scale) \
             .to(cfg.dtype_)
+    elif is_dtensor(embed):
+        from ..kernels._dtensor import embedding_local
+        x = embedding_local(embed, tokens.long())
     else:
         x = embed[tokens.long()]
     if cfg.vision_tokens and vision_embeds is not None:
         nv = vision_embeds.shape[1]
         x = torch.cat([vision_embeds.to(x.dtype), x[:, nv:]], dim=1)
-    return x
+    return shard(x, "batch", "res_seq", "act_embed")
 
 
 def _unembed(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    params = gather_params({k: params[k] for k in ("final_norm", "embed",
+                                                    "lm_head") if k in params})
     x = apply_norm(cfg, params["final_norm"], x)
     if cfg.tie_embeddings:
-        return x @ dequantize(params["embed"], cfg.dtype_).T
-    return x @ dequantize(params["lm_head"], cfg.dtype_)
+        logits = x @ dequantize(params["embed"], cfg.dtype_).T
+    else:
+        logits = x @ dequantize(params["lm_head"], cfg.dtype_)
+    return shard(logits, "batch", "act_seq", "vocab")
 
 
 def _layer(tree, r: int):
@@ -267,8 +294,10 @@ def _run_blocks(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     """Loop over pattern repeats (the reference's ``_scan_blocks``).
 
     caches: list (per position) of stacked cache tuples with leading dim =
-    repeats, or None.  Decode updates them in place and returns them;
-    prefill (``want_cache``) returns newly stacked ones.  A forward without
+    repeats, or None.  Decode updates them in place and returns them
+    (DTensor caches, under a mesh, are replaced by newly stacked ones, as
+    the reference returns new arrays); prefill (``want_cache``) returns
+    newly stacked ones.  A forward without
     caches under gradients runs each repeat under ``cfg.remat``."""
     npos = len(cfg.block_pattern)
     reps = cfg.pattern_repeats
@@ -276,6 +305,7 @@ def _run_blocks(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
 
     def body(x, blk, cache_r):
         """One pattern repeat → (x, each position's cache)."""
+        blk = gather_params(blk)
         new = []
         for pos in range(npos):
             x, nc = _apply_block_position(
@@ -296,9 +326,9 @@ def _run_blocks(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
         x, new = body(x, [layers[pos][r] for pos in range(npos)], cache_r)
         for pos in range(npos):
             built[pos].append(new[pos])
-    if caches is not None:
-        return x, caches
-    if not want_cache:
+    if caches is not None and not is_dtensor(caches[0][0]):
+        return x, caches             # updated in place
+    if caches is None and not want_cache:
         return x, None
     return x, [type(cs[0])(*(torch.stack(f) for f in zip(*cs)))
                for cs in built]
@@ -367,13 +397,62 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 # -------------------------------------------------------------------- loss
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean token NLL in f32 (over ``mask``'s ones when given)."""
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = logz - gold
+    return logz - gold
+
+
+def _token_nll_dtensor(logits, labels):
+    """Each token's NLL from DTensor logits (B, S, V) whose vocab may be
+    sharded: each rank takes its vocab slice's max, sum of exponentials and
+    (where the label falls in its slice) gold logit, and the slices combine
+    as partial max / sums, as GSPMD does the reference's gather.  With no
+    vocab split (a mesh dim of one GPU shards nothing) every rank runs the
+    plain computation on its rows."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = logits.device_mesh
+    pl = [p if isinstance(p, Shard) and p.dim in (0, 1) else Replicate()
+          for p in logits.placements]
+    vocab = [i for i, p in enumerate(logits.placements)
+             if p == Shard(2) and mesh.size(i) > 1]
+    if len(vocab) == 1 and logits.shape[2] % mesh.size(vocab[0]) == 0:
+        pl[vocab[0]] = Shard(2)
+    else:
+        vocab = []
+    pt = [Replicate() if p == Shard(2) else p for p in pl]
+    lg = logits.redistribute(mesh, pl).to_local()
+    lab = labels.redistribute(mesh, pt).to_local().long()
+    if not vocab:
+        return DTensor.from_local(_token_nll(lg, lab), mesh, pt,
+                                  run_check=False)
+    i = vocab[0]
+    v_loc = lg.shape[-1]
+    off = mesh.get_local_rank(i) * v_loc
+    lg = lg.to(torch.float32)
+
+    def combine(local, how):
+        part = [Partial(how) if j == i else p for j, p in enumerate(pt)]
+        return DTensor.from_local(local, mesh, part, run_check=False) \
+            .redistribute(mesh, pt).to_local()
+    m = combine(lg.max(dim=-1).values.detach(), "max")
+    logz = torch.log(combine(torch.exp(lg - m[..., None]).sum(-1), "sum")) \
+        + m
+    inside = (lab >= off) & (lab < off + v_loc)
+    idx = torch.where(inside, lab - off, 0)[..., None]
+    gold = combine(torch.where(inside, torch.gather(lg, -1, idx)[..., 0],
+                               0.0), "sum")
+    return DTensor.from_local(logz - gold, mesh, pt, run_check=False)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token NLL in f32 (over ``mask``'s ones when given)."""
+    if is_dtensor(logits):
+        nll = _token_nll_dtensor(logits, labels)
+    else:
+        nll = _token_nll(logits, labels)
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)
@@ -425,8 +504,8 @@ def make_train_step(cfg: ModelConfig, optimizer, *, clip_norm: float = 1.0,
             return _value_and_grad(loss_fn, params, batch)
         micro = {k: v.reshape((a, v.shape[0] // a) + tuple(v.shape[1:]))
                  for k, v in batch.items()}
-        gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                              device=p.device), params)
+        gsum = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                        params)
         lsum = None
         for i in range(a):
             loss, g = _value_and_grad(loss_fn, params,

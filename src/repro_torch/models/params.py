@@ -1,22 +1,35 @@
 """Declarative parameter definitions.
 
 Port of ``repro/models/params.py``.  Every model parameter is declared once
-as a :class:`ParamDef` (shape, dtype, initializer) and
-``init_tree`` materialises the tree.  The initialisers draw the same
-distributions as the reference's, from one ``torch.Generator``; the bits
-differ from JAX's, so tests carry weights across instead
-(``checkpoint/convert.py``).
+as a :class:`ParamDef` (shape, logical axes, dtype, initializer).  From one
+definition tree come:
+
+  * ``init_tree``      — materialised parameters, drawn from one
+                         ``torch.Generator`` (the reference's distributions;
+                         the bits differ from JAX's, so tests carry weights
+                         across instead, ``checkpoint/convert.py``)
+  * ``abstract_tree``  — meta-device tensors of the leaves' shapes and
+                         dtypes (the dry run: no allocation, so it works for
+                         the 398B configs)
+  * ``axes_tree``      — each leaf's logical axes, which
+                         ``distributed/sharding.py`` resolves to placements
+
+Logical axis names: "embed" (d_model), "vocab", "heads", "kv_heads",
+"head_dim", "mlp" (d_ff), "experts", "expert_mlp", "layers" (the stacked
+repeat dim), "conv" (ssm conv width), "qkv" (the packed SSM projection) —
+plus None for replicated dims.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["ParamDef", "init_tree", "normal_init", "zeros_init",
-           "ones_init", "scaled_init", "tree_leaves", "tree_map"]
+__all__ = ["ParamDef", "init_tree", "abstract_tree", "axes_tree",
+           "normal_init", "zeros_init", "ones_init", "scaled_init",
+           "tree_leaves", "tree_map"]
 
 #: An initialiser: (generator, shape, dtype, device) → tensor.
 Init = Callable[[torch.Generator, Tuple[int, ...], torch.dtype,
@@ -26,8 +39,12 @@ Init = Callable[[torch.Generator, Tuple[int, ...], torch.dtype,
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]       # logical axis per dim
     dtype: Any = torch.bfloat16
     init: Init = None
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
 
 def _normal(gen, shape, device, std: float) -> torch.Tensor:
@@ -115,3 +132,20 @@ def init_tree(defs, seed: int, device, leaf_fn=None) -> Any:
                               for i, v in enumerate(node))
         return None
     return walk(defs, ())
+
+
+def _map_defs(fn, defs):
+    """``fn`` over the ParamDef leaves of a defs tree, keeping its shape."""
+    return tree_map(fn, defs, is_leaf=lambda d: isinstance(d, ParamDef))
+
+
+def abstract_tree(defs):
+    """Meta-device tensors of each leaf's shape and dtype: nothing is
+    allocated (the dry run's parameters)."""
+    return _map_defs(lambda d: torch.empty(d.shape, dtype=d.dtype,
+                                           device="meta"), defs)
+
+
+def axes_tree(defs):
+    """The logical-axes tree matching the parameter tree."""
+    return _map_defs(lambda d: d.axes, defs)

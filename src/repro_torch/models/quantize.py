@@ -28,11 +28,12 @@ from typing import Any, Iterator, NamedTuple, Tuple
 
 import torch
 
+from ..kernels._work import is_dtensor
 from .config import ModelConfig
 
 __all__ = ["QTensor", "quantize_tensor", "dequantize", "quantize_params",
-           "dequant_tree", "quantized_paths", "init_quantized_params",
-           "SLAB"]
+           "abstract_quantized", "quantize_spec_tree", "dequant_tree",
+           "quantized_paths", "init_quantized_params", "SLAB"]
 
 #: the most elements ``quantize_tensor`` and ``dequantize`` convert to f32
 #: at once (256 MiB of f32)
@@ -94,6 +95,9 @@ def dequantize(x: Any, dtype: torch.dtype = torch.bfloat16) -> Any:
                          f"fit data {tuple(data.shape)}")
     d3 = data.reshape(a, -1, last)
     s3 = scale.reshape(a, 1, last)
+    if is_dtensor(data):
+        # the dry run's int8 tree: one elementwise pass over the shards
+        return (d3.to(torch.float32) * s3).to(dtype).view(data.shape)
     out = torch.empty(d3.shape, dtype=dtype, device=data.device)
     for sl in _slabs(d3.shape[1], a * last):
         out[:, sl] = (d3[:, sl].to(torch.float32) * s3).to(dtype)
@@ -148,6 +152,53 @@ def quantize_params(params: dict, cfg: ModelConfig) -> dict:
             return quantize_tensor(w)
         return w
     return _map(leaf, params)
+
+
+def _scale_shape(shape) -> Tuple[int, ...]:
+    """A quantized leaf's per-channel scale: (layers, out) for a stacked
+    weight (ndim >= 3), else (out,)."""
+    return (shape[0], shape[-1]) if len(shape) >= 3 else (shape[-1],)
+
+
+def abstract_quantized(abs_params: dict) -> dict:
+    """The tree ``quantize_params`` makes of ``abs_params`` (meta tensors),
+    as meta tensors of its shapes and dtypes, without computing it: the
+    dry run's int8 parameters."""
+    def leaf(path, t):
+        if isinstance(t, torch.Tensor) and _should_quantize(path, t.shape,
+                                                            t.dtype):
+            return QTensor(torch.empty(t.shape, dtype=torch.int8,
+                                       device="meta"),
+                           torch.empty(_scale_shape(t.shape),
+                                       dtype=torch.float32, device="meta"))
+        return t
+    return _map(leaf, abs_params)
+
+
+def quantize_spec_tree(abs_params: dict, spec_tree: dict, mesh=None) -> dict:
+    """Layouts of a quantized parameter tree: ``spec_tree`` holds each
+    leaf's resolved spec (a tuple of mesh axes per dim,
+    ``distributed.sharding.spec_tree``); a leaf ``quantize_params``
+    quantizes becomes ``QTensor(data spec, scale spec)``: the data keeps
+    the leaf's spec, the per-channel scale takes its first and last
+    entries for ndim >= 3 (a stacked weight's (layers, out) scales), else
+    the last.  ``mesh`` is accepted for the reference's signature; the
+    specs are already resolved on it."""
+    def walk(node, specs, parts):
+        if isinstance(node, dict):
+            return {k: walk(v, specs[k], parts + (k,))
+                    for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, sp, parts + (i,))
+                              for i, (v, sp) in enumerate(zip(node, specs)))
+        if isinstance(node, torch.Tensor) and _should_quantize(
+                _path(parts), node.shape, node.dtype):
+            sp = tuple(specs)
+            scale = ((sp[0] if sp else None, sp[-1] if sp else None)
+                     if node.ndim >= 3 else (sp[-1] if sp else None,))
+            return QTensor(sp, scale)
+        return specs
+    return walk(abs_params, spec_tree, ())
 
 
 def dequant_tree(tree: Any, dtype: torch.dtype = torch.bfloat16) -> Any:

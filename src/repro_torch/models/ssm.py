@@ -26,6 +26,9 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import shard
+from ..kernels._dtensor import along
+from ..kernels._work import is_dtensor
 from ..kernels.rmsnorm import rmsnorm
 from ..kernels.ssd_scan import ssd_scan
 from .config import ModelConfig
@@ -50,14 +53,22 @@ def ssm_defs(cfg: ModelConfig, reps: int) -> Dict[str, ParamDef]:
     dt = cfg.dtype_
     # in_proj emits [z (di), x (di), B (st), C (st), dt (nh)]
     return {
-        "w_in": ParamDef((reps, d, 2 * di + 2 * st + nh), dt, scaled_init(1)),
-        "conv_w": ParamDef((reps, cw, di + 2 * st), dt, normal_init(0.1)),
-        "conv_b": ParamDef((reps, di + 2 * st), dt, zeros_init()),
-        "a_log": ParamDef((reps, nh), torch.float32, _a_log_init),
-        "dt_bias": ParamDef((reps, nh), torch.float32, zeros_init()),
-        "d_skip": ParamDef((reps, nh), torch.float32, ones_init()),
-        "norm_scale": ParamDef((reps, di), torch.float32, ones_init()),
-        "w_out": ParamDef((reps, di, d), dt, scaled_init(1)),
+        "w_in": ParamDef((reps, d, 2 * di + 2 * st + nh),
+                         ("layers", "embed", "qkv"), dt, scaled_init(1)),
+        "conv_w": ParamDef((reps, cw, di + 2 * st),
+                           ("layers", "conv", "qkv"), dt, normal_init(0.1)),
+        "conv_b": ParamDef((reps, di + 2 * st), ("layers", "qkv"), dt,
+                           zeros_init()),
+        "a_log": ParamDef((reps, nh), ("layers", "heads"), torch.float32,
+                          _a_log_init),
+        "dt_bias": ParamDef((reps, nh), ("layers", "heads"), torch.float32,
+                            zeros_init()),
+        "d_skip": ParamDef((reps, nh), ("layers", "heads"), torch.float32,
+                           ones_init()),
+        "norm_scale": ParamDef((reps, di), ("layers", "qkv"), torch.float32,
+                               ones_init()),
+        "w_out": ParamDef((reps, di, d), ("layers", "qkv", "embed"), dt,
+                          scaled_init(1)),
     }
 
 
@@ -132,15 +143,17 @@ def ssd_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     bmat = xbc[..., di:di + st]                               # (B,S,N)
     cmat = xbc[..., di + st:]                                 # (B,S,N)
 
-    dt = F.softplus(dt_raw.to(f32) + p["dt_bias"])            # (B,S,H)
-    a = -torch.exp(p["a_log"])                                # (H,) negative
+    a_log, dt_bias, d_skip = _head_params(p)
+    dt = F.softplus(dt_raw.to(f32) + dt_bias)                 # (B,S,H)
+    a = -torch.exp(a_log)                                     # (H,) negative
     log_decay = a[None, None, :] * dt                         # (B,S,H)
 
     xh = xs.reshape(b, nc, q, nh, hd).to(f32)
     bh = bmat.reshape(b, nc, q, st).to(f32)
     ch = cmat.reshape(b, nc, q, st).to(f32)
     dtc = dt.reshape(b, nc, q, nh)
-    cum = torch.cumsum(log_decay.reshape(b, nc, q, nh), dim=2)  # (B,C,Q,H)
+    cum = along(lambda t: torch.cumsum(t, dim=2),
+                log_decay.reshape(b, nc, q, nh), 2)             # (B,C,Q,H)
     tri = torch.tril(torch.ones(q, q, dtype=torch.bool, device=x.device))
 
     # intra-chunk: y_t += Σ_{u≤t} C_t·B_u · exp(cum_t − cum_u) · dt_u·x_u
@@ -165,7 +178,7 @@ def ssd_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig,
         * torch.exp(cum)[..., None]
 
     y = y.reshape(b, s, nh, hd)
-    y = y + p["d_skip"][None, None, :, None] * xs.reshape(b, s, nh, hd).to(f32)
+    y = y + d_skip[None, None, :, None] * xs.reshape(b, s, nh, hd).to(f32)
     y = y.reshape(b, s, di)
 
     # gated RMSNorm (mamba2 style): norm(y) * silu(z)
@@ -173,11 +186,20 @@ def ssd_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     out = y.to(x.dtype) @ p["w_out"]
     if pad:
         out = out[:, pad:, :]
+    out = shard(out, "batch", "act_seq", "act_embed")
     if return_final_state:
         cw = cfg.ssm_conv_width
         conv_hist = xbc_raw[:, -(cw - 1):, :].to(cfg.dtype_)
         return out, SSMCache(conv=conv_hist.contiguous(), state=h_final)
     return out, None
+
+
+def _head_params(p: Dict):
+    """``a_log``, ``dt_bias`` and ``d_skip``: per-head, replicated under a
+    mesh ("heads" may shard them), since the packed projection feeding the
+    heads stays replicated ("qkv") and the chunk products reshape the head
+    dim, which DTensor cannot propagate a split through."""
+    return tuple(shard(p[k], None) for k in ("a_log", "dt_bias", "d_skip"))
 
 
 def _gated_norm(y: torch.Tensor, z: torch.Tensor,
@@ -208,17 +230,21 @@ def ssm_decode_step(p: Dict, x: torch.Tensor, cache: SSMCache,
     bmat = conv_out[:, 0, di:di + st].to(f32)                 # (B,N)
     cmat = conv_out[:, 0, di + st:].to(f32)                   # (B,N)
 
-    dt = F.softplus(dt_raw[:, 0].to(f32) + p["dt_bias"])
-    a = -torch.exp(p["a_log"])
+    a_log, dt_bias, d_skip = _head_params(p)
+    dt = F.softplus(dt_raw[:, 0].to(f32) + dt_bias)
+    a = -torch.exp(a_log)
     dec = torch.exp(a[None, :] * dt)                          # (B,H)
 
     h = cache.state * dec[:, :, None, None] + \
         torch.einsum("bh,bn,bhp->bhpn", dt, bmat, xs)
     y = torch.einsum("bn,bhpn->bhp", cmat, h)                 # (B,H,P)
-    y = y + p["d_skip"][None, :, None] * xs
+    y = y + d_skip[None, :, None] * xs
     y = y.reshape(b, 1, di)
     y = _gated_norm(y, z, p["norm_scale"])
-    out = y.to(x.dtype) @ p["w_out"]
+    out = shard(y.to(x.dtype) @ p["w_out"], "batch", "act_seq", "act_embed")
+    if is_dtensor(cache.state):
+        # a sharded cache is replaced, as the reference returns new arrays
+        return out, SSMCache(conv=full[:, 1:, :], state=h)
     cache.conv.copy_(full[:, 1:, :])
     cache.state.copy_(h)
     return out, cache

@@ -81,8 +81,8 @@ def adamw(learning_rate, *, b1: float = 0.9, b2: float = 0.999,
 
     def init(params: PyTree) -> OptState:
         def zeros(p):
-            return torch.zeros(p.shape, dtype=state_dtype or p.dtype,
-                               device=p.device)
+            # zeros_like: a DTensor parameter gets moments of its layout
+            return torch.zeros_like(p, dtype=state_dtype or p.dtype)
         return OptState(torch.zeros((), dtype=torch.int32),
                         _map(zeros, params), _map(zeros, params))
 
