@@ -7,7 +7,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
 ``build/repro_torch``, one ``nvcc`` per source, all at once: eight sources,
 as flash_attention has a bf16 tensor-core kernel, ``flash_attention_sm90.cu``,
 with its tensor-core backward, ``flash_attention_bwd_sm90.cu``, and an f32
-SIMT one with its SIMT backward, ``flash_attention_bwd.cu``), holds each
+one on the tensor cores too, each product split into three tf32 products,
+``flash_attention_tf32_sm90.cu`` with its backward,
+``flash_attention_bwd_tf32_sm90.cu``), holds each
 kernel against its plain PyTorch version on
 the card at the main paths' shapes and on every route a kernel has
 (level_makespan's staged and general routes, bitwise, on the three paper
@@ -174,6 +176,20 @@ FLASH_SIMT_BF16_MS = 31.708
 # SIMT kernels, before the tensor-core backward took bf16 (PERF.md section
 # 6: chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W)
 FLASH_BWD_SIMT_BF16_MS = (295.830, 104.927)
+# the f32 flash kernels' times on the SIMT kernels they replaced
+# (csrc/flash_attention.cu and flash_attention_bwd.cu, removed), at
+# FLASH_F32_FWD_CASES and FLASH_F32_BWD_CASE: tools/flash_f32_timing.py on
+# the parent tree, NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6)
+FLASH_SIMT_F32_MS = (8.66982421875, 8.26885757446289, 6.030636978149414)
+FLASH_BWD_SIMT_F32_MS = 77.63245849609375
+# the f32 kernels timed beside scaled_dot_product_attention's f32 call:
+# forwards ((B, H, KV, S, D), window) at batch 1 of danube's prefill and at
+# phi3-mini's and olmoe-1b-7b's head dims, causal; the backward at batch 1
+# of danube's training shape
+FLASH_F32_FWD_CASES = (((1, 32, 8, 4608, 80), 4096),
+                       ((1, 32, 32, 4064, 96), 0),
+                       ((1, 16, 16, 4064, 128), 0))
+FLASH_F32_BWD_CASE = ((1, 32, 8, 8192, 80), 4096)
 
 TOL = 1e-5
 # The redesigns' goals on the card (design goals, printed as met or not):
@@ -879,6 +895,13 @@ def bound_ms_bf16(nbytes: float, ops: float):
     return bound_ms(nbytes, ops, "peak_flops")
 
 
+def bound_ms_tf32(nbytes: float, ops: float):
+    """As ``bound_ms`` for the f32 flash kernels: three tf32 instructions a
+    product (the split of ``csrc/sm90_common.cuh``), so ``ops`` at a third
+    of the tf32 tensor cores' rate."""
+    return bound_ms(nbytes, 3 * ops, "peak_flops_tf32")
+
+
 def lm_check(torch, name, got, want, dtype, worst):
     """Normwise check of a kernel against its plain version; → new worst
     max abs error."""
@@ -1031,8 +1054,8 @@ def rmsnorm_checks(torch):
 
 
 def flash_sm90_report():
-    """The bf16 tensor-core flash kernels' build (the forward and the
-    backward's dq and dk/dv kernels, uncapped and capped): per head dim,
+    """The tensor-core flash kernels' build, bf16 and f32 (the forward and
+    the backward's dq and dk/dv kernels, uncapped and capped): per head dim,
     registers and spills from nvcc's ``-Xptxas -v`` log and the dynamic
     shared memory a block takes."""
     import ctypes
@@ -1044,10 +1067,22 @@ def flash_sm90_report():
         .flash_attention_bwd_bf16_sm90_smem
     bwd_smem.restype = ctypes.c_int
     bwd_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    f32_smem = library("flash_attention_tf32_sm90") \
+        .flash_attention_f32_tf32_sm90_smem
+    f32_smem.restype, f32_smem.argtypes = ctypes.c_int, [ctypes.c_int]
+    f32_bwd_smem = library("flash_attention_bwd_tf32_sm90") \
+        .flash_attention_bwd_f32_tf32_sm90_smem
+    f32_bwd_smem.restype = ctypes.c_int
+    f32_bwd_smem.argtypes = [ctypes.c_int, ctypes.c_int]
     kernels = {"flash_attention_sm90_kernel": lambda d: smem(d),
                "flash_bwd_dq_sm90": lambda d: bwd_smem(d, 0),
-               "flash_bwd_dkv_sm90": lambda d: bwd_smem(d, 1)}
-    for lib in ("flash_attention_sm90", "flash_attention_bwd_sm90"):
+               "flash_bwd_dkv_sm90": lambda d: bwd_smem(d, 1),
+               "flash_attention_tf32_kernel": lambda d: f32_smem(d),
+               "flash_bwd_dq_tf32": lambda d: f32_bwd_smem(d, 0),
+               "flash_bwd_dkv_tf32": lambda d: f32_bwd_smem(d, 1)}
+    for lib in ("flash_attention_sm90", "flash_attention_bwd_sm90",
+                "flash_attention_tf32_sm90",
+                "flash_attention_bwd_tf32_sm90"):
         log = _lib_path(lib).with_suffix(".log").read_text()
         name = d = cap = None
         for line in log.splitlines():
@@ -1070,20 +1105,19 @@ def flash_checks(torch):
     (``csrc/flash_attention_sm90.cu``) at danube's prefill shape (B=4, H=32,
     KV=8, S=4608, D=80, window 4096) and at D=64/80/128 with GQA, MHA, a
     window edge inside a tile, a ragged S and causal=False; f32 through the
-    SIMT kernel (``csrc/flash_attention.cu``) at batch 1 of danube's shape and
-    the small cases; both at phi3-mini's head dim 96 (its prefill, B=4,
+    split-tf32 kernel (``csrc/flash_attention_tf32_sm90.cu``) at batch 1 of
+    danube's shape and the small cases; both at phi3-mini's head dim 96 (its prefill, B=4,
     H=KV=32, S=4064, in bf16, at batch 1 in f32).  Then the bf16 kernel's
     time beside ``scaled_dot_product_attention`` on the same inputs at both
     prefill shapes, and at olmoe-1b-7b's (B=4, H=KV=16, S=4064, D=128) →
     (worst at head dims 64/80/128, danube's timing, worst at head dim 96,
     phi3-mini's timing, worst at olmoe's shape, olmoe's timing)."""
-    import torch.nn.functional as F
     from repro_torch.kernels import (flash_attention, flash_attention_ref,
                                      flash_attention_work, flash_pairs)
     from repro_torch.kernels.flash_attention import flash_mask
     gen = torch.Generator(device="cuda").manual_seed(3)
     f32, bf16 = torch.float32, torch.bfloat16
-    routes = {f32: "simt_f32", bf16: "wgmma_bf16"}
+    routes = {f32: "wgmma_tf32x3", bf16: "wgmma_bf16"}
 
     def qkv(b, h, kv, s, d, dtype):
         return (torch.randn(b, h, s, d, generator=gen, device="cuda")
@@ -1142,17 +1176,9 @@ def flash_checks(torch):
                          f"{(B, H, KV, S, D)} causal=True window={W} bf16",
                          got, want, bf16, worst)
         mask = flash_mask(S, True, W, "cuda")
-        if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
-            def library():
-                return F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=mask, enable_gqa=True)
-        else:   # torch < 2.5: the same call on K/V repeated to H heads
-            k_h = k.repeat_interleave(H // KV, dim=1)
-            v_h = v.repeat_interleave(H // KV, dim=1)
 
-            def library():
-                return F.scaled_dot_product_attention(q, k_h, v_h,
-                                                      attn_mask=mask)
+        def library():
+            return _sdpa(torch, q, k, v, mask)
         lib_out = library()
         lib_err = rel_err(torch, lib_out.float(), want.float())
         del got, want, lib_out
@@ -1204,6 +1230,150 @@ def flash_checks(torch):
     return worst80, t, worst96, t96, worst128, t128
 
 
+def _sdpa(torch, q, k, v, mask):
+    """scaled_dot_product_attention on (q, k, v) with a bool mask and GQA:
+    ``enable_gqa`` where the installed torch has it, else (torch < 2.5) K/V
+    repeated to H heads."""
+    import torch.nn.functional as F
+    H, KV = q.shape[1], k.shape[1]
+    if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              enable_gqa=True)
+    return F.scaled_dot_product_attention(
+        q, k.repeat_interleave(H // KV, dim=1),
+        v.repeat_interleave(H // KV, dim=1), attn_mask=mask)
+
+
+def flash_f32_timings(torch, backward: bool):
+    """The f32 kernels (split tf32, ``csrc/flash_attention_tf32_sm90.cu``
+    and ``csrc/flash_attention_bwd_tf32_sm90.cu``) beside
+    scaled_dot_product_attention's f32 call on the same inputs (bool mask,
+    enable_gqa, TF32 off), each first held against the plain version (the
+    backward's plain gradients one (b, KV head) slice at a time): the
+    forwards at FLASH_F32_FWD_CASES, or the backward at FLASH_F32_BWD_CASE.
+    Prints each time in TFLOP/s on the unmasked pairs, its share of the
+    split-tf32 bound (``bound_ms_tf32``), the design goal (half the bound)
+    met or not, the SIMT kernels' time before and SDPA's distance from the
+    plain version; danube's forward and backward must beat SDPA's →
+    (worst max abs error, [timings]), each (ms, plain, bound, bound_by,
+    library)."""
+    from repro_torch.kernels import (flash_attention, flash_attention_ref,
+                                     flash_attention_work, flash_pairs)
+    from repro_torch.kernels.flash_attention import (
+        TF32_DQ_TILES, TF32_FWD_TILES, flash_attention_backward,
+        flash_attention_forward, flash_mask)
+    from repro_torch.launch.roofline import HW
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    f32 = torch.float32
+    worst, timings = 0.0, []
+    cases = [FLASH_F32_BWD_CASE] if backward else FLASH_F32_FWD_CASES
+    for i, ((B, H, KV, S, D), W) in enumerate(cases):
+        G = H // KV
+        shape = f"{(B, H, KV, S, D)} window={W} float32"
+        q = torch.randn(B, H, S, D, generator=gen, device="cuda")
+        k = torch.randn(B, KV, S, D, generator=gen, device="cuda")
+        v = torch.randn(B, KV, S, D, generator=gen, device="cuda")
+        mask = flash_mask(S, True, W, "cuda")
+        if not backward:
+            got = flash_attention(q, k, v, window=W)
+            want = flash_attention_ref(q, k, v, window=W)
+            worst = lm_check(torch, f"flash_attention[wgmma_tf32x3] {shape}",
+                             got, want, f32, worst)
+            lib_err = f"{rel_err(torch, _sdpa(torch, q, k, v, mask), want):.2e}"
+            del got, want
+            ours = lambda: flash_attention(q, k, v, window=W)  # noqa: E731
+            library = lambda: _sdpa(torch, q, k, v, mask)  # noqa: E731
+            iters = (20, 10)
+            # the visited tiles of the forward's plan (of the dq kernel's
+            # for the backward)
+            tiles = TF32_FWD_TILES[D]
+        else:
+            dout = torch.randn(B, H, S, D, generator=gen, device="cuda")
+            got = _grads(torch, lambda q, k, v: flash_attention(
+                q, k, v, window=W), [q, k, v], dout)
+            want = [torch.empty_like(t) for t in got]
+            slice_ms = []
+            for b in range(B):
+                for j in range(KV):
+                    hs = slice(j * G, (j + 1) * G)
+                    sl = [q[b:b + 1, hs], k[b:b + 1, j:j + 1],
+                          v[b:b + 1, j:j + 1]]
+                    g3 = _grads(torch, lambda q, k, v: flash_attention_ref(
+                        q, k, v, window=W), sl, dout[b:b + 1, hs])
+                    want[0][b, hs], want[1][b, j], want[2][b, j] = \
+                        g3[0][0], g3[1][0, 0], g3[2][0, 0]
+                    # the plain backward's time, one slice's graph at a time
+                    ins = [t.detach().requires_grad_(True) for t in sl]
+                    o1 = flash_attention_ref(*ins, window=W)
+                    slice_ms.append(cuda_ms(torch, lambda: torch.autograd.grad(
+                        o1, ins, dout[b:b + 1, hs], retain_graph=True),
+                        2, 1)[0])
+                    del g3, o1, ins
+            worst = grad_check(torch, f"flash_attention backward {shape}",
+                               got, want, f32, worst)
+            ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+            lo = _sdpa(torch, ql, kl, vl, mask)
+            lib_g = torch.autograd.grad(lo, (ql, kl, vl), dout,
+                                        retain_graph=True)
+            lib_err = ", ".join(f"{rel_err(torch, a, w):.2e}"
+                                for a, w in zip(lib_g, want))
+            del got, want, lib_g
+            out, lse = flash_attention_forward(q, k, v, window=W)
+            ours = lambda: flash_attention_backward(  # noqa: E731
+                q, k, v, out, dout, lse, window=W)
+            library = lambda: torch.autograd.grad(  # noqa: E731
+                lo, (ql, kl, vl), dout, retain_graph=True)
+            iters = (3, 3)
+            tiles = TF32_DQ_TILES[D]
+        ms, host = cuda_ms(torch, ours, iters[0], 1)
+        lib, _ = cuda_ms(torch, library, iters[1], 1)
+        ms2, _ = cuda_ms(torch, ours, iters[0], 1)
+        if backward:
+            plain = sum(slice_ms)
+        else:
+            plain, _ = cuda_ms(torch, lambda: flash_attention_ref(
+                q, k, v, window=W), 2, 1)
+        pairs, visited = flash_pairs(S, True, W, *tiles)
+        ops, nbytes = flash_attention_work(B, H, KV, S, D, f32, window=W,
+                                           backward=backward)
+        b_ms, b_by = bound_ms_tf32(nbytes, ops)
+        t = (min(ms, ms2), plain, b_ms, b_by, lib)
+        before = FLASH_BWD_SIMT_F32_MS if backward else FLASH_SIMT_F32_MS[i]
+        way = "backward" if backward else "forward"
+        print(f"[lm-kernels] flash_attention {way} timing {shape}: "
+              f"split-tf32 kernels {ms:.4f} / {ms2:.4f} ms on the card (two "
+              f"runs around the library's; {host:.4f} ms of host time to "
+              f"launch), {ops / (t[0] * 1e-3) / 1e12:.2f} TFLOP/s on the "
+              f"unmasked pairs, {100 * b_ms / t[0]:.1f} % of the split-tf32 "
+              f"bound; scaled_dot_product_attention"
+              f"{chr(39) + 's backward' if backward else ''}"
+              f" (bool mask, enable_gqa, TF32 off) {lib:.4f} ms (rel err vs "
+              f"plain {lib_err}); plain {plain:.3f} ms; bound {b_ms:.6f} ms "
+              f"({b_by}: {nbytes} B, {ops} ops at a third of "
+              f"{HW['peak_flops_tf32']:.3g} FLOP/s, over {pairs} unmasked "
+              f"(query, key) pairs "
+              f"per head; the visited tiles hold {visited}); design goal "
+              f"half the bound ({2 * b_ms:.4f} ms): "
+              f"{'met' if t[0] <= 2 * b_ms else 'not met'}; the SIMT "
+              f"kernel{'s' * backward} before: {before:.3f} ms (PERF.md)")
+        if i == 0:
+            check(t[0] < lib, f"the f32 flash {way} ({t[0]:.4f} ms) is not "
+                  f"faster than scaled_dot_product_attention's "
+                  f"({lib:.4f} ms) at {shape}")
+        timings.append(t)
+        del q, k, v, mask, ours, library
+        if backward:
+            del dout, out, lse, lo, ql, kl, vl
+        torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 \
+        = tf32
+    return worst, timings
+
+
 def flex_softcap(torch, S, W, gqa):
     """The capped kernels' library yardstick: ``flex_attention`` under
     ``torch.compile`` with a ``softcap·tanh(s / softcap)`` score_mod and a
@@ -1247,7 +1417,7 @@ def softcap_checks(torch):
     from repro_torch.kernels import flash_attention, flash_attention_ref
     from repro_torch.kernels.flash_attention import flash_attention_backward
     gen = torch.Generator(device="cuda").manual_seed(27)
-    routes = {"float32": "simt_f32", "bfloat16": "wgmma_bf16"}
+    routes = {"float32": "wgmma_tf32x3", "bfloat16": "wgmma_bf16"}
 
     def qkv(B, H, KV, S, D, dtype):
         def rnd(*shape, scale=1.0):
@@ -1545,13 +1715,13 @@ def serve_phase(torch, arch, batch, prompt, steps, cut=None):
     check(launches["flash_attention"] == want_flash,
           f"{arch} serve launched flash_attention "
           f"{launches['flash_attention']} times, not {want_flash}")
-    # the bf16 serve runs every layer's prefill attention on the tensor-core
-    # kernel, none on the SIMT one
+    # the bf16 serve runs every layer's prefill attention on the bf16
+    # kernel, none on the f32 one
     check(launches["wgmma_bf16"] == want_flash
-          and launches["simt_f32"] == 0,
-          f"{arch} serve launched the bf16 tensor-core flash kernel "
-          f"{launches['wgmma_bf16']} times and the f32 SIMT kernel "
-          f"{launches['simt_f32']} times, not {want_flash} and 0")
+          and launches["wgmma_tf32x3"] == 0,
+          f"{arch} serve launched the bf16 flash kernel "
+          f"{launches['wgmma_bf16']} times and the f32 one "
+          f"{launches['wgmma_tf32x3']} times, not {want_flash} and 0")
     check(launches["ssd_scan"] == want_ssd,
           f"{arch} serve launched ssd_scan {launches['ssd_scan']} times, "
           f"not {want_ssd}")
@@ -3608,10 +3778,11 @@ def flash_bwd_checks(torch):
     backward's distance from the same plain gradients printed beside, two
     launches on the same inputs held to the same bits and the forward's
     saved log-sum-exp held to ``flash_lse_tol`` of torch.logsumexp of the
-    masked f32 scores; f32 through the SIMT kernels
-    (csrc/flash_attention_bwd.cu).  Then, at both bf16 shapes, the kernels'
-    time beside the plain backward's and scaled_dot_product_attention's
-    backward's → (worst, timing at danube's shape)."""
+    masked f32 scores; f32 through the split-tf32 kernels
+    (csrc/flash_attention_bwd_tf32_sm90.cu), two launches also held to the
+    same bits.  Then, at both bf16 shapes, the kernels' time beside the
+    plain backward's and scaled_dot_product_attention's backward's →
+    (worst, timing at danube's shape)."""
     import math
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention, flash_attention_ref
@@ -3619,7 +3790,7 @@ def flash_bwd_checks(torch):
         BLOCK_K, BLOCK_Q, flash_attention_backward, flash_attention_forward,
         flash_attention_work, flash_mask, flash_pairs, flash_tile_plan)
     gen = torch.Generator(device="cuda").manual_seed(21)
-    routes = {"bfloat16": "wgmma_bf16", "float32": "simt_f32"}
+    routes = {"bfloat16": "wgmma_bf16", "float32": "wgmma_tf32x3"}
     worst, timings = 0.0, []
     for (B, H, KV, S, D), W, dt in FLASH_BWD_CASES:
         dtype = getattr(torch, dt)
@@ -3652,7 +3823,16 @@ def flash_bwd_checks(torch):
         worst = grad_check(torch, f"flash_attention backward {shape}",
                            [dq, dk, dv], want, dtype, worst)
         if dt == "float32":
-            del dq, dk, dv, want
+            del want
+            out, lse = flash_attention_forward(q, k, v, window=W)
+            again = flash_attention_backward(q, k, v, out, dout, lse,
+                                             window=W)
+            same = all(torch.equal(a, b) for a, b in zip((dq, dk, dv),
+                                                         again))
+            print(f"[train_kernels] flash_attention backward {shape}: a "
+                  f"second launch bit for bit: {same}")
+            check(same, f"two flash backward launches at {shape} differ")
+            del dq, dk, dv, again, out, lse
             continue
         # the yardstick: SDPA's backward against the same plain gradients,
         # normwise (max) and in the Frobenius norm, which the bf16 rounding
@@ -4543,6 +4723,7 @@ def main() -> int:
     rms_err, rms_t, rms_shapes = rmsnorm_checks(torch)
     (flash_err, flash_t, flash96_err, flash96_t, flash128_err,
      flash128_t) = flash_checks(torch)
+    f32_err, f32_t = flash_f32_timings(torch, backward=False)
     ssd_err, ssd_t = ssd_scan_checks(torch)
     torch.cuda.empty_cache()
     print(f"[phase] LM kernel checks: {time.perf_counter() - t_phase:.2f} s")
@@ -4576,13 +4757,24 @@ def main() -> int:
     phi3 = served["phi3-mini-3.8b"]
     print(f"[phase] serve: {time.perf_counter() - t_phase:.2f} s")
 
-    # ---- decode consistency at full width, float32, TF32 off ----
+    # ---- decode consistency at full width, float32, TF32 off: the f32
+    # flash kernel's main path (prefill and forward), its launches counted
+    # from 0 ----
+    from repro_torch.kernels import flash_attention
     t_phase = time.perf_counter()
+    flash_attention.route_launches["wgmma_tf32x3"] = 0
     decode_consistency(torch, "h2o-danube-1.8b", 200, 8)
     torch.cuda.empty_cache()
     decode_consistency(torch, "mamba2-130m", 200, 8)
     torch.cuda.empty_cache()
     decode_consistency(torch, "phi3-mini-3.8b", 200, 8)
+    f32_launches = flash_attention.route_launches["wgmma_tf32x3"]
+    # danube's 24 attention layers and phi3-mini's 32, in prefill and in
+    # forward; mamba2 has none
+    check(f32_launches == 2 * (24 + 32),
+          f"the f32 consistency checks launched the f32 flash kernel "
+          f"{f32_launches} times, not {2 * (24 + 32)}")
+    print(f"[consistency] f32 flash launches (wgmma_tf32x3): {f32_launches}")
     print(f"[phase] decode consistency: {time.perf_counter() - t_phase:.2f} s")
     torch.cuda.empty_cache()
 
@@ -4630,6 +4822,7 @@ def main() -> int:
     import tempfile
     t_phase = time.perf_counter()
     fbwd_err, fbwd_t = flash_bwd_checks(torch)
+    f32_bwd_err, (f32_bwd_t,) = flash_f32_timings(torch, backward=True)
     rbwd_err, rbwd_t = rmsnorm_bwd_checks(torch)
     sbwd_err, sbwd_t = ssd_bwd_checks(torch)
     torch.cuda.empty_cache()
@@ -4658,7 +4851,17 @@ def main() -> int:
         print(f"[phase] train_witness: {time.perf_counter() - t_phase:.2f} "
               f"s")
         t_phase = time.perf_counter()
+        # the f32 flash backward's main path: its launches counted from 0
+        from repro_torch.kernels.flash_attention import \
+            flash_attention_backward
+        flash_attention_backward.route_launches["wgmma_tf32x3"] = 0
         train_parity_phase(torch, workdir)
+        f32_bwd_launches = \
+            flash_attention_backward.route_launches["wgmma_tf32x3"]
+        check(f32_bwd_launches > 0, "the f32 training steps launched no f32 "
+              "flash backward")
+        print(f"[train_parity] f32 flash backward launches (wgmma_tf32x3): "
+              f"{f32_bwd_launches}")
         torch.cuda.empty_cache()
         print(f"[phase] train_parity: {time.perf_counter() - t_phase:.2f} s")
     tdanube, tmamba = trained["h2o-danube-1.8b"], trained["mamba2-130m"]
@@ -4765,6 +4968,14 @@ def main() -> int:
          "launches": cap_launches, "max_abs_err": cap_err,
          "ms": cap_t[0], "plain_ms": cap_t[1], "bound_ms": cap_t[2],
          "bound_by": cap_t[3], "library_ms": cap_t[4]},
+        {"name": "flash_attention (f32, danube prefill at batch 1)",
+         "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_tf32_sm90.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:35",
+         "launches": f32_launches, "max_abs_err": f32_err,
+         "ms": f32_t[0][0], "plain_ms": f32_t[0][1],
+         "bound_ms": f32_t[0][2], "bound_by": f32_t[0][3],
+         "library_ms": f32_t[0][4]},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:27",
@@ -4791,6 +5002,15 @@ def main() -> int:
          "ms": cap_bwd_t[0], "plain_ms": cap_bwd_t[1],
          "bound_ms": cap_bwd_t[2], "bound_by": cap_bwd_t[3],
          "library_ms": cap_bwd_t[4]},
+        {"name": "flash_attention_bwd (f32, danube training at batch 1)",
+         "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_bwd_tf32_sm90.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:35 (its "
+                     "gradient; the Pallas kernel has no backward)",
+         "launches": f32_bwd_launches, "max_abs_err": f32_bwd_err,
+         "ms": f32_bwd_t[0], "plain_ms": f32_bwd_t[1],
+         "bound_ms": f32_bwd_t[2], "bound_by": f32_bwd_t[3],
+         "library_ms": f32_bwd_t[4]},
         {"name": "rmsnorm_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm.py:24 (its gradient; the "

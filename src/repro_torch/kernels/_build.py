@@ -4,8 +4,8 @@ Each ``csrc/*.cu`` file has a plain C interface and compiles on its own into
 a shared library for ``sm_90a`` (Hopper).  Nothing is built at import: the
 first kernel launch builds every source that is not built yet, one ``nvcc``
 process per source, all started together.  Libraries are named by a hash of
-their source and flags, so an edited source is rebuilt and a stale library is
-never loaded.
+their source, the ``csrc/*.cuh`` headers it includes and their flags, so an
+edited source or header is rebuilt and a stale library is never loaded.
 
 The build directory is ``build/repro_torch`` at the root of the checkout
 (the package runs from a checkout: ``csrc/`` is not installed data).
@@ -15,12 +15,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 __all__ = ["build_all", "library", "build_dir", "SOURCES"]
 
@@ -31,17 +32,18 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _EXACT = ("--fmad=false",)
 
 #: kernel library name → (its source under ``csrc/``, its own nvcc flags).
-#: The bf16 attention kernels (forward and backward) run on the tensor cores
-#: and compare with their plain versions at bf16's tolerance, so they keep
+#: The attention kernels (forward and backward, bf16 and f32) run on the
+#: tensor cores, whose products round in their own order, so they keep
 #: fused multiply-adds; they take cuTensorMapEncodeTiled from libcuda
 #: through the CUDA runtime, so they link nothing beyond the runtime either.
 SOURCES = {"levelsim": ("levelsim.cu", _EXACT),
            "gcn_spmm": ("gcn_spmm.cu", _EXACT),
            "rmsnorm": ("rmsnorm.cu", _EXACT),
-           "flash_attention": ("flash_attention.cu", _EXACT),
            "flash_attention_sm90": ("flash_attention_sm90.cu", ()),
-           "flash_attention_bwd": ("flash_attention_bwd.cu", _EXACT),
+           "flash_attention_tf32_sm90": ("flash_attention_tf32_sm90.cu", ()),
            "flash_attention_bwd_sm90": ("flash_attention_bwd_sm90.cu", ()),
+           "flash_attention_bwd_tf32_sm90": (
+               "flash_attention_bwd_tf32_sm90.cu", ()),
            "ssd_scan": ("ssd_scan.cu", _EXACT)}
 
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -72,11 +74,19 @@ def _nvcc() -> str:
                        "/usr/local/cuda)")
 
 
+def _headers(src: bytes) -> List[str]:
+    """The ``csrc/*.cuh`` headers a source includes by a quoted name."""
+    return sorted({m.decode() for m in
+                   re.findall(rb'#include\s+"([\w.]+\.cuh)"', src)})
+
+
 def _lib_path(name: str) -> Path:
     src = (_CSRC / SOURCES[name][0]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()) \
-        .hexdigest()[:16]
-    return build_dir() / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(src)
+    for header in _headers(src):
+        h.update(header.encode() + (_CSRC / header).read_bytes())
+    h.update(" ".join(_flags(name)).encode())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> Dict[str, float]:

@@ -6,17 +6,21 @@ optional sliding window, f32 softmax statistics and accumulation, and the
 output in q's dtype.
 
 ``flash_attention`` runs CUDA tensors through ``FlashAttentionFn``, on one
-of two routes chosen by dtype, each a forward and a backward of two kernels
-(dq, then dk and dv; no atomics, so a step gives the same bits every run):
+of two routes chosen by dtype, each on the tensor cores (``wgmma``, fed by
+TMA), a forward and a backward of two kernels (dq, then dk and dv; no
+atomics, so a step gives the same bits every run).  Each forward also
+writes each row's log-sum-exp (base 2 of the scores scaled by
+log2(e)/sqrt(D)), which ``FlashAttentionFn`` saves beside q, k, v and the
+output for the backward:
 
 * ``wgmma_bf16``: the forward ``csrc/flash_attention_sm90.cu`` and the
-  backward ``csrc/flash_attention_bwd_sm90.cu``, on the tensor cores
-  (``wgmma``, fed by TMA).  The forward also writes each row's log-sum-exp
-  (base 2 of the scores scaled by log2(e)/sqrt(D)), which
-  ``FlashAttentionFn`` saves beside q, k, v and the output for the backward.
-* ``simt_f32``: the forward ``csrc/flash_attention.cu`` and the backward
-  ``csrc/flash_attention_bwd.cu``, on the f32 units (exact to 1e-5, which
-  TF32 tensor cores could not be); its dq kernel recomputes the log-sum-exp.
+  backward ``csrc/flash_attention_bwd_sm90.cu``.
+* ``wgmma_tf32x3``: the forward ``csrc/flash_attention_tf32_sm90.cu`` and
+  the backward ``csrc/flash_attention_bwd_tf32_sm90.cu``, float32 through
+  tf32 instructions with each product split in three (a_lo·b_hi +
+  a_hi·b_lo + a_hi·b_hi, ``csrc/sm90_common.cuh``), within 1e-5 of the
+  plain f32 version where one tf32 product would not be.  A pre-pass launch
+  in each writes the split planes into scratch the wrapper allocates.
 
 CPU tensors run the plain PyTorch version ``flash_attention_ref`` (the port
 of ``repro/kernels/ref.py::flash_attention_ref``), which autograd
@@ -27,10 +31,11 @@ does.
 before the mask (Gemma 2's attention logit softcapping, the reference's
 ``attn_logit_softcap`` in ``repro/models/layers.py::_gqa_scores``; its
 Pallas kernel has none).  Each of the four kernels has a capped
-instantiation beside the uncapped one, which stays the code it was; a CUDA
-tensor with a cap launches the capped kernels
-(``flash_attention.capped_launches``, ``flash_attention_backward
-.capped_launches``).
+instantiation beside the uncapped one; a CUDA tensor with a cap launches
+the capped kernels (``flash_attention.capped_launches``,
+``flash_attention_backward.capped_launches``).  The f32 route's capped
+kernels work on the capped scores less the cap, so under a cap its saved
+log-sum-exp is of those (``softcap·log2(e)`` below the bf16 route's).
 
 ``flash_tile_plan`` is the Python mirror of the loops that walk key tiles
 for a query tile (the forwards, and the dq kernels at their own tile sizes):
@@ -53,9 +58,9 @@ __all__ = ["flash_attention", "flash_attention_ref", "flash_mask",
            "flash_tile_plan", "flash_pairs", "TileVisit", "HEAD_DIMS",
            "BLOCK_Q", "BLOCK_K", "FlashAttentionFn",
            "flash_attention_backward", "flash_attention_forward",
-           "flash_bwd_tile_plan", "BWD_BLOCK_Q", "BWD_BLOCK_K",
-           "SM90_DQ_BLOCK_Q", "SM90_DQ_BLOCK_K", "SM90_DKV_BLOCK_Q",
-           "SM90_DKV_BLOCK_K"]
+           "flash_bwd_tile_plan", "TF32_FWD_TILES", "TF32_DQ_TILES",
+           "TF32_DKV_TILES", "SM90_DQ_BLOCK_Q", "SM90_DQ_BLOCK_K",
+           "SM90_DKV_BLOCK_Q", "SM90_DKV_BLOCK_K"]
 
 #: head dims the CUDA kernels are compiled for
 HEAD_DIMS = (64, 80, 96, 128)
@@ -63,10 +68,16 @@ HEAD_DIMS = (64, 80, 96, 128)
 #: ``csrc/flash_attention_sm90.cu``)
 BLOCK_Q = 128
 BLOCK_K = 128
-#: query rows and keys per tile of the f32 backward kernels (kBQ, kBK in
-#: ``csrc/flash_attention_bwd.cu``)
-BWD_BLOCK_Q = 64
-BWD_BLOCK_K = 64
+#: the f32 kernels' tiles per head dim, (query rows, keys): the forward
+#: (``csrc/flash_attention_tf32_sm90.cu``: 128 query rows a block against key
+#: tiles of kBK, FWD_TILES), the backward's dq kernel (64 query rows a block
+#: against key tiles of kBK, DQ_TILES) and dk/dv kernel (64 keys a block
+#: against query tiles of kBQ, DKV_TILES; ``csrc/flash_attention_bwd_tf32_
+#: sm90.cu``): shared memory holds each element twice (the tf32 split)
+TF32_FWD_TILES = {64: (128, 64), 80: (128, 64), 96: (128, 64),
+                  128: (128, 32)}
+TF32_DQ_TILES = {64: (64, 64), 80: (64, 64), 96: (64, 32), 128: (64, 32)}
+TF32_DKV_TILES = {64: (64, 64), 80: (32, 64), 96: (32, 64), 128: (16, 64)}
 #: the bf16 backward's tiles (``csrc/flash_attention_bwd_sm90.cu``): its dq
 #: kernel takes 128 query rows a block against key tiles of 64 (kDqBQ,
 #: kDqBK; ``flash_tile_plan``), its dk/dv kernel 128 keys a block against
@@ -210,16 +221,17 @@ def flash_pairs(s: int, causal: bool, window: int, block_q: int = BLOCK_Q,
     return unmasked, visited
 
 
-# dtype → (library, C entry, route name); the bf16 forward also writes the
-# rows' log-sum-exp (one more pointer)
-_ROUTES = {torch.float32: ("flash_attention", "flash_attention_f32",
-                           "simt_f32"),
+# dtype → (library, C entry, route name); both forwards write the rows'
+# log-sum-exp, and the f32 entry takes one more pointer, its scratch
+_ROUTES = {torch.float32: ("flash_attention_tf32_sm90",
+                           "flash_attention_f32_tf32_sm90", "wgmma_tf32x3"),
            torch.bfloat16: ("flash_attention_sm90",
                             "flash_attention_bf16_sm90", "wgmma_bf16")}
-# dtype → (library, C entry, route name) of the backward; both entries take
-# the same arguments
-_BWD_ROUTES = {torch.float32: ("flash_attention_bwd",
-                               "flash_attention_bwd_f32", "simt_f32"),
+# dtype → (library, C entry, route name) of the backward; the f32 entry
+# takes the bf16 one's arguments and its scratch
+_BWD_ROUTES = {torch.float32: ("flash_attention_bwd_tf32_sm90",
+                               "flash_attention_bwd_f32_tf32_sm90",
+                               "wgmma_tf32x3"),
                torch.bfloat16: ("flash_attention_bwd_sm90",
                                 "flash_attention_bwd_bf16_sm90",
                                 "wgmma_bf16")}
@@ -227,9 +239,9 @@ _BWD_ROUTES = {torch.float32: ("flash_attention_bwd",
 
 def _argtypes(dtype: torch.dtype, backward: bool = False) -> list:
     """The ctypes parameter list of the C entry of ``dtype``'s route: the
-    tensors' pointers, B, H, KV, S, D, scale, causal, window, softcap and
-    the stream."""
-    n_ptr = 10 if backward else 4 + (dtype == torch.bfloat16)
+    tensors' pointers (the f32 route's last its scratch), B, H, KV, S, D,
+    scale, causal, window, softcap and the stream."""
+    n_ptr = (10 if backward else 5) + (dtype == torch.float32)
     return [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
            ctypes.c_void_p]
@@ -245,10 +257,23 @@ def _lib(dtype: torch.dtype, backward: bool = False):
     return fn
 
 
+def _scratch(q: torch.Tensor, kv: int, backward: bool) -> torch.Tensor:
+    """The f32 route's scratch for one launch at q's shape: the tf32 planes
+    its pre-pass writes (``<entry>_scratch`` of the route's library)."""
+    from ._build import library
+    lib_name, entry, _ = (_BWD_ROUTES if backward else _ROUTES)[q.dtype]
+    fn = getattr(library(lib_name), entry + "_scratch")
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int] * 5
+    b, h, s, d = q.shape
+    return torch.empty(fn(b, h, kv, s, d), dtype=torch.float32,
+                       device=q.device)
+
+
 def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 window: int, softcap: float = 0.0) -> str:
     """Raise on what the CUDA kernels do not take; → the route for q's
-    dtype (``"wgmma_bf16"`` or ``"simt_f32"``)."""
+    dtype (``"wgmma_bf16"`` or ``"wgmma_tf32x3"``)."""
     if q.ndim != 4 or q.dtype not in _ROUTES or not q.is_contiguous():
         raise ValueError(f"flash_attention: q must be a contiguous (B, H, S, "
                          f"D) float32 or bfloat16 tensor; got {q.dtype} "
@@ -288,19 +313,21 @@ def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, *, causal: bool = True,
                             window: int = 0, softcap: float = 0.0
-                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel on CUDA tensors, outside autograd → (output, the
     rows' (B, H, S) f32 log-sum-exp in base 2 of the (capped) scores scaled
-    by log2(e)/sqrt(D) on the bf16 route, None on the f32 route)."""
+    by log2(e)/sqrt(D))."""
     route = _check_args(q, k, v, window, softcap)
     b, h, s, d = q.shape
     out = torch.empty_like(q)
-    lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device) \
-        if route == "wgmma_bf16" else None
+    lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()) \
-        + (() if lse is None else (lse.data_ptr(),))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr())
+    if route == "wgmma_tf32x3":
+        scratch = _scratch(q, k.shape[1], False)
+        ptrs += (scratch.data_ptr(),)
     err = _lib(q.dtype)(*ptrs, b, h, k.shape[1], s, d, 1.0 / math.sqrt(d),
                         int(causal), int(window), float(softcap),
                         torch.cuda.current_stream(q.device).cuda_stream)
@@ -316,15 +343,15 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, out: torch.Tensor,
                              dout: torch.Tensor,
-                             lse: Optional[torch.Tensor] = None, *,
+                             lse: torch.Tensor, *,
                              causal: bool = True, window: int = 0,
                              softcap: float = 0.0
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """The backward kernels on CUDA tensors: the forward's q, k, v and
-    output, the output's gradient (all contiguous, one dtype) and, on the
-    bf16 route, the log-sum-exp ``flash_attention_forward`` returned (with
-    the same ``softcap``) → (dq, dk, dv) in that dtype."""
+    output, the output's gradient (all contiguous, one dtype) and the
+    log-sum-exp ``flash_attention_forward`` returned (with the same
+    ``softcap``) → (dq, dk, dv) in that dtype."""
     route = _check_args(q, k, v, window, softcap)
     for name, t in (("out", out), ("dout", dout)):
         if t.device != q.device or t.dtype != q.dtype \
@@ -334,32 +361,29 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              f"{tuple(q.shape)}; got {t.dtype} "
                              f"{tuple(t.shape)}")
     b, h, s, d = q.shape
-    if route == "wgmma_bf16":
-        if lse is None or lse.device != q.device \
-                or lse.dtype != torch.float32 or lse.shape != (b, h, s) \
-                or not lse.is_contiguous():
-            raise ValueError(f"flash_attention backward: the bf16 route "
-                             f"takes the forward's contiguous float32 lse of "
-                             f"shape {(b, h, s)}; got "
-                             f"{None if lse is None else tuple(lse.shape)}")
-        if q.device.type != "meta" and any(
-                t.data_ptr() % 16 for t in (out, dout)):
-            raise ValueError("flash_attention backward: bf16 out and dout "
-                             "must start on a 16-byte boundary (TMA and "
-                             "vector loads read them)")
-    elif lse is not None:
-        raise ValueError("flash_attention backward: the f32 route "
-                         "recomputes the log-sum-exp; pass no lse")
+    if lse is None or lse.device != q.device \
+            or lse.dtype != torch.float32 or lse.shape != (b, h, s) \
+            or not lse.is_contiguous():
+        raise ValueError(f"flash_attention backward: takes the forward's "
+                         f"contiguous float32 lse of shape {(b, h, s)}; got "
+                         f"{None if lse is None else tuple(lse.shape)}")
+    if route == "wgmma_bf16" and q.device.type != "meta" and any(
+            t.data_ptr() % 16 for t in (out, dout)):
+        raise ValueError("flash_attention backward: bf16 out and dout "
+                         "must start on a 16-byte boundary (TMA and "
+                         "vector loads read them)")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    if lse is None:
-        lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
     dsum = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), dsum.data_ptr())
+    if route == "wgmma_tf32x3":
+        scratch = _scratch(q, k.shape[1], True)
+        ptrs += (scratch.data_ptr(),)
     err = _lib(q.dtype, True)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        lse.data_ptr(), dsum.data_ptr(), b, h, k.shape[1], s, d,
+        *ptrs, b, h, k.shape[1], s, d,
         1.0 / math.sqrt(d), int(causal), int(window), float(softcap),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
@@ -375,13 +399,14 @@ flash_attention_backward.launches = 0
 #: launches of the capped kernels (``softcap`` > 0), on either route
 flash_attention_backward.capped_launches = 0
 #: backward launches per route (the kernel pair, per dtype)
-flash_attention_backward.route_launches = {"simt_f32": 0, "wgmma_bf16": 0}
+flash_attention_backward.route_launches = {"wgmma_tf32x3": 0,
+                                           "wgmma_bf16": 0}
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """The forward kernel of q's route with that route's backward kernels as
-    its gradient (saves q, k, v, the output and, on the bf16 route, the
-    rows' log-sum-exp; a recompute under remat saves them again)."""
+    its gradient (saves q, k, v, the output and the rows' log-sum-exp; a
+    recompute under remat saves them again)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap):
@@ -419,10 +444,10 @@ def flash_attention_work(b: int, h: int, kv: int, s: int, d: int,
 
 
 def _counted(q, k, v, causal, window, softcap):
-    """The shape-only / counted route (``kernels/_work.py``); the bf16
-    route's Function also saves the rows' f32 log-sum-exp."""
+    """The shape-only / counted route (``kernels/_work.py``); the Function
+    also saves the rows' f32 log-sum-exp."""
     b, h, s, d = q.shape
-    lse = [((b, h, s), torch.float32)] if q.dtype == torch.bfloat16 else []
+    lse = [((b, h, s), torch.float32)]
     spec = _work.KernelSpec(
         "flash_attention",
         lambda q_, k_, v_: flash_attention_ref(q_, k_, v_, causal=causal,
@@ -442,8 +467,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     CUDA tensors go through ``FlashAttentionFn`` (D in ``HEAD_DIMS``): bf16
     launches ``csrc/flash_attention_sm90.cu`` and, for the gradient,
-    ``csrc/flash_attention_bwd_sm90.cu``; f32 ``csrc/flash_attention.cu`` and
-    ``csrc/flash_attention_bwd.cu``.  CPU tensors take
+    ``csrc/flash_attention_bwd_sm90.cu``; f32
+    ``csrc/flash_attention_tf32_sm90.cu`` and
+    ``csrc/flash_attention_bwd_tf32_sm90.cu``.  CPU tensors take
     ``flash_attention_ref``.  DTensors run each rank's (batch, head) slice
     on its local tensors (``kernels/_dtensor.py``); fake tensors, and meta
     or CPU tensors while the work counter is active, take the counting
@@ -471,5 +497,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 #: launches of the capped kernels (``softcap`` > 0), on either route
 flash_attention.capped_launches = 0
-#: launches per route: the bf16 tensor-core kernel and the f32 SIMT kernel
-flash_attention.route_launches = {"wgmma_bf16": 0, "simt_f32": 0}
+#: launches per route: the bf16 kernel and the f32 kernel (split tf32)
+flash_attention.route_launches = {"wgmma_bf16": 0, "wgmma_tf32x3": 0}

@@ -38,6 +38,11 @@ HW = {
     "peak_flops": 989e12,
     # float32 outside the tensor cores: the same datasheet, SXM column
     "peak_flops_f32": 67e12,
+    # TF32 dense on the tensor cores: the same datasheet, SXM column (989
+    # TFLOP/s is with 2:4 sparsity; dense is half).  The f32 flash kernels
+    # take three tf32 instructions a product (the split of
+    # csrc/sm90_common.cuh), so their bound is a third of this
+    "peak_flops_tf32": 495e12,
     # HBM3 bandwidth: the same datasheet, SXM column (3.35 TB/s)
     "hbm_bw": 3.35e12,
     # NVLink 4: 900 GB/s per GPU both directions together (datasheet), so

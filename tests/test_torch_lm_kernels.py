@@ -143,17 +143,17 @@ def test_ssd_scan_matches_pallas(b, c, h, p, n):
 def test_flash_attention_argument_checks_and_routes():
     """What the CUDA kernels refuse raises before any launch (checked here
     on CPU tensors, which the wrapper itself hands to the plain version),
-    and the dtype picks the route: bf16 the tensor-core kernel, f32 the
-    SIMT kernel."""
+    and the dtype picks the route: bf16 the bf16 tensor-core kernel, f32
+    the split-tf32 one."""
     from repro_torch.kernels.flash_attention import _check_args
     q = torch.zeros(1, 4, 8, 80, dtype=torch.bfloat16)
     kv = torch.zeros(1, 2, 8, 80, dtype=torch.bfloat16)
     assert _check_args(q, kv, kv, 0) == "wgmma_bf16"
-    assert _check_args(q.float(), kv.float(), kv.float(), 0) == "simt_f32"
+    assert _check_args(q.float(), kv.float(), kv.float(), 0) == "wgmma_tf32x3"
     # phi3-mini's head dim, on both routes
     d96 = torch.zeros(1, 2, 8, 96, dtype=torch.bfloat16)
     assert _check_args(d96, d96, d96, 0) == "wgmma_bf16"
-    assert _check_args(*(d96.float(),) * 3, 0) == "simt_f32"
+    assert _check_args(*(d96.float(),) * 3, 0) == "wgmma_tf32x3"
     with pytest.raises(ValueError, match="head dim 112"):
         _check_args(*(torch.zeros(1, 2, 8, 112, dtype=torch.bfloat16),) * 3,
                     0)

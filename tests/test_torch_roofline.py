@@ -47,7 +47,8 @@ def _cell(shape, by_axis, arch="qwen1.5-0.5b", flops=3.1e14,
 
 def test_hw_holds_the_h100_sxm_constants():
     assert HW == {"peak_flops": 989e12, "peak_flops_f32": 67e12,
-                  "hbm_bw": 3.35e12, "nvlink_bw": 450e9, "ib_bw": 50e9}
+                  "peak_flops_tf32": 495e12, "hbm_bw": 3.35e12,
+                  "nvlink_bw": 450e9, "ib_bw": 50e9}
     assert roofline.LINK_FOR_AXIS == {"model": "nvlink_bw", "data": "ib_bw",
                                       "pod": "ib_bw"}
 

@@ -446,16 +446,17 @@ def test_ssd_scan_ref_vjp_matches_the_reference():
 _PLAN_CASES = [(256, True, 0), (300, True, 100), (1024, True, 256),
                (200, False, 0), (333, True, 64), (130, True, 1), (64, True, 0),
                (520, False, 64)]
-# (block_q, block_k) of the dk/dv kernels: the f32 SIMT kernel's (the cases
-# keep their ids) and the bf16 tensor-core kernel's
-_BWD_BLOCKS = {"simt": (flash_mod.BWD_BLOCK_Q, flash_mod.BWD_BLOCK_K),
+# (block_q, block_k) of the dk/dv kernels: the f32 kernel's at danube's head
+# dim 80 (the cases keep their ids; tests/test_torch_flash_tf32.py takes
+# every head dim's) and the bf16 kernel's
+_BWD_BLOCKS = {"tf32": flash_mod.TF32_DKV_TILES[80],
                "wgmma": (flash_mod.SM90_DKV_BLOCK_Q,
                          flash_mod.SM90_DKV_BLOCK_K)}
 
 
 @pytest.mark.parametrize("s,causal,window,blocks", [
     pytest.param(*case, route, id="-".join(map(str, case))
-                 + ("" if route == "simt" else "-wgmma"))
+                 + ("" if route == "tf32" else "-wgmma"))
     for route in _BWD_BLOCKS for case in _PLAN_CASES])
 def test_flash_bwd_tile_plan_covers_the_mask(s, causal, window, blocks):
     bq, bk = _BWD_BLOCKS[blocks]
@@ -490,9 +491,14 @@ def test_backward_plans_match_the_kernel_sources():
     assert tuple(int(n) for n in re.findall(r"SSD_BWD\((\d+)\)", src)) \
         == ssd_mod.BWD_PER_THREAD
     assert f"kBwdThreads = {ssd_mod.BWD_THREADS};" in src
-    src = (CSRC / "flash_attention_bwd.cu").read_text()
-    assert f"kBQ = {flash_mod.BWD_BLOCK_Q};" in src
-    assert f"kBK = {flash_mod.BWD_BLOCK_K};" in src
+    src = (CSRC / "flash_attention_bwd_tf32_sm90.cu").read_text()
+    assert f"kDqBQ = {flash_mod.TF32_DQ_TILES[80][0]};" in src
+    assert f"kDkvBK = {flash_mod.TF32_DKV_TILES[80][1]};" in src
+    assert {int(d): (64, int(bk)) for d, bk in re.findall(
+        r"^DQ_TILES\((\d+), (\d+)\)", src, re.M)} == flash_mod.TF32_DQ_TILES
+    assert {int(d): (int(bq), 64) for d, bq in re.findall(
+        r"^DKV_TILES\((\d+), (\d+)\)", src, re.M)} \
+        == flash_mod.TF32_DKV_TILES
     assert tuple(int(n) for n in re.findall(r"FLASH_BWD\((\d+)\)", src)) \
         == flash_mod.HEAD_DIMS
     src = (CSRC / "flash_attention_bwd_sm90.cu").read_text()
@@ -510,7 +516,7 @@ def test_backward_routes_are_the_sources_entries():
     ``route_launches`` counts exactly the routes' names."""
     from repro_torch.kernels._build import SOURCES
     exported = {}
-    for lib in ("flash_attention_bwd", "flash_attention_bwd_sm90"):
+    for lib in ("flash_attention_bwd_tf32_sm90", "flash_attention_bwd_sm90"):
         src = (CSRC / SOURCES[lib][0]).read_text()
         exported[lib] = set(re.findall(r'extern "C" int (\w+)\(', src))
     routes = flash_mod._BWD_ROUTES
@@ -520,7 +526,7 @@ def test_backward_routes_are_the_sources_entries():
         if not e.endswith("_smem")}
     assert set(flash_mod.flash_attention_backward.route_launches) \
         == {route for *_, route in routes.values()} \
-        == {"simt_f32", "wgmma_bf16"}
+        == {"wgmma_tf32x3", "wgmma_bf16"}
     assert routes[torch.bfloat16][2] == flash_mod._ROUTES[torch.bfloat16][2]
 
 
