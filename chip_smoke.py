@@ -121,7 +121,10 @@ user entry points:
    step wall and prints the step's ``roofline_fraction``, while a child
    process runs danube's step on a one-rank NCCL mesh with ``shard()``
    active (DTensor state, the pipeline's per-rank rows), bit for bit the
-   unsharded step with equal launches; ``[train_witness]`` runs the launcher's
+   unsharded step with equal launches, and three production cells of the
+   dry run's CLI run on the host beside them under this machine's torch
+   (``DRYRUN_CELLS``: both decode layouts, a multi-pod prefill whose batch
+   is padded); ``[train_witness]`` runs the launcher's
    steps on danube at full depth through the kernels and through the plain
    versions, from the same weights and batches, to tell a trajectory the
    model and optimizer make from one the kernels make;
@@ -133,7 +136,9 @@ user entry points:
    capped instantiations of the four flash kernels (``softcap=50``, Gemma
    2's, on q and k scaled so that it bites) against the plain version and
    its autograd on both routes at danube's prefill and training shapes and
-   at head dims 96 and 128, times them beside the uncapped kernels and
+   at head dims 96 and 128, prints each one's distance from a float64
+   plain version beside the float32 plain version's, times them (bf16, and
+   f32 at batch 1) beside the uncapped kernels and
    ``flex_attention`` with a tanh score_mod, holds the uncapped bf16
    forward bit for bit against ``tools/flash_attention_sm90_uncapped.cu``
    (``tools/flash_fwd_bitwise.py``), then drives the capped kernels through
@@ -331,6 +336,14 @@ TRAINS = (("h2o-danube-1.8b", 4, 8192, 3, 0),
 # one-rank NCCL mesh with shard() active, with DRYRUN_STEP_CUT applied to its
 # config (nothing: full width and depth), bit for bit the unsharded step
 DRYRUN_STEP_CUT = {}
+# and, beside them, production cells of the dry run's CLI at their full
+# configs on this machine's torch: the two decode layouts on the (32, 8)
+# fake mesh (danube: KV heads replicated, the cache's slots split over
+# "model"; qwen: KV heads split) and a prefill on the (2, 32, 8) multi-pod
+# mesh, whose 64 batch shards pad prefill_32k's batch of 32 to 64
+DRYRUN_CELLS = (("h2o-danube-1.8b", "decode_32k", False),
+                ("qwen1.5-0.5b", "decode_32k", False),
+                ("qwen1.5-0.5b", "prefill_32k", True))
 # `[train_witness]`: danube at full width and depth in bf16, the launcher's
 # optimizer, schedule and data, 3 steps through the kernels and the same 3
 # through the plain versions on the card from the same weights and batches,
@@ -1401,6 +1414,36 @@ def flex_softcap(torch, S, W, gqa):
                                      block_mask=block, enable_gqa=gqa)), None
 
 
+def softcap_f64_errors(torch, q, k, v, W, got, dout=None):
+    """The capped kernel's output (or, with ``dout``, its gradients
+    ``got``) on the slice of batch 0 and KV head 0 against the float64
+    plain version, beside the plain float32 version's own distance from it
+    (normwise) → (kernel, plain f32), each the worst over the outputs."""
+    from repro_torch.kernels import flash_attention_ref
+    G = q.shape[1] // k.shape[1]
+    sl = [q[:1, :G], k[:1, :1], v[:1, :1]]
+
+    def ref64(*a):
+        return flash_attention_ref(*(t.double() for t in a), window=W,
+                                   softcap=SOFTCAP)
+    if dout is None:
+        want = [ref64(*sl)]
+        plain = [flash_attention_ref(*(t.float() for t in sl), window=W,
+                                     softcap=SOFTCAP)]
+        mine = [got[:1, :G]]
+    else:
+        d = dout[:1, :G]
+        want = _grads(torch, ref64, [t.double() for t in sl], d.double())
+        plain = _grads(torch, lambda *a: flash_attention_ref(
+            *a, window=W, softcap=SOFTCAP), [t.float() for t in sl],
+            d.float())
+        mine = [got[0][:1, :G], got[1][:1, :1], got[2][:1, :1]]
+    errs = [max(rel_err(torch, x.double(), w) for x, w in zip(xs, want))
+            for xs in (mine, plain)]
+    del want, plain
+    return tuple(errs)
+
+
 def softcap_checks(torch):
     """The capped flash kernels (``softcap`` = SOFTCAP, the capped
     instantiation of each of the four kernels) against the plain version
@@ -1408,11 +1451,13 @@ def softcap_checks(torch):
     (the share of one head's scaled scores past SOFTCAP / 2 is printed, and
     the uncapped output must lie far past the tolerance): the forward on
     both routes at SOFTCAP_FWD_CASES, the backward at SOFTCAP_BWD_CASES (one
-    (b, KV head) slice of the plain version at a time).  Then, at danube's
-    prefill and training shapes in bf16, the capped kernels' time beside
-    the uncapped ones' in the same run, the plain version's and
+    (b, KV head) slice of the plain version at a time); each case's error
+    on one (b, KV head) slice against a float64 plain version, beside the
+    plain float32 version's.  Then, at danube's prefill and training shapes
+    (bf16, and f32 at batch 1), the capped kernels' time beside the
+    uncapped ones' in the same run, the plain version's and
     flex_attention's with a tanh score_mod → (worst forward error, forward
-    timing, worst backward error, backward timing)."""
+    timing by dtype, worst backward error, backward timing by dtype)."""
     import math
     from repro_torch.kernels import flash_attention, flash_attention_ref
     from repro_torch.kernels.flash_attention import flash_attention_backward
@@ -1432,7 +1477,7 @@ def softcap_checks(torch):
                          k[0, 0].float()) / math.sqrt(D)
         return float((s.abs() > SOFTCAP / 2).float().mean())
 
-    worst_f, t_fwd = 0.0, None
+    worst_f, t_fwd = 0.0, {}
     for (B, H, KV, S, D), W, dt in SOFTCAP_FWD_CASES:
         dtype, route = getattr(torch, dt), routes[dt]
         name = (f"flash_attention[{route}] softcap {SOFTCAP:g} "
@@ -1455,13 +1500,17 @@ def softcap_checks(torch):
               f"{far / LM_TOL[str(dtype)]:.0f}x the tolerance")
         check(far > 10 * LM_TOL[str(dtype)],
               f"{name}: the cap does not bite")
+        e_kernel, e_plain = softcap_f64_errors(torch, q, k, v, W, got)
+        print(f"[softcap] {name}: against the float64 plain version on "
+              f"(batch 0, KV head 0), normwise: the kernel {e_kernel:.3e}, "
+              f"the plain float32 version {e_plain:.3e}")
         del got, want
-        if (dt, S) == ("bfloat16", 4608):
-            t_fwd = softcap_fwd_timing(torch, q, k, v, W)
+        if S == 4608:
+            t_fwd[dt] = softcap_fwd_timing(torch, q, k, v, W)
         del q, k, v
         torch.cuda.empty_cache()
 
-    worst_b, t_bwd = 0.0, None
+    worst_b, t_bwd = 0.0, {}
     for (B, H, KV, S, D), W, dt in SOFTCAP_BWD_CASES:
         dtype, route = getattr(torch, dt), routes[dt]
         G = H // KV
@@ -1501,19 +1550,22 @@ def softcap_checks(torch):
               f"(normwise), {far / LM_TOL[str(dtype)]:.0f}x the tolerance")
         check(far > 10 * LM_TOL[str(dtype)],
               f"{name}: the cap does not bite")
+        e_kernel, e_plain = softcap_f64_errors(torch, q, k, v, W, got, dout)
+        print(f"[softcap] {name}: against the float64 plain version's "
+              f"gradients on (batch 0, KV head 0), normwise: the kernels "
+              f"{e_kernel:.3e}, the plain float32 version {e_plain:.3e}")
         del got, want
-        if dt == "bfloat16":
-            t_bwd = softcap_bwd_timing(torch, q, k, v, dout, W)
+        t_bwd[dt] = softcap_bwd_timing(torch, q, k, v, dout, W)
         del q, k, v, dout
         torch.cuda.empty_cache()
     return worst_f, t_fwd, worst_b, t_bwd
 
 
 def softcap_fwd_timing(torch, q, k, v, W):
-    """The capped bf16 forward's time beside the uncapped kernel's in the
-    same run (capped, uncapped, uncapped, capped), the plain capped
-    version's and flex_attention's → (ms, plain, bound, bound_by,
-    library)."""
+    """The capped forward's time beside the uncapped kernel's in the same
+    run (capped, uncapped, uncapped, capped), the plain capped version's and
+    flex_attention's → (ms, plain, bound, bound_by, library).  The bound is
+    the bf16 tensor cores', or in f32 the split-tf32 one."""
     from repro_torch.kernels import (flash_attention_ref,
                                      flash_attention_work, flash_pairs)
     from repro_torch.kernels.flash_attention import flash_attention_forward
@@ -1542,10 +1594,12 @@ def softcap_fwd_timing(torch, q, k, v, W):
                f"{lib_ms:.4f} ms")
     pairs, _ = flash_pairs(S, True, W)
     ops, nbytes = flash_attention_work(B, H, KV, S, D, q.dtype, window=W)
-    b_ms, b_by = bound_ms_bf16(nbytes, ops)
+    dt = str(q.dtype).split(".")[-1]
+    b_ms, b_by = (bound_ms_tf32 if q.dtype == torch.float32
+                  else bound_ms_bf16)(nbytes, ops)
     t = (min(ms1, ms2), plain, b_ms, b_by, lib_ms)
     print(f"[softcap] flash_attention forward timing {(B, H, KV, S, D)} "
-          f"window {W} bf16, softcap {SOFTCAP:g}: capped {ms1:.4f} / "
+          f"window {W} {dt}, softcap {SOFTCAP:g}: capped {ms1:.4f} / "
           f"{ms2:.4f} ms, uncapped {unc1:.4f} / {unc2:.4f} ms on the card "
           f"(capped, uncapped, uncapped, capped; {host:.4f} ms of host "
           f"time), capped/uncapped {t[0] / min(unc1, unc2):.3f}x, "
@@ -1556,8 +1610,8 @@ def softcap_fwd_timing(torch, q, k, v, W):
 
 
 def softcap_bwd_timing(torch, q, k, v, dout, W):
-    """The capped bf16 backward's time beside the uncapped kernels' in the
-    same run, each from its own forward's output and log-sum-exp; the plain
+    """The capped backward's time beside the uncapped kernels' in the same
+    run, each from its own forward's output and log-sum-exp; the plain
     capped backward's (each (b, KV head) slice's measured time, summed) and
     flex_attention's backward → (ms, plain, bound, bound_by, library)."""
     from repro_torch.kernels import (flash_attention_ref,
@@ -1612,10 +1666,12 @@ def softcap_bwd_timing(torch, q, k, v, dout, W):
     pairs, _ = flash_pairs(S, True, W)
     ops, nbytes = flash_attention_work(B, H, KV, S, D, q.dtype, window=W,
                                        backward=True)
-    b_ms, b_by = bound_ms_bf16(nbytes, ops)
+    dt = str(q.dtype).split(".")[-1]
+    b_ms, b_by = (bound_ms_tf32 if q.dtype == torch.float32
+                  else bound_ms_bf16)(nbytes, ops)
     t = (min(ms1, ms2), plain, b_ms, b_by, lib_ms)
     print(f"[softcap] flash_attention backward timing {(B, H, KV, S, D)} "
-          f"window {W} bf16, softcap {SOFTCAP:g}: capped {ms1:.3f} / "
+          f"window {W} {dt}, softcap {SOFTCAP:g}: capped {ms1:.3f} / "
           f"{ms2:.3f} ms, uncapped {unc1:.3f} / {unc2:.3f} ms on the card "
           f"(capped, uncapped, uncapped, capped; {host:.4f} ms of host "
           f"time), capped/uncapped {t[0] / min(unc1, unc2):.3f}x, "
@@ -4170,24 +4226,29 @@ def dryrun_phase(torch, facts):
     (``launch/roofline.roofline_terms`` at ``HW``) must not exceed the
     measured step wall, whose ``roofline_fraction`` it prints.
     :func:`dryrun_step_child` runs meanwhile in a child process on the card
-    (the dry runs hold only the host) → the child's launches."""
+    (the dry runs hold only the host), and so do DRYRUN_CELLS, each in a
+    process of the dry run's CLI → the child's launches."""
     import tempfile
     t_child = time.perf_counter()
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
     # the child's output goes to files, so that it never waits on a pipe
     # while the dry runs hold this process
     with tempfile.TemporaryFile("w+") as out, \
-            tempfile.TemporaryFile("w+") as err:
+            tempfile.TemporaryFile("w+") as err, \
+            tempfile.TemporaryDirectory() as cells_dir:
         child = subprocess.Popen([sys.executable, os.path.abspath(__file__),
                                   "--dryrun-step"], env=env, stdout=out,
                                  stderr=err, text=True)
+        cells = _start_cli_cells(cells_dir)
         try:
             _dryrun_cells(facts)
             child.wait(timeout=600)
+            _finish_cli_cells(cells, cells_dir)
         finally:
-            if child.poll() is None:
-                child.kill()
-                child.wait()
+            for proc in [child] + [c[-1] for c in cells]:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
         out.seek(0)
         err.seek(0)
         stdout, stderr = out.read(), err.read()
@@ -4200,6 +4261,62 @@ def dryrun_phase(torch, facts):
     line = [x for x in stdout.splitlines()
             if x.startswith("[dryrun] launches ")][-1]
     return json.loads(line[len("[dryrun] launches "):])
+
+
+def _start_cli_cells(out_dir):
+    """Start ``python -m repro_torch.launch.dryrun`` on each of DRYRUN_CELLS,
+    one process each, all at once (host only) → [(arch, shape, multi_pod,
+    start time, log path, process)]."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    cells = []
+    for arch, shape, multi in DRYRUN_CELLS:
+        log = os.path.join(out_dir, f"{arch}__{shape}__{multi}.log")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--out", out_dir]
+        with open(log, "w") as f:
+            proc = subprocess.Popen(cmd + (["--multi-pod"] if multi else []),
+                                    env=env, stdout=f,
+                                    stderr=subprocess.STDOUT)
+        cells.append((arch, shape, multi, time.perf_counter(), log, proc))
+    return cells
+
+
+def _finish_cli_cells(cells, out_dir):
+    """Wait for each CLI cell, then check and print its record: finite
+    positive FLOPs and bytes, the real batch's tokens, and on the multi-pod
+    mesh the batch padded to its 64 batch shards."""
+    import torch
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.mesh import mesh_name, production_shape
+    for arch, shape, multi, t0, log, proc in cells:
+        rc = proc.wait(timeout=600)
+        wall = time.perf_counter() - t0
+        with open(log) as f:
+            text = f.read()
+        check(rc == 0, f"[dryrun] {arch} {shape} (multi-pod {multi}) exited "
+                       f"{rc} under torch {torch.__version__}:\n"
+                       f"{text[-3000:]}")
+        mesh = mesh_name(production_shape(multi)[0])
+        with open(os.path.join(out_dir, f"{arch}__{shape}__{mesh}.json")) as f:
+            rec = json.load(f)
+        shp = SHAPES[shape]
+        tokens = shp.global_batch * (1 if shp.kind == "decode"
+                                     else shp.seq_len)
+        check(rec["flops"] > 0 and rec["bytes_accessed"] > 0
+              and rec["tokens"] == tokens, f"[dryrun] {arch} {shape}: "
+              f"record {rec.get('flops')} FLOP, {rec.get('tokens')} tokens")
+        if multi:
+            check(rec.get("padded_batch") == 64, f"[dryrun] {arch} {shape} "
+                  f"multi-pod: padded batch {rec.get('padded_batch')}")
+        coll = rec["collectives"]
+        print(f"[dryrun] cell {arch} {shape} on {mesh} under torch "
+              f"{torch.__version__}: {rec['total_s']} s (its trace "
+              f"{rec['compile_scanned_s']} s; the process done within "
+              f"{wall:.2f} s of its start), {rec['flops']:.4e} FLOP, "
+              f"{rec['bytes_accessed']:.4e} B a device, collectives "
+              f"{coll['total']:.4e} B ({coll['counts']}), peak "
+              f"{rec['memory']['peak_bytes'] / 2**30:.2f} GiB, tokens "
+              f"{rec['tokens']}, padded batch {rec.get('padded_batch')}")
 
 
 def _dryrun_cells(facts):
@@ -4871,7 +4988,9 @@ def main() -> int:
     # cap, then the capped main paths (danube's serve and training steps,
     # its f32 decode consistency); int8 weights; merged heads ----
     t_phase = time.perf_counter()
-    cap_err, cap_t, cap_bwd_err, cap_bwd_t = softcap_checks(torch)
+    cap_err, cap_ts, cap_bwd_err, cap_bwd_ts = softcap_checks(torch)
+    cap_t, cap_bwd_t = cap_ts["bfloat16"], cap_bwd_ts["bfloat16"]
+    cap32_t = cap_ts["float32"]
     torch.cuda.empty_cache()
     check(flash_fwd_bitwise.main([]) == 0, "the uncapped bf16 flash forward "
           "is not bit for bit the kernel before the cap, or a capped launch "
@@ -4883,8 +5002,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     cap_bwd_launches, _ = softcap_train_phase(torch)
     torch.cuda.empty_cache()
+    from repro_torch.kernels import flash_attention
+    flash_attention.capped_launches = 0
+    flash_attention.route_launches["wgmma_tf32x3"] = 0
     decode_consistency(torch, "h2o-danube-1.8b", 200, 8,
                        cut={"attn_logit_softcap": SOFTCAP_CONSISTENCY})
+    # the check also runs one uncapped forward, to hold the cap's effect
+    cap32_launches = flash_attention.capped_launches
+    check(0 < cap32_launches < flash_attention.route_launches["wgmma_tf32x3"],
+          f"the capped f32 consistency check launched the capped f32 kernel "
+          f"{cap32_launches} times, of "
+          f"{flash_attention.route_launches['wgmma_tf32x3']} f32 launches")
+    print(f"[softcap] capped f32 flash launches (wgmma_tf32x3) on the capped "
+          f"decode consistency: {cap32_launches}")
     torch.cuda.empty_cache()
     print(f"[phase] softcap main paths: {time.perf_counter() - t_phase:.2f} "
           f"s")
@@ -4968,6 +5098,15 @@ def main() -> int:
          "launches": cap_launches, "max_abs_err": cap_err,
          "ms": cap_t[0], "plain_ms": cap_t[1], "bound_ms": cap_t[2],
          "bound_by": cap_t[3], "library_ms": cap_t[4]},
+        {"name": f"flash_attention (softcap {SOFTCAP:g}, f32, danube "
+                 f"prefill at batch 1)", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_tf32_sm90.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:35 with "
+                     "src/repro/models/layers.py:134 (_gqa_scores' softcap; "
+                     "the Pallas kernel has none)",
+         "launches": cap32_launches, "max_abs_err": cap_err,
+         "ms": cap32_t[0], "plain_ms": cap32_t[1], "bound_ms": cap32_t[2],
+         "bound_by": cap32_t[3], "library_ms": cap32_t[4]},
         {"name": "flash_attention (f32, danube prefill at batch 1)",
          "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_tf32_sm90.cu",

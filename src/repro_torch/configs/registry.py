@@ -115,12 +115,15 @@ def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def input_specs_for(cfg: ModelConfig, shape) -> Dict:
+def input_specs_for(cfg: ModelConfig, shape, batch_shards: int = 1) -> Dict:
     """As :func:`input_specs` but for an explicit config; ``shape`` is a
-    name of :data:`SHAPES` or a :class:`ShapeSpec` of its own."""
+    name of :data:`SHAPES` or a :class:`ShapeSpec` of its own.  The batch
+    is padded up to a multiple of ``batch_shards`` (the product of the mesh
+    axes it shards over), as GSPMD pads a dim its axes do not divide; the
+    result's ``"batch"`` is the padded batch."""
     from ..models import init_cache
     shp = SHAPES[shape] if isinstance(shape, str) else shape
-    b = shp.global_batch
+    b = -(-shp.global_batch // batch_shards) * batch_shards
     out: Dict[str, object] = {}
     axes: Dict[str, object] = {}
 
@@ -142,4 +145,5 @@ def input_specs_for(cfg: ModelConfig, shape) -> Dict:
         axes["caches"] = cache_axes_for(cfg)
         out["index"] = _meta((), torch.int32)
         axes["index"] = ()
-    return {"specs": out, "axes": axes, "shape": shp, "config": cfg}
+    return {"specs": out, "axes": axes, "shape": shp, "config": cfg,
+            "batch": b}

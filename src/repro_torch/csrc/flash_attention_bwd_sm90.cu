@@ -72,12 +72,16 @@
 //
 // A logit softcap (softcap > 0) is a second instantiation of both kernels
 // (kCap; the uncapped ones are the code that ran before it).  As the
-// forward does, each raw score s becomes the capped score in raw units,
-// (softcap/scale)·t with t = tanh(s·scale/softcap) recomputed from S by the
-// accurate tanhf, and p = exp2 of that against the forward's log-sum-exp of
+// forward does, each raw score s becomes t = tanh(s·scale/softcap),
+// recomputed from S by softcap_sm90.cuh's two forms (an exp form three
+// scores in four, a rational one), the capped score in raw units being
+// (softcap/scale)·t,
+// and p = exp2(t·c·softcap/scale − lse) against the forward's log-sum-exp of
 // the capped scores; dS then takes the cap's derivative, dS = p∘(dP − D_i)∘
 // (1 − t²), before dq's and dk's final ·scale.  t is recomputed where it is
-// used and not kept live: the dk/dv kernel already spills at D >= 80.
+// used and not kept live: the dk/dv kernel already spills at D >= 80.  The
+// capped kernels' warpgroups also take turns to start their S and dP
+// products (softcap_sm90.cuh).
 //
 // Tried on the card (tools/flash_bwd_variants.py times such variants;
 // PERF.md §6): a loading warp (288 threads) instead of a warpgroup, 9 %
@@ -91,6 +95,8 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "softcap_sm90.cuh"
 
 namespace {
 
@@ -444,8 +450,9 @@ __device__ __forceinline__ float row_dot(const __nv_bfloat16* __restrict__ o,
 // One key tile of kernel A on this thread's scores s and dp (query rows i0
 // and i0 + 8, keys t0 + 8·(j/4) + cq + (j&1), the m64n64 accumulator
 // layout): p = exp2(s·c − lse), masked p = 0 if kMask, dS = p·(dp − D_i)
-// into dp; with kCap s is capped first (cap_r·t, t = tanh(s·cap_in)) and
-// dS takes the factor 1 − t².
+// into dp; with kCap s is taken to t = tanh(s·cap_in) first, the capped
+// score cap_r·t enters the exp2 as t·(c·cap_r), and dS takes the factor
+// 1 − t².
 template <bool kMask, bool kCap>
 __device__ __forceinline__ void dq_tile(const float (&s)[kSAcc],
                                         float (&dp)[kSAcc], int t0, int i0,
@@ -453,14 +460,19 @@ __device__ __forceinline__ void dq_tile(const float (&s)[kSAcc],
                                         float c, float cap_r, float cap_in,
                                         float lse0, float lse1, float di0,
                                         float di1) {
+  CapScales k{};
+  if constexpr (kCap) {
+    k = softcap_scales(cap_in);
+    c *= cap_r;
+  }
 #pragma unroll
   for (int j = 0; j < kSAcc; ++j) {
     const bool hi = j & 2;
     float x = s[j];
     float t = 0.f;
     if constexpr (kCap) {
-      t = tanhf(x * cap_in);
-      x = cap_r * t;
+      t = softcap_tanh(j, x, k);
+      x = t;
     }
     float p = exp2_approx(fmaf(x, c, -(hi ? lse1 : lse0)));
     if constexpr (kMask) {
@@ -485,6 +497,11 @@ __device__ __forceinline__ void dkv_tile(float (&s)[kSAcc],
                                          int window, float c, float cap_r,
                                          float cap_in, const float* lse,
                                          const float* di) {
+  CapScales k{};
+  if constexpr (kCap) {
+    k = softcap_scales(cap_in);
+    c *= cap_r;
+  }
 #pragma unroll
   for (int g = 0; g < kSAcc / 4; ++g) {
     const int col = 8 * g + cq;
@@ -496,8 +513,8 @@ __device__ __forceinline__ void dkv_tile(float (&s)[kSAcc],
       float x = s[j];
       float t = 0.f;
       if constexpr (kCap) {
-        t = tanhf(x * cap_in);
-        x = cap_r * t;
+        t = softcap_tanh(j, x, k);
+        x = t;
       }
       float p = exp2_approx(fmaf(x, c, -((e & 1) ? l.y : l.x)));
       if constexpr (kMask) {
@@ -647,17 +664,20 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq,
   uint32_t a[kSAcc / 2];
 
   mbar_wait(q_full, 0);
+  if constexpr (kCap) turn_init(wg);
   for (int n = 0; n < n_tiles; ++n) {
     const int st = n % kStages;
     const int t0 = (kt_lo + n) * kDqBK;
     const uint32_t k_st = k_s + st * P::kDqKBytes;
     mbar_wait(full + 8 * st, (n / kStages) & 1);
+    if constexpr (kCap) turn_wait(wg);
     fence_regs(s);
     fence_regs(dp);
     wgmma_fence();
     start_ss<D, kDqBQ, kDqBK>(s, q_s, 64 * wg, k_st);
     start_ss<D, kDqBQ, kDqBK>(dp, do_s, 64 * wg, v_s + st * P::kDqKBytes);
     wgmma_commit();
+    if constexpr (kCap) turn_pass(wg);
     wgmma_wait_all();
     fence_regs(s);
     fence_regs(dp);
@@ -811,18 +831,21 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tk,
   uint32_t pa[kSAcc / 2], da[kSAcc / 2];
 
   mbar_wait(kv_full, 0);
+  if constexpr (kCap) turn_init(wg);
   for (int n = 0; n < n_iter; ++n) {
     const int st = n % kStages;
     const int q0 = (qt_lo + n % n_q) * kDkvBQ;
     const uint32_t q_st = q_s + st * P::kDkvQBytes;
     const uint32_t do_st = do_s + st * P::kDkvQBytes;
     mbar_wait(full + 8 * st, (n / kStages) & 1);
+    if constexpr (kCap) turn_wait(wg);
     fence_regs(s);
     fence_regs(dp);
     wgmma_fence();
     start_ss<D, kDkvBK, kDkvBQ>(s, k_s, 64 * wg, q_st);
     start_ss<D, kDkvBK, kDkvBQ>(dp, v_s, 64 * wg, do_st);
     wgmma_commit();
+    if constexpr (kCap) turn_pass(wg);
     wgmma_wait_all();
     fence_regs(s);
     fence_regs(dp);

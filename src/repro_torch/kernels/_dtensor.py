@@ -17,6 +17,14 @@ DTensors with the placements below.
 * ``ssd_scan``: batch (dim 0) and heads (dim 2) may be sharded; chunks and
   the state dims are gathered.
 
+* ``decode_attention``: one decode step's GQA attention over the cache
+  (``models/layers.py``'s ``_gqa_scores`` and ``_attend``), for DTensor in
+  torch 2.11 has no strategy for splitting and merging a sharded KV-heads
+  dim.  Batch and KV heads may be sharded (the query heads then shard with
+  their groups); the cache's sequence may be sharded too, and then each
+  rank attends over its own slots and the ranks' partial max, sum and
+  output are combined by two all-reduces (flash-decoding).
+
 Three plain ops go the same way, for DTensor in torch 2.11 has no strategy
 for them: the embedding's row gather (``embedding_local``: the table
 gathered whole, each rank's own token rows gathered locally, so that its
@@ -30,7 +38,7 @@ import torch
 from ._work import is_dtensor as _is_dtensor
 
 __all__ = ["rmsnorm_local", "flash_attention_local", "ssd_scan_local",
-           "embedding_local", "along"]
+           "decode_attention_local", "embedding_local", "along"]
 
 
 class _ContiguousGrad(torch.autograd.Function):
@@ -144,6 +152,70 @@ def ssd_scan_local(chunk_decay, dbx):
     b, c, hh, p, n = dbx.shape
     return (_wrap(before, mesh, pd, dbx.shape),
             _wrap(final, mesh, pf, (b, hh, p, n)))
+
+
+def decode_attention_local(q, k, v, mask, scale: float,
+                           softcap: float = 0.0):
+    """q (B, 1, H, Dh), k and v (B, W, KV, Dh) DTensors (the cache), mask
+    (B, 1, 1, 1, W) → the f32 (B, 1, H, Dh) DTensor of ``_attend``.
+
+    On each mesh dim: the batch stays sharded; KV heads stay sharded where
+    the dim divides both head counts, the query heads sharding with their
+    groups; a sharded cache sequence stays so, the query heads gathered,
+    and the ranks' partial row max, sum and output over their slots are
+    combined by an all-reduce of the max and one of the rescaled sum and
+    output; anything else is gathered.  No gradient: decode only."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ..models.layers import _attend, _gqa_scores
+    mesh = q.device_mesh
+    k, v, mask = (_as_dtensor(t, mesh) for t in (k, v, mask))
+    h, kvh = q.shape[2], k.shape[2]
+    roles = []
+    for i, p in enumerate(k.placements):
+        n = mesh.size(i)
+        if isinstance(p, Shard) and p.dim == 0:
+            roles.append("batch")
+        elif isinstance(p, Shard) and p.dim == 2 and not (h % n or kvh % n):
+            roles.append("heads")
+        elif isinstance(p, Shard) and p.dim == 1:
+            roles.append("seq")
+        else:
+            roles.append(None)
+
+    def layout(dims):
+        return [Shard(dims[r]) if r in dims else Replicate() for r in roles]
+    ql = _local(q, mesh, layout({"batch": 0, "heads": 2}))
+    kl, vl = (_local(t, mesh, layout({"batch": 0, "heads": 2, "seq": 1}))
+              for t in (k, v))
+    ml = _local(mask, mesh, layout({"batch": 0, "seq": 4}))
+    scores = _gqa_scores(ql, kl, scale, softcap)         # (b, kv, g, 1, t)
+    out = layout({"batch": 0, "heads": 2})
+    if "seq" not in roles:
+        return _wrap(_attend(scores, vl, ml), mesh, out, q.shape)
+    scores = torch.where(ml, scores, torch.tensor(-1e30, device=q.device))
+    m = _reduce(scores.amax(-1, keepdim=True), mesh, roles, "max")
+    e = torch.exp(scores - m)
+    b, kv_l, g = e.shape[:3]
+    ol = torch.einsum("bkgst,btkd->bkgsd", e, vl.to(torch.float32))
+    sums = _reduce(torch.cat([ol, e.sum(-1, keepdim=True)], -1), mesh,
+                   roles, "sum")
+    y = sums[..., :-1] / sums[..., -1:]                  # (b, kv, g, 1, Dh)
+    y = y.permute(0, 3, 1, 2, 4).reshape(b, 1, kv_l * g, -1)
+    return _wrap(y, mesh, out, q.shape)
+
+
+def _reduce(t, mesh, roles, op: str):
+    """All-reduce the local (b, kv, g, ...) ``t`` with ``op`` over the mesh
+    dims that split the cache's sequence: a ``Partial`` DTensor
+    redistributed to ``Replicate``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    dims = {"batch": 0, "heads": 1}
+    part = [Partial(op) if r == "seq" else
+            Shard(dims[r]) if r in dims else Replicate() for r in roles]
+    whole = [Replicate() if r == "seq" else p for r, p in zip(roles, part)]
+    return DTensor.from_local(t, mesh, part, run_check=False).redistribute(
+        mesh, whole).to_local()
 
 
 def embedding_local(table, idx):

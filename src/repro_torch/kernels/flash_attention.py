@@ -106,14 +106,14 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         softcap: float = 0.0) -> torch.Tensor:
     """Plain PyTorch version: q (B, H, S, D), k/v (B, KV, S, D) → (B, H, S, D)
-    in q's dtype; f32 softmax, the scaled scores capped at
-    ``softcap·tanh(s / softcap)`` when ``softcap`` > 0."""
+    in q's dtype; f32 softmax (f64 for f64 inputs), the scaled scores capped
+    at ``softcap·tanh(s / softcap)`` when ``softcap`` > 0."""
     b, h, s, d = q.shape
     kv = k.shape[1]
     g = h // kv
-    qg = q.reshape(b, kv, g, s, d).to(torch.float32)
-    scores = torch.einsum("bkgsd,bktd->bkgst", qg, k.to(torch.float32)) \
-        / math.sqrt(d)
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qg = q.reshape(b, kv, g, s, d).to(acc)
+    scores = torch.einsum("bkgsd,bktd->bkgst", qg, k.to(acc)) / math.sqrt(d)
     if softcap > 0:
         scores = softcap * torch.tanh(scores / softcap)
     mask = flash_mask(s, causal, window, q.device)
@@ -121,7 +121,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores = torch.where(mask, scores, torch.tensor(-1e30,
                                                         device=q.device))
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgst,bktd->bkgsd", probs, v.to(torch.float32))
+    out = torch.einsum("bkgst,bktd->bkgsd", probs, v.to(acc))
     return out.reshape(b, h, s, d).to(q.dtype)
 
 

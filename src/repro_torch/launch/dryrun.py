@@ -14,7 +14,11 @@ reports one device's work and memory:
   * parameters and optimizer state are DTensors placed by ``param_specs``,
     inputs by ``input_specs_for``'s axes under ``_rules_for`` (the
     reference's per-arch and per-shape rules), and the model's ``shard()``
-    calls lay activations out as the reference's sites do.
+    calls lay activations out as the reference's sites do;
+  * a batch its mesh axes do not divide (prefill_32k's 32 on the (2, 32, 8)
+    mesh's 64 batch shards) is padded up to their multiple, as GSPMD pads:
+    the record keeps ``tokens`` at the real batch and names
+    ``padded_batch``.
 
 Counts, per device as the reference's ``cost_analysis`` reports them:
   * ``flops``: ``torch.utils.flop_counter``'s formulas on the local ops
@@ -417,6 +421,18 @@ def _run_step(cfg, shp, cell, mesh, rules, fake_mode, optimizer=None,
     }, out, args
 
 
+def _batch_shards(rules: Dict, axes, dims) -> int:
+    """The product of the mesh dims the logical "batch" axis shards over."""
+    from ..distributed.sharding import with_rules
+    mapped = with_rules(rules).get("batch")
+    names = (mapped,) if isinstance(mapped, str) else (mapped or ())
+    n = 1
+    for name, size in zip(axes, dims):
+        if name in names:
+            n *= size
+    return n
+
+
 def run_cell(arch: str, shape, multi_pod: bool = False,
              extra_rules: Optional[Dict] = None,
              config_overrides: Optional[Dict] = None,
@@ -451,7 +467,6 @@ def run_cell(arch: str, shape, multi_pod: bool = False,
     if shp.name in spec.skip:
         return {"arch": arch, "shape": shp.name,
                 "skipped": spec.skip[shp.name]}
-    cell = input_specs_for(cfg, shp)
     rules = _rules_for(arch, shp, multi_pod)
     if extra_rules:
         rules.update(extra_rules)
@@ -460,6 +475,7 @@ def run_cell(arch: str, shape, multi_pod: bool = False,
     n_dev = 1
     for n in dims:
         n_dev *= n
+    cell = input_specs_for(cfg, shp, _batch_shards(rules, axes, dims))
     result = {
         "arch": arch, "shape": shp.name, "kind": shp.kind,
         "tokens": shp.global_batch * (1 if shp.kind == "decode"
@@ -470,6 +486,9 @@ def run_cell(arch: str, shape, multi_pod: bool = False,
         "rules": {k: (list(v) if isinstance(v, tuple) else v)
                   for k, v in rules.items()},
     }
+    if cell["batch"] != shp.global_batch:
+        # the step ran on the padded batch; "tokens" stays the real work
+        result["padded_batch"] = cell["batch"]
     with fake_world(n_dev):
         if mesh_shape is None:
             mesh = make_production_mesh(multi_pod=multi_pod,

@@ -249,8 +249,14 @@ def attention(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
         mask = causal[:, None, None, :, :]
         k_all = cache.k.transpose(1, 2)                      # (B,W,KV,Dh)
         v_all = cache.v.transpose(1, 2)
-        scores = _gqa_scores(q, k_all, scale, cfg.attn_logit_softcap)
-        y = _attend(scores, v_all, mask)
+        if is_dtensor(q):
+            # under a mesh each rank attends over its local cache slice
+            from ..kernels._dtensor import decode_attention_local
+            y = decode_attention_local(q, k_all, v_all, mask, scale,
+                                       cfg.attn_logit_softcap)
+        else:
+            scores = _gqa_scores(q, k_all, scale, cfg.attn_logit_softcap)
+            y = _attend(scores, v_all, mask)
         new_cache = cache
 
     y = y.to(x.dtype)

@@ -7,7 +7,8 @@ mesh (``shard()`` at the reference's sites, ``kernels/_dtensor.py``,
   ``qchunk_*``, which set a field the port refuses), read in one
   subprocess: importing ``repro.launch.dryrun`` sets ``XLA_FLAGS`` to 512
   host devices, which must not reach this process's JAX.  Importing the
-  port's dry run sets no environment variable at all.
+  port's dry run, in the same subprocess before, sets no environment
+  variable at all.
 * A smoke config's train, prefill and decode steps counted on fake tensors
   on a fake (2, 2) mesh equal the same steps counted on real CPU tensors
   (the kernels' counted route), exactly: FLOPs, bytes, each kernel's calls
@@ -15,9 +16,12 @@ mesh (``shard()`` at the reference's sites, ``kernels/_dtensor.py``,
   path whose KV heads a rank slices (danube's train step), the fake run's
   autograd copies two K/V gradients more in a view's backward
   (``ViewBackward0``'s reshape): its bytes are held to 0.5 % there, the
-  rest exactly.
+  rest exactly.  So do danube's decode steps, whose KV heads are
+  replicated and whose cache slots split over "model" (with and without
+  the cap).
 * A production-mesh cell carries the reference's record keys, with
-  nonzero FLOPs, bytes and memory.
+  nonzero FLOPs, bytes and memory.  A batch its mesh axes do not divide is
+  padded to their multiple, as GSPMD pads, and the record says so.
 * On a 1×2 gloo mesh (two processes), danube's SMOKE train step with
   ``shard()`` active (query heads split, KV heads replicated: each rank
   reads the KV heads of its own query heads) is within 1e-5 of the
@@ -26,7 +30,10 @@ mesh (``shard()`` at the reference's sites, ``kernels/_dtensor.py``,
   with their query groups) and on ones whose single KV head does not
   (gathered), output and gradients.  The
   pipeline's rows made per rank on a 2-way "data" mesh are the reference's
-  global batch rows, bit for bit.
+  global batch rows, bit for bit.  The same ranks run danube's SMOKE decode
+  step through ``decode_attention_local`` in both decode layouts (KV heads
+  split; cache slots split, with and without the cap), within 1e-5 of the
+  unsharded step.
 """
 import json
 import os
@@ -55,13 +62,40 @@ REF_KEYS = {"arch", "shape", "mesh", "num_devices", "params",
             "total_s"}
 STEP_ARCH, STEP_B, STEP_S = "h2o-danube-1.8b", 4, 32
 TOL = 1e-5
+#: decode under a mesh, as ``_rules_for`` lays it out (rules, softcap): KV
+#: heads sharded over "model" with their query groups, or replicated with
+#: the cache's sequence sharded over "model" instead (danube's decode
+#: cells), with and without a cap that bites on the SMOKE scores
+DECODE_LAYOUTS = {
+    "kv_heads": ({"kv_heads": "model"}, 0.0),
+    "cache_seq": ({"kv_heads": None, "cache_seq": "model"}, 0.0),
+    "cache_seq_capped": ({"kv_heads": None, "cache_seq": "model"}, 1.0)}
 
 
-def _ref_subprocess(code: str):
+@pytest.fixture(scope="module")
+def fresh_process():
+    """One fresh process: the environment and the default process group
+    after importing the port's dry-run modules, then the reference's
+    ``_rules_for`` of every cell and its ``VARIANTS`` (importing
+    ``repro.launch.dryrun`` sets ``XLA_FLAGS``, which must not reach this
+    process's JAX)."""
+    code = textwrap.dedent("""
+        import json, os
+        before = dict(os.environ)
+        import repro_torch.launch.dryrun, repro_torch.launch.perf
+        import repro_torch.launch.mesh, repro_torch.launch.report
+        import torch.distributed as d
+        port = [dict(os.environ) == before, d.is_initialized()]
+        from repro.configs import SHAPES, all_archs
+        from repro.launch import dryrun, perf
+        rules = {f"{a}|{s}|{m}": dryrun._rules_for(a, s, m)
+                 for a in all_archs() for s in SHAPES for m in (False, True)}
+        print(json.dumps({"port": port, "rules": rules,
+                          "variants": perf.VARIANTS}))
+    """)
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
-    out = subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
-                         env=env, capture_output=True, text=True,
-                         timeout=120)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     return json.loads(out.stdout.strip().splitlines()[-1])
 
@@ -70,15 +104,8 @@ def _jsonable(x):
     return json.loads(json.dumps(x))
 
 
-def test_rules_and_variants_are_the_references():
-    want = _ref_subprocess("""
-        import json
-        from repro.configs import SHAPES, all_archs
-        from repro.launch import dryrun, perf
-        rules = {f"{a}|{s}|{m}": dryrun._rules_for(a, s, m)
-                 for a in all_archs() for s in SHAPES for m in (False, True)}
-        print(json.dumps({"rules": rules, "variants": perf.VARIANTS}))
-    """)
+def test_rules_and_variants_are_the_references(fresh_process):
+    want = fresh_process
     got = {f"{a}|{s}|{m}": dryrun._rules_for(a, s, m)
            for a in all_archs() for s in SHAPES for m in (False, True)}
     assert _jsonable(got) == want["rules"]
@@ -92,18 +119,8 @@ def test_rules_and_variants_are_the_references():
     assert production_shape(True) == ((2, 32, 8), ("pod", "data", "model"))
 
 
-def test_importing_the_dry_run_sets_no_environment_variable():
-    code = ("import os, json; before = dict(os.environ); "
-            "import repro_torch.launch.dryrun, repro_torch.launch.perf, "
-            "repro_torch.launch.mesh, repro_torch.launch.report; "
-            "import torch.distributed as d; "
-            "print(json.dumps([dict(os.environ) == before, "
-            "d.is_initialized()]))")
-    env = dict(os.environ, PYTHONPATH=SRC)
-    out = subprocess.run([sys.executable, "-c", code], env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr[-3000:]
-    assert json.loads(out.stdout.strip().splitlines()[-1]) == [True, False]
+def test_importing_the_dry_run_sets_no_environment_variable(fresh_process):
+    assert fresh_process["port"] == [True, False]
 
 
 def _counts(rec):
@@ -215,6 +232,8 @@ def _rank_step(rank, world, out_dir):
              for p in placed.params["blocks"][0]["mixer"]["wq"].placements]
     mesh_d = init_device_mesh("cpu", (2,), mesh_dim_names=("data",))
     rows = SyntheticTokens(data, "cpu", mesh=mesh_d).batch(3)
+    decode = {name: _sharded_decode(mesh, rules, cap)
+              for name, (rules, cap) in DECODE_LAYOUTS.items()}
     return {"loss": [float(met_u["loss"]), float(full(met_s["loss"]))],
             "grads": diff(grads[1], grads[0]),
             "params": diff(new_s.params, new_u.params),
@@ -222,7 +241,58 @@ def _rank_step(rank, world, out_dir):
                                  for g in tree_leaves(grads[1])),
             "wq": heads,
             "rows": {k: v.to_local().tolist() for k, v in rows.items()},
-            "attention": _sharded_heads_attention(mesh)}
+            "attention": _sharded_heads_attention(mesh),
+            "decode": decode}
+
+
+def _sharded_decode(mesh, rules, cap):
+    """danube's SMOKE decode step (a 12-token prefill into a ring of 8
+    slots, then position 12) unsharded and on ``mesh`` under ``rules``
+    (parameters and caches placed by their logical axes), with logit
+    softcap ``cap`` → the largest logit difference, how far the uncapped
+    step's logits lie from the capped ones, and the layout each rank's
+    ``decode_attention_local`` saw (placements of the cache's K)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs.registry import cache_axes_for
+    from repro_torch.distributed.sharding import (
+        _map_axes, distribute_tree, logical_spec, param_specs,
+        placements_for, use_rules, with_rules)
+    from repro_torch.kernels import _dtensor
+    from repro_torch.models import decode_step, init_params, param_axes
+    from repro_torch.models import prefill
+    cfg = dataclasses.replace(get(STEP_ARCH).smoke_config,
+                              attn_logit_softcap=cap)
+    gen = torch.Generator().manual_seed(7)
+    params = init_params(cfg, seed=0, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen)
+    nxt = torch.randint(0, cfg.vocab_size, (2, 1), generator=gen)
+    _, caches = prefill(params, cfg, tokens, max_len=16)
+    want, _ = decode_step(params, cfg, nxt, copy.deepcopy(caches), 12)
+    plain, _ = decode_step(params, dataclasses.replace(
+        cfg, attn_logit_softcap=0.0), nxt, copy.deepcopy(caches), 12)
+    full_rules = with_rules(rules)
+    cspec = _map_axes(lambda axes: placements_for(
+        logical_spec(axes, full_rules, mesh), mesh), cache_axes_for(cfg))
+    seen = []
+    inner = _dtensor.decode_attention_local
+
+    def spy(q, k, *a, **kw):
+        seen.append([getattr(p, "dim", None) for p in k.placements])
+        return inner(q, k, *a, **kw)
+    _dtensor.decode_attention_local = spy
+    try:
+        with use_rules(mesh, rules):
+            got, _ = decode_step(
+                distribute_tree(params, param_specs(param_axes(cfg), mesh,
+                                                    rules), mesh),
+                cfg, nxt, distribute_tree(caches, cspec, mesh), 12)
+    finally:
+        _dtensor.decode_attention_local = inner
+    return {"diff": float((got.full_tensor() - want).abs().max()),
+            "cap_moves": float((plain - want).abs().max()),
+            "layouts": seen}
 
 
 def _sharded_heads_attention(mesh):
@@ -258,11 +328,17 @@ def _sharded_heads_attention(mesh):
     return out
 
 
-def test_two_gloo_ranks_train_step_and_pipeline_rows(tmp_path):
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    """One spawn of two gloo ranks running ``_rank_step``."""
+    return spawn_ranks("test_torch_dryrun", "_rank_step", 2,
+                       tmp_path_factory.mktemp("ranks"), timeout=240)
+
+
+def test_two_gloo_ranks_train_step_and_pipeline_rows(two_ranks):
     from repro.data.pipeline import DataConfig as RefDataConfig
     from repro.data.pipeline import SyntheticTokens as RefTokens
-    results = spawn_ranks("test_torch_dryrun", "_rank_step", 2, tmp_path,
-                          timeout=240)
+    results = two_ranks
     cfg = get(STEP_ARCH).smoke_config
     ref = RefTokens(RefDataConfig(vocab_size=cfg.vocab_size, seq_len=STEP_S,
                                   global_batch=STEP_B, seed=5)).batch(3)
@@ -284,3 +360,60 @@ def test_two_gloo_ranks_train_step_and_pipeline_rows(tmp_path):
         assert att["1"]["heads"] == [None, None]  # a group split: gathered
         for kv in ("2", "1"):
             assert att[kv]["out"] <= TOL and att[kv]["grads"] <= TOL, att
+
+
+@pytest.mark.parametrize("layout", list(DECODE_LAYOUTS))
+def test_sharded_decode_equals_the_unsharded_step(two_ranks, layout):
+    """danube's SMOKE decode step on the 1x2 gloo mesh through
+    ``decode_attention_local`` against the unsharded step, 1e-5: its KV
+    heads split with their query groups, or its cache's slots split, the
+    ranks' partial softmaxes combined by all-reduces (with the cap too)."""
+    # the cache's K as attention reads it, (B, W, KV, Dh): batch over
+    # "data", KV heads (dim 2) or slots (dim 1) over "model"
+    split = {"kv_heads": 2, "cache_seq": 1, "cache_seq_capped": 1}[layout]
+    for res in two_ranks:
+        got = res["decode"][layout]
+        assert got["diff"] <= TOL, got
+        assert got["layouts"] == [[0, split]] * 2     # both layers
+        if DECODE_LAYOUTS[layout][1]:
+            assert got["cap_moves"] > 10 * TOL, got
+
+
+@pytest.mark.parametrize("cap", [0.0, 1.0])
+def test_decode_fake_counts_equal_the_real_cpu_counts_seq_split(cap):
+    """danube's SMOKE decode cell, whose KV heads are replicated and whose
+    cache slots split over "model" (``_rules_for``'s decode rule), on a
+    fake (2, 2) mesh: fake counts equal the real CPU counts, and (uncapped)
+    the partial softmaxes combine by two all-reduces a layer more than
+    with the slots whole."""
+    arch = "h2o-danube-1.8b"
+    cfg = get(arch).smoke_config
+    shp = ShapeSpec("smoke_decode", "decode", 32, 4)
+    assert dryrun._rules_for(arch, shp, False)["cache_seq"] == "model"
+    runs = [dryrun.run_cell(arch, shp, mesh_shape=(2, 2), config=cfg,
+                            config_overrides={"attn_logit_softcap": cap},
+                            real=real) for real in (False, True)]
+    assert _counts(runs[0]) == _counts(runs[1])
+    if cap:
+        return
+    unsplit = dryrun.run_cell(arch, shp, mesh_shape=(2, 2), config=cfg,
+                              extra_rules={"cache_seq": None})
+    added = (runs[0]["collectives"]["counts"]["all-reduce"]
+             - unsplit["collectives"]["counts"]["all-reduce"])
+    assert added == 2 * cfg.n_layers
+
+
+def test_a_batch_its_axes_do_not_divide_is_padded():
+    """qwen1.5-0.5b's SMOKE prefill at batch 4 on a fake (2, 4, 2)
+    ("pod", "data", "model") mesh, whose batch axes make 8 shards: the
+    step runs on a batch of 8, as GSPMD pads, the record names it and keeps
+    the real tokens; its counts are those of a batch of 8."""
+    arch = "qwen1.5-0.5b"
+    cfg = get(arch).smoke_config
+    recs = [dryrun.run_cell(arch, ShapeSpec("smoke_prefill", "prefill", 32,
+                                            b), multi_pod=True,
+                            mesh_shape=(2, 4, 2), config=cfg)
+            for b in (4, 8)]
+    assert recs[0]["padded_batch"] == 8 and "padded_batch" not in recs[1]
+    assert (recs[0]["tokens"], recs[1]["tokens"]) == (4 * 32, 8 * 32)
+    assert _counts(recs[0]) == _counts(recs[1])

@@ -37,6 +37,10 @@ ATOL = 2e-5
 # prompt longer than danube-smoke's window of 8 (the ring buffer wraps in
 # decode) and not a multiple of the SSD chunk (front padding)
 BATCH, PROMPT, STEPS, CHUNK = 2, 13, 6, 4
+# the reference's decode step, compiled once a config and reused by every
+# greedy step (run eagerly, each step dispatches op by op: ~2 s a step on
+# jamba's SMOKE config)
+_ref_decode = jax.jit(ref_decode_step, static_argnums=(1,))
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -85,7 +89,7 @@ def test_prefill_and_greedy_decode_match_reference(models):
     tok = torch.argmax(logits[:, -1:], -1).to(torch.int32)
     for i in range(STEPS):
         assert np.array_equal(tok.numpy(), np.asarray(ref_tok)), (arch, i)
-        ref_logits, ref_caches = ref_decode_step(
+        ref_logits, ref_caches = _ref_decode(
             ref_params, ref_cfg, ref_tok, ref_caches, jnp.int32(PROMPT + i))
         logits, caches = decode_step(params, cfg, tok, caches, PROMPT + i)
         np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits),

@@ -61,7 +61,7 @@ def build(name: str, src: str):
     lib = out_dir / f"lib{name}.so"
     res = subprocess.run([_build._nvcc(),
                           *_build._flags("flash_attention_bwd_sm90"),
-                          "-o", str(lib), str(cu)],
+                          "-I", str(_build._CSRC), "-o", str(lib), str(cu)],
                          capture_output=True, text=True)
     if res.returncode:
         raise RuntimeError(f"nvcc failed for {name}:\n{res.stdout}"

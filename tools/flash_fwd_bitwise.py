@@ -55,7 +55,8 @@ def build_old(path: Path):
     out = _build.build_dir() / f"libflash_attention_sm90_old-{digest}.so"
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
-        subprocess.run([_build._nvcc(), *flags, "-o", str(out), str(path)],
+        subprocess.run([_build._nvcc(), *flags, "-I", str(_build._CSRC),
+                        "-o", str(out), str(path)],
                        check=True, capture_output=True)
     fn = ctypes.CDLL(str(out)).flash_attention_bf16_sm90
     entry = src.split(b'extern "C" int flash_attention_bf16_sm90(')[1] \
