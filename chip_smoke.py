@@ -141,7 +141,11 @@ user entry points:
    f32 at batch 1) beside the uncapped kernels and
    ``flex_attention`` with a tanh score_mod, holds the uncapped bf16
    forward bit for bit against ``tools/flash_attention_sm90_uncapped.cu``
-   (``tools/flash_fwd_bitwise.py``), then drives the capped kernels through
+   (``tools/flash_fwd_bitwise.py``) and the uncapped f32 forward and
+   backward against ``tools/flash_tf32_double_cap/``
+   (``tools/flash_f32_bitwise.py``; the build already found no FP64
+   instruction in the capped f32 kernels' SASS), then drives the capped
+   kernels through
    danube's serve and two training steps and its float32 decode
    consistency with a cap of 1; ``[quantize]`` holds danube's int8 weights
    (``quantize_params``, full width and depth, float32) against its f32
@@ -164,6 +168,7 @@ from __future__ import annotations
 import collections
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1087,12 +1092,15 @@ def flash_sm90_report():
         .flash_attention_bwd_f32_tf32_sm90_smem
     f32_bwd_smem.restype = ctypes.c_int
     f32_bwd_smem.argtypes = [ctypes.c_int, ctypes.c_int]
-    kernels = {"flash_attention_sm90_kernel": lambda d: smem(d),
-               "flash_bwd_dq_sm90": lambda d: bwd_smem(d, 0),
-               "flash_bwd_dkv_sm90": lambda d: bwd_smem(d, 1),
-               "flash_attention_tf32_kernel": lambda d: f32_smem(d),
-               "flash_bwd_dq_tf32": lambda d: f32_bwd_smem(d, 0),
-               "flash_bwd_dkv_tf32": lambda d: f32_bwd_smem(d, 1)}
+    # (head dim, capped) → bytes; the capped f32 dk/dv kernel keeps each
+    # query row's anchor terms beside its D_i and 1 / l
+    kernels = {"flash_attention_sm90_kernel": lambda d, c: smem(d),
+               "flash_bwd_dq_sm90": lambda d, c: bwd_smem(d, 0),
+               "flash_bwd_dkv_sm90": lambda d, c: bwd_smem(d, 1),
+               "flash_attention_tf32_kernel": lambda d, c: f32_smem(d),
+               "flash_bwd_dq_tf32": lambda d, c: f32_bwd_smem(d, 0),
+               "flash_bwd_dkv_tf32": lambda d, c: f32_bwd_smem(
+                   d, 2 if c else 1)}
     for lib in ("flash_attention_sm90", "flash_attention_bwd_sm90",
                 "flash_attention_tf32_sm90",
                 "flash_attention_bwd_tf32_sm90"):
@@ -1108,8 +1116,45 @@ def flash_sm90_report():
                 cap = " softcap" if entry.group(3) == "1" else ""
             elif d is not None and ("registers" in line or "spill" in line):
                 print(f"[build] {name} D={d}{cap}: {line.strip()}"
-                      + (f"; dynamic shared memory {kernels[name](d)} B per "
-                         f"block" if "registers" in line else ""))
+                      + (f"; dynamic shared memory {kernels[name](d, cap)} B "
+                         f"per block" if "registers" in line else ""))
+
+
+FP64_SASS = re.compile(r"\b(DADD|DMUL|DFMA|DSETP|DMNMX|DMMA|MUFU\.\w+64H)\b"
+                       r"|\.F64\b")
+
+
+def flash_fp64_report():
+    """The f32 flash libraries' SASS (``cuobjdump -sass``): FP64
+    instructions per kernel instantiation; → {(kernel, D, capped): count}.
+    The capped (kCap) instantiations must have none: their cap runs on the
+    f32 FMA and MUFU pipes (``csrc/sm90_common.cuh``)."""
+    import shutil
+    from repro_torch.kernels._build import _lib_path, _nvcc
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_nvcc()), "cuobjdump")
+    counts = {}
+    for lib in ("flash_attention_tf32_sm90", "flash_attention_bwd_tf32_sm90"):
+        sass = subprocess.run([tool, "-sass", str(_lib_path(lib))],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        for part in sass.split("Function : ")[1:]:
+            entry = re.match(r"\S*?(flash_attention_tf32_kernel|"
+                             r"flash_bwd_dq_tf32|flash_bwd_dkv_tf32)"
+                             r"ILi(\d+)ELb([01])E", part)
+            if entry:
+                key = (entry.group(1), int(entry.group(2)),
+                       entry.group(3) == "1")
+                counts[key] = len(FP64_SASS.findall(part))
+    for (name, d, capped), n in sorted(counts.items()):
+        print(f"[build] {name} D={d}{' softcap' if capped else ''}: {n} FP64 "
+              f"instructions in its SASS")
+    check(len(counts) == 24, f"the f32 flash libraries' SASS holds "
+          f"{len(counts)} of the 24 kernel instantiations")
+    capped = {k: n for k, n in counts.items() if k[2] and n}
+    check(not capped, f"FP64 instructions in the capped f32 flash kernels: "
+          f"{capped}")
+    return counts
 
 
 def flash_checks(torch):
@@ -4731,16 +4776,22 @@ def main() -> int:
           f"card: {card}; allow_tf32 off for matmul and cuDNN")
 
     t0 = time.perf_counter()
-    # the bf16 forward as it was before the cap (tools/flash_fwd_bitwise.py
-    # holds the uncapped path bit for bit against it) builds beside them
+    # the bf16 forward as it was before the cap and the f32 kernels as they
+    # were while their cap ran in double (tools/flash_fwd_bitwise.py and
+    # tools/flash_f32_bitwise.py hold the uncapped paths bit for bit
+    # against them) build beside them
     import threading
     sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import flash_f32_bitwise
     import flash_fwd_bitwise
-    old_build = threading.Thread(target=flash_fwd_bitwise.build_old,
-                                 args=(flash_fwd_bitwise.UNCAPPED,))
-    old_build.start()
+    old_builds = [threading.Thread(target=flash_fwd_bitwise.build_old,
+                                   args=(flash_fwd_bitwise.UNCAPPED,)),
+                  threading.Thread(target=flash_f32_bitwise.build_old)]
+    for t in old_builds:
+        t.start()
     built = build_all()
-    old_build.join()
+    for t in old_builds:
+        t.join()
     print(f"[build] {time.perf_counter() - t0:.2f} s wall, nvcc per source "
           f"{ {k: round(v, 2) for k, v in built.items()} } into "
           f"{build_dir()}")
@@ -4749,6 +4800,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build] {log.stem}: {line.strip()}")
     flash_sm90_report()
+    flash_fp64_report()
     level_build_report()
 
     plat = paper_platform()
@@ -4995,6 +5047,9 @@ def main() -> int:
     check(flash_fwd_bitwise.main([]) == 0, "the uncapped bf16 flash forward "
           "is not bit for bit the kernel before the cap, or a capped launch "
           "failed")
+    check(flash_f32_bitwise.main([]) == 0, "the uncapped f32 flash forward "
+          "or backward is not bit for bit the kernels whose cap ran in "
+          "double, or a capped f32 launch failed")
     print(f"[phase] softcap kernels: {time.perf_counter() - t_phase:.2f} s")
     t_phase = time.perf_counter()
     cap_launches, res = softcap_serve_phase(torch)

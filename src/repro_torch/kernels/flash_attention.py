@@ -33,9 +33,12 @@ before the mask (Gemma 2's attention logit softcapping, the reference's
 Pallas kernel has none).  Each of the four kernels has a capped
 instantiation beside the uncapped one; a CUDA tensor with a cap launches
 the capped kernels (``flash_attention.capped_launches``,
-``flash_attention_backward.capped_launches``).  The f32 route's capped
-kernels work on the capped scores less the cap, so under a cap its saved
-log-sum-exp is of those (``softcap·log2(e)`` below the bf16 route's).
+``flash_attention_backward.capped_launches``).  Under a cap the bf16
+route's saved log-sum-exp is of the capped scores; the f32 route saves each
+row's largest raw score instead, the anchor its capped kernels take every
+exponent against (``C·(tanh(x) − tanh(x_M))`` by a difference form on the
+f32 pipes, ``csrc/sm90_common.cuh``), and its backward sums each row's
+normaliser itself.
 
 ``flash_tile_plan`` is the Python mirror of the loops that walk key tiles
 for a query tile (the forwards, and the dq kernels at their own tile sizes):
@@ -316,7 +319,8 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel on CUDA tensors, outside autograd → (output, the
     rows' (B, H, S) f32 log-sum-exp in base 2 of the (capped) scores scaled
-    by log2(e)/sqrt(D))."""
+    by log2(e)/sqrt(D); on the f32 route with a cap, each row's largest raw
+    score q·k, the backward's anchor)."""
     route = _check_args(q, k, v, window, softcap)
     b, h, s, d = q.shape
     out = torch.empty_like(q)
@@ -350,8 +354,9 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                                         torch.Tensor]:
     """The backward kernels on CUDA tensors: the forward's q, k, v and
     output, the output's gradient (all contiguous, one dtype) and the
-    log-sum-exp ``flash_attention_forward`` returned (with the same
-    ``softcap``) → (dq, dk, dv) in that dtype."""
+    row statistic ``flash_attention_forward`` returned with the same
+    ``softcap`` (the log-sum-exp, or the f32 route's anchors under a cap)
+    → (dq, dk, dv) in that dtype."""
     route = _check_args(q, k, v, window, softcap)
     for name, t in (("out", out), ("dout", dout)):
         if t.device != q.device or t.dtype != q.dtype \
@@ -405,8 +410,9 @@ flash_attention_backward.route_launches = {"wgmma_tf32x3": 0,
 
 class FlashAttentionFn(torch.autograd.Function):
     """The forward kernel of q's route with that route's backward kernels as
-    its gradient (saves q, k, v, the output and the rows' log-sum-exp; a
-    recompute under remat saves them again)."""
+    its gradient (saves q, k, v, the output and the rows' statistic, the
+    log-sum-exp or under a cap on the f32 route the anchors; a recompute
+    under remat saves them again)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap):

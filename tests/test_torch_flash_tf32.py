@@ -2,7 +2,8 @@
 ``csrc/flash_attention_tf32_sm90.cu`` and ``csrc/flash_attention_bwd_tf32_
 sm90.cu`` (tf32 rounding as ``cvt.rna`` by bit operations on int32 views,
 the three-product split, each kernel's tile order from its Python tile plan,
-its exp2 and rescale, and the saved log-sum-exp) against the reference's
+its exp2 and rescale, the saved log-sum-exp, and under the logit softcap
+the cap's f32 form against each row's anchor) against the reference's
 Pallas kernel in interpret mode and ``jax.grad`` of its plain attention,
 at every head dim the kernels are built for, with GQA, a window edge inside
 a tile, a ragged S, ``causal=False`` and the logit softcap; a one-product
@@ -37,6 +38,8 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     HEAD_DIMS, TF32_DKV_TILES, TF32_DQ_TILES, TF32_FWD_TILES,
     flash_bwd_tile_plan, flash_mask, flash_tile_plan)
+from test_torch_softcap_f32_formula import (  # noqa: E402
+    cap_delta, cap_exponent, cap_for, cap_row)
 
 TOL = 1e-5
 CSRC = Path(_build.__file__).resolve().parent.parent / "csrc"
@@ -80,23 +83,12 @@ def _visible(rows, keys, s, causal, window):
     return ok
 
 
-def _capped(x, cap_r, cap_u):
-    """The capped raw score less the cap, cap_r·(tanh(x·cap_u) − 1), in
-    float64, and 1 − tanh² as a float32, as the kernels take them
-    (``cap_score`` in ``csrc/sm90_common.cuh``)."""
-    u = x.double() * cap_u
-    e = torch.exp(-2 * u.abs())
-    r = 1 / (1 + e)
-    tm1 = torch.where(u >= 0, -2 * e * r, -2 * r)
-    return cap_r * tm1, (4 * e * r * r).float()
-
-
-def _cap_consts(d, softcap):
-    """(cap_r, cap_u) of the kernels' capped instantiation (``cap_for``)."""
-    if not softcap:
-        return 0.0, 0.0
-    sd = math.sqrt(d)
-    return softcap * sd, 1 / (sd * np.float32(softcap))
+def _capped(st, cap, anchor):
+    """A tile's base-2 exponents against each row's anchor (its largest raw
+    score, broadcast along the keys) and C·(1 − tanh²), in float32 by the
+    kernels' form (``cap_row``, ``cap_exponent`` in ``csrc/sm90_common.cuh``;
+    ``tests/test_torch_softcap_f32_formula.py``)."""
+    return cap_exponent(st, cap, cap_row(anchor, cap))
 
 
 # ------------------------------------------------------------ the mirrors
@@ -104,15 +96,17 @@ def mirror_forward(q, k, v, *, causal, window, softcap=0.0, terms=3):
     """The forward kernel: 128-query tiles against the key tiles its plan
     visits (``TF32_FWD_TILES``), the online softmax in exp2 on raw scores
     (c = log2(e)/sqrt(D); a row max still -1e30 counts as 0; under a cap
-    the capped scores less the cap), each tile's P·V (P split in
-    registers) added to O rescaled by alpha → (out, lse in base 2)."""
+    each exponent against the running max of the raw scores, the anchor,
+    and alpha the old anchor's against the new), each tile's P·V (P split
+    in registers) added to O rescaled by alpha → (out, lse in base 2; under
+    a cap each row's anchor, its largest raw score)."""
     b, h, s, d = q.shape
     g = h // k.shape[1]
     kx, vx = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
     bq, bk = TF32_FWD_TILES[d]
     scale = 1.0 / math.sqrt(d)
     c = scale * LOG2E
-    c_r, c_in = _cap_consts(d, softcap)
+    cap = cap_for(d, softcap) if softcap else None
     out = torch.zeros_like(q)
     lse = torch.zeros(b, h, s)
     for n, tile in enumerate(flash_tile_plan(s, bq, bk, causal, window)):
@@ -128,23 +122,28 @@ def mirror_forward(q, k, v, *, causal, window, softcap=0.0, terms=3):
             st = product(qt, kk.transpose(-1, -2), terms)
             if st.shape[-1] < bk:       # keys past S read as zeros
                 st = torch.nn.functional.pad(st, (0, bk - st.shape[-1]))
-            if softcap:
-                st = _capped(st, c_r, c_in)[0].float()
             if kt in tile.masked:
                 st = torch.where(_visible(rows, keys, s, causal, window), st,
                                  torch.tensor(NEG))
             mx = torch.maximum(m, st.amax(-1))
-            mc = torch.where(mx == NEG, 0.0, mx * c)
-            alpha = torch.exp2(m * c - mc)
-            p = torch.exp2(st * c - mc[..., None])
+            if softcap:
+                new = cap_row(mx, cap)
+                alpha = torch.exp2(cap_delta(cap_row(m, cap)["x"]
+                                             - new["x"], new)[0])
+                p = torch.exp2(_capped(st, cap, mx[..., None])[0])
+                p = torch.where(st == NEG, 0.0, p)
+            else:
+                mc = torch.where(mx == NEG, 0.0, mx * c)
+                alpha = torch.exp2(m * c - mc)
+                p = torch.exp2(st * c - mc[..., None])
             l = l * alpha + p.sum(-1)
             m = mx
             vv = vx[:, :, kt * bk:(kt + 1) * bk]
             p = p[..., :vv.shape[2]]
             o = o * alpha[..., None] + product(p, vv, terms)
         out[:, :, q0:q0 + bq] = o / torch.where(l == 0, 1.0, l)[..., None]
-        lse[:, :, q0:q0 + bq] = torch.where(l == 0, math.inf,
-                                            m * c + torch.log2(l))
+        lse[:, :, q0:q0 + bq] = m if softcap else torch.where(
+            l == 0, math.inf, m * c + torch.log2(l))
     return out, lse
 
 
@@ -155,13 +154,18 @@ def mirror_backward(q, k, v, dout, lse, *, causal, window, softcap=0.0,
     first pass sums each row's l = Σ_t p and D_i = Σ_t p·dP / l, the second
     dQ with p / l) and the dk/dv kernel (64-key tiles, each group head's
     query tiles of its plan, ``TF32_DKV_TILES``, summed in that order, on
-    those l and D_i) → (dq, dk, dv)."""
+    those l and D_i; under a cap ``lse`` holds the rows' anchors, p is
+    exp2 of each exponent against its row's, and dS takes C·(1 − tanh²),
+    dq and dk a final ·scale / C) → (dq, dk, dv)."""
     b, h, s, d = q.shape
     kvh = k.shape[1]
     g = h // kvh
     scale = 1.0 / math.sqrt(d)
     c = scale * LOG2E
-    c_r, c_in = _cap_consts(d, softcap)
+    cap = cap_for(d, softcap) if softcap else None
+    # dS carries C·(1 − tanh²) under a cap
+    out_scale = float(torch.tensor(scale) * cap["inv_c"]) if softcap \
+        else scale
     di = torch.zeros(b, h, s)
     rowsum = torch.zeros(b, h, s)
 
@@ -169,9 +173,9 @@ def mirror_backward(q, k, v, dout, lse, *, causal, window, softcap=0.0,
         """p and dS of one tile (rows × columns); lse, D_i and 1 / l
         broadcast."""
         g = None
-        if softcap:      # the exponent in float64 (``cap_exponent``)
-            x, g = _capped(st, c_r, c_in)
-            p = torch.exp2((x * c - lse_rows).float())
+        if softcap:      # the exponent against the row's anchor
+            x, g = _capped(st, cap, lse_rows)
+            p = torch.exp2(x)
         else:
             p = torch.exp2(st * c - lse_rows)
         p = torch.where(ok, p, 0.0) * inv_rows
@@ -210,7 +214,7 @@ def mirror_backward(q, k, v, dout, lse, *, causal, window, softcap=0.0,
             if not second:       # → 1 / l and D_i = Σ p·dP / l
                 rowsum[:, :, q0:q0 + bq] = 1 / rowsum[:, :, q0:q0 + bq]
                 di[:, :, q0:q0 + bq] *= rowsum[:, :, q0:q0 + bq]
-        dq[:, :, q0:q0 + bq] = acc * scale
+        dq[:, :, q0:q0 + bq] = acc * out_scale
 
     # dk/dv kernel
     bq, bk = TF32_DKV_TILES[d]
@@ -237,7 +241,7 @@ def mirror_backward(q, k, v, dout, lse, *, causal, window, softcap=0.0,
                              rowsum[:, heads, None, rows.start:rows.stop])
                 acc_v = acc_v + product(p, do, terms)
                 acc_k = acc_k + product(ds, qq, terms)
-        dk[:, :, k0:k0 + bk] = acc_k * scale
+        dk[:, :, k0:k0 + bk] = acc_k * out_scale
         dv[:, :, k0:k0 + bk] = acc_v
     return dq, dk, dv
 
@@ -328,22 +332,37 @@ def test_tf32_mirror_forward_matches_pallas(case):
 
 def test_tf32_mirror_lse_is_the_rows_logsumexp(case):
     """The saved log-sum-exp (base 2) against the f64 log-sum-exp of the
-    masked (capped) scores, less the cap under one: a row's sum carries the
-    split's error."""
+    masked scores: a row's sum carries the split's error.  Under a cap the
+    saved statistic is the row's anchor, its largest raw score: within the
+    split's error of the f64 largest masked raw score, and the f64
+    log-sum-exp of the capped scores lies between its capped score and that
+    plus log(keys)."""
     qn, kn, _, _ = case["np"]
     d = qn.shape[-1]
     g = qn.shape[1] // kn.shape[1]
-    sc = np.einsum("bhsd,bhtd->bhst", qn.astype(np.float64),
-                   np.repeat(kn, g, 1).astype(np.float64)) / math.sqrt(d)
+    raw = np.einsum("bhsd,bhtd->bhst", qn.astype(np.float64),
+                    np.repeat(kn, g, 1).astype(np.float64))
+    sc = raw / math.sqrt(d)
     if case["softcap"]:
         sc = case["softcap"] * np.tanh(sc / case["softcap"])
     mask = flash_mask(qn.shape[2], case["causal"], case["window"])
     if mask is not None:
         sc = np.where(mask.numpy(), sc, -np.inf)
+        raw = np.where(mask.numpy(), raw, -np.inf)
     want = np.log(np.exp(sc - sc.max(-1, keepdims=True)).sum(-1)) \
         + sc.max(-1)
-    got = case["lse"].double().numpy() * math.log(2) + case["softcap"]
-    assert np.abs(got - want).max() <= 1e-5 * max(1.0, np.abs(want).max())
+    got = case["lse"].double().numpy()
+    if not case["softcap"]:
+        got = got * math.log(2)
+        assert np.abs(got - want).max() <= 1e-5 * max(1.0,
+                                                       np.abs(want).max())
+        return
+    top = raw.max(-1)
+    assert np.abs(got - top).max() <= 1e-5 * np.abs(top).max()
+    capped = case["softcap"] * np.tanh(got / math.sqrt(d) / case["softcap"])
+    keys = np.isfinite(raw).sum(-1)
+    assert (want >= capped - 1e-5).all()
+    assert (want <= capped + np.log(keys) + 1e-5).all()
 
 
 def test_tf32_mirror_gradients_match_jax_grad(case):
