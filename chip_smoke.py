@@ -349,6 +349,20 @@ DRYRUN_STEP_CUT = {}
 DRYRUN_CELLS = (("h2o-danube-1.8b", "decode_32k", False),
                 ("qwen1.5-0.5b", "decode_32k", False),
                 ("qwen1.5-0.5b", "prefill_32k", True))
+# and production cells dry-run, then run on real CUDA tensors as rank 0 of
+# the same fake process group (whose collectives allocate their outputs and
+# move no data): the predicted peak against max_memory_allocated over the
+# step; (arch, shape, multi-pod, layers: None at full depth): a decode cell
+# whose cache slots split over "model", a train step (at 2 layers: 6 s, not
+# 28 at full depth) and the cell whose peak torch 2.11's MemTracker put
+# farthest above 2.13's (161x)
+DRYRUN_PEAK_CELLS = (("h2o-danube-1.8b", "decode_32k", False, None),
+                     ("h2o-danube-1.8b", "train_4k", False, 2),
+                     ("qwen1.5-0.5b", "prefill_32k", False, None))
+# max_memory_allocated over the predicted peak: the allocator rounds each
+# block up and cuBLAS keeps its workspaces, so the prediction lies at or
+# below what the card allocates
+DRYRUN_PEAK_BAND = (1.0, 1.4)
 # `[train_witness]`: danube at full width and depth in bf16, the launcher's
 # optimizer, schedule and data, 3 steps through the kernels and the same 3
 # through the plain versions on the card from the same weights and batches,
@@ -4271,8 +4285,9 @@ def dryrun_phase(torch, facts):
     (``launch/roofline.roofline_terms`` at ``HW``) must not exceed the
     measured step wall, whose ``roofline_fraction`` it prints.
     :func:`dryrun_step_child` runs meanwhile in a child process on the card
-    (the dry runs hold only the host), and so do DRYRUN_CELLS, each in a
-    process of the dry run's CLI → the child's launches."""
+    (the dry runs hold only the host), and so do
+    :func:`dryrun_peaks_child` and DRYRUN_CELLS, each in a process of the
+    dry run's CLI → the step child's launches."""
     import tempfile
     t_child = time.perf_counter()
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
@@ -4280,27 +4295,37 @@ def dryrun_phase(torch, facts):
     # while the dry runs hold this process
     with tempfile.TemporaryFile("w+") as out, \
             tempfile.TemporaryFile("w+") as err, \
+            tempfile.TemporaryFile("w+") as p_out, \
+            tempfile.TemporaryFile("w+") as p_err, \
             tempfile.TemporaryDirectory() as cells_dir:
         child = subprocess.Popen([sys.executable, os.path.abspath(__file__),
                                   "--dryrun-step"], env=env, stdout=out,
                                  stderr=err, text=True)
+        peaks = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                  "--dryrun-peaks"], env=env, stdout=p_out,
+                                 stderr=p_err, text=True)
         cells = _start_cli_cells(cells_dir)
         try:
             _dryrun_cells(facts)
             child.wait(timeout=600)
+            peaks.wait(timeout=600)
             _finish_cli_cells(cells, cells_dir)
         finally:
-            for proc in [child] + [c[-1] for c in cells]:
+            for proc in [child, peaks] + [c[-1] for c in cells]:
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
-        out.seek(0)
-        err.seek(0)
-        stdout, stderr = out.read(), err.read()
-    for line in stdout.splitlines():
+        outs = []
+        for f in (out, err, p_out, p_err):
+            f.seek(0)
+            outs.append(f.read())
+        stdout, stderr, p_stdout, p_stderr = outs
+    for line in stdout.splitlines() + p_stdout.splitlines():
         print(line)
     check(child.returncode == 0, f"[dryrun] the step child exited "
                                  f"{child.returncode}:\n{stderr[-3000:]}")
+    check(peaks.returncode == 0, f"[dryrun] the peaks child exited "
+                                 f"{peaks.returncode}:\n{p_stderr[-3000:]}")
     print(f"[dryrun] the 1x1 step's child, beside the dry runs: "
           f"{time.perf_counter() - t_child:.2f} s")
     line = [x for x in stdout.splitlines()
@@ -4384,8 +4409,8 @@ def _dryrun_cells(facts):
               f"B, the card's {f['bytes']['params']} / {f['bytes']['grads']} "
               f"/ {f['bytes']['opt_state']} B; predicted peak {peak} B "
               f"({peak / 2**30:.2f} GiB), the card's max_memory_allocated "
-              f"{f['peak']} B ({f['peak'] / 2**30:.2f} GiB), ratio "
-              f"{peak / f['peak']:.3f}; kernels counted "
+              f"over [train]'s steps {f['peak']} B ({f['peak'] / 2**30:.2f} "
+              f"GiB), {f['peak'] / peak:.3f}x the prediction; kernels counted "
               f"{ {k: v['calls'] for k, v in cell['kernels'].items()} }")
         check(dry == f["bytes"], f"[dryrun] {arch}: the dry run's state "
               f"bytes {dry} are not the card's {f['bytes']}")
@@ -4508,6 +4533,51 @@ def dryrun_step_child() -> int:
         f"[dryrun] launches {launches_s} differ from the unsharded "
         f"{launches_u}, or a kernel was not launched")
     print(f"[dryrun] launches {json.dumps(launches_s)}")
+    return 0
+
+
+def dryrun_peaks_child() -> int:
+    """``[dryrun]``'s peaks (``chip_smoke.py --dryrun-peaks``): each of
+    DRYRUN_PEAK_CELLS dry-run on its production mesh as the CLI runs it
+    (fake tensors: the predicted peak), then the same step on real CUDA
+    tensors as rank 0 of the same fake process group: rank 0's shards of
+    random weights, the kernels launched, the collectives allocating their
+    outputs.  ``max_memory_allocated`` over the step must lie within
+    DRYRUN_PEAK_BAND of the prediction; no cell may fail to build,
+    allocate or run."""
+    import gc
+    import torch
+    sys.path.insert(0, SRC)
+    from repro_torch.launch.dryrun import run_cell
+    torch.cuda.set_device(0)
+    lo, hi = DRYRUN_PEAK_BAND
+    for arch, shape, multi, layers in DRYRUN_PEAK_CELLS:
+        over = {"n_layers": layers} if layers else None
+        t0 = time.perf_counter()
+        fake = run_cell(arch, shape, multi_pod=multi, config_overrides=over)
+        t1 = time.perf_counter()
+        gc.collect()
+        real = run_cell(arch, shape, multi_pod=multi, config_overrides=over,
+                        real=True, device="cuda")
+        t2 = time.perf_counter()
+        pred = fake["memory"]["peak_bytes"]
+        got = real["memory"]["max_memory_allocated"]
+        # the aten ops' counts (the kernels add no work on the card)
+        same = [fake[k] == real[k] for k in ("aten_flops", "aten_bytes",
+                                              "collectives")]
+        print(f"[dryrun] peak {arch} {shape} on {fake['mesh']} "
+              f"({f'{layers} layers' if layers else 'full depth'}) under "
+              f"torch {torch.__version__}: predicted {pred} B "
+              f"({pred / 2**30:.3f} GiB; args "
+              f"{fake['memory']['argument_size_in_bytes']} B; the step on "
+              f"real CUDA tensors {real['memory']['peak_bytes']} B), "
+              f"max_memory_allocated {got} B ({got / 2**30:.3f} GiB), "
+              f"ratio {got / pred:.4f}; aten FLOPs, aten bytes and "
+              f"collectives equal the dry run's: {same}; dry run "
+              f"{t1 - t0:.2f} s, on the card {t2 - t1:.2f} s", flush=True)
+        check(lo <= got / pred <= hi, f"[dryrun] {arch} {shape}: "
+              f"max_memory_allocated {got} B is {got / pred:.4f}x the "
+              f"predicted peak {pred} B, outside {DRYRUN_PEAK_BAND}")
     return 0
 
 
@@ -5235,7 +5305,8 @@ def main() -> int:
 if __name__ == "__main__":
     try:
         child = {"--sharded": sharded_child,
-                 "--dryrun-step": dryrun_step_child}.get(
+                 "--dryrun-step": dryrun_step_child,
+                 "--dryrun-peaks": dryrun_peaks_child}.get(
                      " ".join(sys.argv[1:]))
         sys.exit(child() if child else main())
     except CheckFailed as e:

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import contextlib
 import sys
-from typing import Callable, Dict, NamedTuple, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -114,17 +114,21 @@ def causal_pairs(s: int, causal: bool, window: int) -> int:
 class KernelSpec(NamedTuple):
     """One kernel call for :func:`counted_call`: its name, the plain
     version over the tensor inputs, the outputs' (shape, dtype), extra
-    tensors its autograd Function saves (shape, dtype), and its work."""
+    tensors its autograd Function saves (shape, dtype), its work, and the
+    positions (among the inputs, then the outputs, then the extra tensors)
+    of what that Function saves for its backward (None: all of them), so
+    that the rest is freed when the kernel's would be."""
     name: str
     plain: Callable
     outputs: Sequence[Tuple[Tuple[int, ...], torch.dtype]]
     saved: Sequence[Tuple[Tuple[int, ...], torch.dtype]]
     work: Callable[[bool], Tuple[float, float]]
+    saves: Optional[Sequence[int]] = None
 
 
 class _Counted(torch.autograd.Function):
     """The shape-only and counted routes: the forward's outputs (empty
-    under the active mode, or the plain version's), the work of the
+    under the active mode, or holding the plain version's), the work of the
     forward and, in the backward, of the backward."""
 
     @staticmethod
@@ -133,31 +137,42 @@ class _Counted(torch.autograd.Function):
         ctx.shape_only = is_shape_only(inputs[0])
         COUNTER.add(spec.name, spec.work(False))
         # new_empty dispatches through the input, so a fake input's mode
-        # makes the output even where the mode is not entered
+        # makes the output even where the mode is not entered; both routes
+        # allocate the outputs by it (contiguous, as the kernels write
+        # them), so a memory tracker sees the same storages on each
         x = inputs[0]
-        if ctx.shape_only:
-            outs = tuple(x.new_empty(s, dtype=dt) for s, dt in spec.outputs)
-        else:
-            # contiguous, as the kernels write their outputs
+        outs = tuple(x.new_empty(s, dtype=dt) for s, dt in spec.outputs)
+        if not ctx.shape_only:
             with COUNTER.suppressed(), torch.no_grad():
-                outs = spec.plain(*inputs)
-                outs = tuple(o.contiguous() for o in (
-                    outs if isinstance(outs, tuple) else (outs,)))
+                got = spec.plain(*inputs)
+                for o, g in zip(outs, got if isinstance(got, tuple)
+                                else (got,)):
+                    o.copy_(g)
         extra = tuple(x.new_empty(s, dtype=dt) for s, dt in spec.saved)
-        ctx.save_for_backward(*inputs, *outs, *extra)
-        ctx.n_in = len(inputs)
+        every = (*inputs, *outs, *extra)
+        ctx.save_for_backward(*(every if spec.saves is None
+                                else (every[i] for i in spec.saves)))
+        ctx.like = [(t.shape, t.dtype) for t in inputs]
+        if not ctx.shape_only:
+            # the plain backward's inputs, copied where the op counters
+            # and memory trackers do not look: the kernel keeps only
+            # what it saves
+            with COUNTER.suppressed():
+                ctx.plain_inputs = tuple(t.detach().clone() for t in inputs)
         return outs if len(outs) > 1 else outs[0]
 
     @staticmethod
     def backward(ctx, *grads):
         spec = ctx.spec
-        inputs = ctx.saved_tensors[:ctx.n_in]
         COUNTER.add(spec.name + "_bwd", spec.work(True))
         need = ctx.needs_input_grad[1:]
+        # contiguous, as the kernels write their gradients
+        x = ctx.saved_tensors[0]
+        fresh = tuple(x.new_empty(shape, dtype=dt) if n else None
+                      for (shape, dt), n in zip(ctx.like, need))
         if ctx.shape_only:
-            # contiguous, as the kernels write their gradients
-            return (None,) + tuple(t.new_empty(t.shape) if n else None
-                                   for t, n in zip(inputs, need))
+            return (None,) + fresh
+        inputs = ctx.plain_inputs
         with COUNTER.suppressed(), torch.enable_grad():
             xs = [t.detach().requires_grad_(n) for t, n in zip(inputs, need)]
             outs = spec.plain(*xs)
@@ -171,8 +186,12 @@ class _Counted(torch.autograd.Function):
                                       [g for _, g in pairs],
                                       allow_unused=True) \
                 if pairs else [None] * len(wrt)
-            got = iter([None if g is None else g.contiguous() for g in got])
-        return (None,) + tuple(next(got) if n else None for n in need)
+            got = iter(got)
+            grads = []
+            for f in fresh:
+                g = next(got) if f is not None else None
+                grads.append(None if g is None else f.copy_(g))
+        return (None,) + tuple(grads)
 
 
 def counted_call(spec: KernelSpec, *inputs):

@@ -453,15 +453,19 @@ def _counted(q, k, v, causal, window, softcap):
     """The shape-only / counted route (``kernels/_work.py``); the Function
     also saves the rows' f32 log-sum-exp."""
     b, h, s, d = q.shape
+    # sizes, not tensors, in the closures: the spec lives as long as the
+    # autograd graph, and must not keep q or k alive where the kernel's
+    # Function would free them (under remat)
+    kv, dtype = k.shape[1], q.dtype
     lse = [((b, h, s), torch.float32)]
     spec = _work.KernelSpec(
         "flash_attention",
         lambda q_, k_, v_: flash_attention_ref(q_, k_, v_, causal=causal,
                                                window=window,
                                                softcap=softcap),
-        [(tuple(q.shape), q.dtype)], lse,
-        lambda bwd: flash_attention_work(b, h, k.shape[1], s, d, q.dtype,
-                                         causal, window, bwd))
+        [(tuple(q.shape), dtype)], lse,
+        lambda bwd: flash_attention_work(b, h, kv, s, d, dtype, causal,
+                                         window, bwd))
     return _work.counted_call(spec, q, k, v)
 
 

@@ -282,10 +282,12 @@ def _counted(x: torch.Tensor, scale: torch.Tensor, eps: float):
     from ._work import KernelSpec, counted_call
     d = x.shape[-1]
     rows = x.numel() // max(d, 1)
+    dtype = x.dtype      # not x in the closure (see flash_attention's)
     spec = KernelSpec(
         "rmsnorm", lambda a, w: rmsnorm_ref(a, w, eps),
-        [(tuple(x.shape), x.dtype)], [],
-        lambda bwd: rmsnorm_work(rows, d, x.dtype, bwd))
+        [(tuple(x.shape), dtype)], [],
+        lambda bwd: rmsnorm_work(rows, d, dtype, bwd),
+        saves=(0, 1))     # x and scale, as RMSNormFn
     return counted_call(spec, x, scale)
 
 

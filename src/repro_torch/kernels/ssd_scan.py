@@ -182,7 +182,8 @@ def _counted(chunk_decay: torch.Tensor, dbx: torch.Tensor):
     spec = KernelSpec(
         "ssd_scan", ssd_scan_ref,
         [(tuple(dbx.shape), torch.float32), ((b, hh, p, n), torch.float32)],
-        [], lambda bwd: ssd_scan_work(b, c, hh, p, n, bwd))
+        [], lambda bwd: ssd_scan_work(b, c, hh, p, n, bwd),
+        saves=(0, 2))     # the decay and h_before, as SSDScanFn
     return counted_call(spec, chunk_decay, dbx)
 
 

@@ -27,8 +27,10 @@ Counts, per device as the reference's ``cost_analysis`` reports them:
   * ``bytes_accessed``: each local op's input and output bytes (the eager
     program does not fuse), views and fresh allocations excluded, plus the
     kernels' counts;
-  * ``memory``: ``argument_size_in_bytes`` from the placed shards, the peak
-    from ``MemTracker``, ``temp`` the peak above the arguments;
+  * ``memory``: ``argument_size_in_bytes`` from the placed shards,
+    ``peak_bytes`` the most bytes of local storages the rank holds live at
+    once (``memory_tracker``: its placed shards, then each op's fresh
+    outputs until they are freed), ``temp`` the peak above the arguments;
   * ``collectives``: the collectives ``CommDebugMode`` recorded, by op kind
     and mesh axis (``launch/roofline.py``).
 
@@ -110,6 +112,19 @@ def _tensors(tree):
     return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
 
 
+def _ours(ts, fake_mode) -> bool:
+    """Whether an op on ``ts`` is one the rank runs: not one on the meta
+    device or on fake tensors of another mode than ``fake_mode`` (DTensor's
+    sharding propagation makes its global-shape stand-ins so)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    for t in ts:
+        if t.device.type == "meta":
+            return False
+        if isinstance(t, FakeTensor) and t.fake_mode is not fake_mode:
+            return False
+    return True
+
+
 #: ops that move no bytes although their schema marks no alias: fresh
 #: allocations, and ``_unsafe_view`` (the view a reshape or a matmul takes
 #: of a tensor it made)
@@ -140,16 +155,6 @@ def step_counter(fake_mode=None):
             self.bytes = 0.0
             self.by_op: Dict[str, float] = {}
 
-        def _ours(self, ts) -> bool:
-            from torch._subclasses.fake_tensor import FakeTensor
-            for t in ts:
-                if t.device.type == "meta":
-                    return False
-                if isinstance(t, FakeTensor) and \
-                        t.fake_mode is not self.fake_mode:
-                    return False
-            return True
-
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
             ins = _tensors((args, kwargs))
@@ -159,7 +164,7 @@ def step_counter(fake_mode=None):
             if COUNTER.suppress:
                 return out
             outs = _tensors(out)
-            if not self._ours(ins + outs):
+            if not _ours(ins + outs, self.fake_mode):
                 return out
             ns = func.namespace
             if ns not in ("aten", "prims"):
@@ -175,6 +180,96 @@ def step_counter(fake_mode=None):
                        and not r.alias_info.is_write for r in rets)
             if not view and name not in _NO_BYTES:
                 self.bytes += _op_bytes(ins) + _op_bytes(outs)
+            return out
+
+    return _Mode()
+
+
+def memory_tracker(fake_mode=None):
+    """A dispatch mode counting the bytes of one rank's live local storages,
+    the same way on fake and on real tensors: :meth:`track` adds the placed
+    arguments, each local op adds the storages of its outputs that it has
+    not seen (a view or an in-place result adds nothing), and a storage
+    leaves the count when it is freed.  ``peak`` is the largest count after
+    any op.  It skips what ``step_counter`` skips: DTensor-level ops (it
+    sees the local ops they become), ops under ``COUNTER.suppressed()``
+    (the kernels' plain versions, sharding propagation), and tensors on the
+    meta device or of another fake mode (propagation's global-shape
+    stand-ins).  A collective's ``wait_tensor`` and ``_wrap_tensor_autograd``
+    return their input (or an ``AsyncCollectiveTensor`` around it) in eager
+    mode, so a fake one's fresh output is counted with its input's storage,
+    and a wrapper is counted by the tensors it wraps."""
+    import functools
+    import weakref
+
+    import torch
+    # registers the functional collectives' ops, _wrap_tensor_autograd too
+    import torch.distributed._functional_collectives  # noqa: F401
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import (
+        TorchDispatchMode, is_traceable_wrapper_subclass)
+
+    from ..kernels._work import COUNTER
+    funcol = torch.ops._c10d_functional
+    # ops whose eager result is their input (or a wrapper of it), though
+    # their fake kernels make a fresh tensor
+    aliasing = {getattr(funcol, n).default for n in (
+        "wait_tensor", "_wrap_tensor_autograd") if hasattr(funcol, n)}
+
+    class _Mode(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.live = 0
+            self.peak = 0
+            # storage address → ([bytes, live storages], weak reference):
+            # one entry is counted once, whatever storages share it
+            self._seen = {}
+
+        def _free(self, key, _ref):
+            entry = self._seen.pop(key)[0]
+            entry[1] -= 1
+            if not entry[1]:
+                self.live -= entry[0]
+
+        def _add(self, t, entry=None):
+            if is_traceable_wrapper_subclass(t):
+                # a collective's AsyncCollectiveTensor: its own storage
+                # holds nothing, the tensors it wraps do
+                for name in t.__tensor_flatten__()[0]:
+                    entry = self._add(getattr(t, name), entry)
+                return entry
+            st = t.untyped_storage()
+            key = st._cdata
+            if key in self._seen:
+                return self._seen[key][0]
+            if entry is None:
+                entry = [st.nbytes(), 0]
+                self.live += entry[0]
+            entry[1] += 1
+            self._seen[key] = (entry, weakref.ref(
+                st, functools.partial(self._free, key)))
+            return entry
+
+        def track(self, tensors):
+            for t in tensors:
+                self._add(t.to_local() if isinstance(t, DTensor) else t)
+            self.peak = max(self.peak, self.live)
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            ins = _tensors((args, kwargs))
+            if any(isinstance(t, DTensor) for t in ins):
+                return NotImplemented
+            out = func(*args, **kwargs)
+            if COUNTER.suppress:
+                return out
+            outs = _tensors(out)
+            if not _ours(ins + outs, fake_mode):
+                return out
+            entry = self._add(ins[0]) if func in aliasing else None
+            for t in outs:
+                self._add(t, entry)
+            self.peak = max(self.peak, self.live)
             return out
 
     return _Mode()
@@ -261,26 +356,51 @@ def _local_bytes(tree) -> int:
     return total
 
 
-def _materialize(meta_tree, fake_mode, seed: int = 0):
-    """Tensors of the shapes and dtypes of a meta tree: fake ones under
-    ``fake_mode``, or (``fake_mode`` None) real CPU ones from ``seed``:
-    integer leaves in [0, 2), the rest normal (token ids are drawn by the
-    caller)."""
+def _placed(tree, specs, mesh, make):
+    """Each tensor leaf of a meta tree as a DTensor over ``mesh`` with the
+    placements at the same place in ``specs`` (as ``distribute_tree`` lays
+    it out), its local shard made by ``make(shape, dtype)``: the rank holds
+    its shard alone, never the whole tensor."""
     import torch
-    from ..models.params import tree_map
-    if fake_mode is not None:
-        with fake_mode:
-            return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype)
-                            if isinstance(t, torch.Tensor) else t, meta_tree)
-    gen = torch.Generator().manual_seed(seed)
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    if isinstance(tree, torch.Tensor):
+        shape, _ = compute_local_shape_and_global_offset(tree.shape, mesh,
+                                                         specs)
+        return DTensor.from_local(make(shape, tree.dtype), mesh, specs,
+                                  run_check=False, shape=tree.shape,
+                                  stride=tree.stride())
+    if isinstance(tree, dict):
+        return {k: _placed(v, specs[k], mesh, make) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_placed(v, sp, mesh, make)
+                            for v, sp in zip(tree, specs)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_placed(v, sp, mesh, make)
+                          for v, sp in zip(tree, specs))
+    return tree
 
-    def real(t):
-        if not isinstance(t, torch.Tensor):
-            return t
-        if t.dtype.is_floating_point:
-            return torch.randn(t.shape, generator=gen).to(t.dtype)
-        return torch.randint(0, 2, t.shape, generator=gen).to(t.dtype)
-    return tree_map(real, meta_tree)
+
+def _shards(fake_mode, device, seed: int, high: int = 2):
+    """A ``make`` for :func:`_placed`: empty shards of ``fake_mode``, or
+    (``fake_mode`` None) real ones on ``device`` from ``seed``, integers in
+    [0, ``high``) and the rest normal."""
+    import torch
+    if fake_mode is not None:
+        def fake(shape, dtype):
+            with fake_mode:
+                return torch.empty(shape, dtype=dtype)
+        return fake
+    gen = torch.Generator(device).manual_seed(seed)
+
+    def make(shape, dtype):
+        if dtype.is_floating_point:
+            return torch.empty(shape, dtype=dtype, device=device).normal_(
+                generator=gen)
+        return torch.randint(0, high, shape, generator=gen, dtype=dtype,
+                             device=device)
+    return make
 
 
 def _quantized_abstract(params, specs, mesh):
@@ -304,19 +424,21 @@ def _quantized_abstract(params, specs, mesh):
 
 # ------------------------------------------------------------ the steps
 def _run_step(cfg, shp, cell, mesh, rules, fake_mode, optimizer=None,
-              ssd_chunk: int = 256):
+              ssd_chunk: int = 256, device: str = "cpu"):
     """Place the step's inputs, then run it under the counters → (record
     of counts and memory, the step's outputs, its inputs).  ``fake_mode``
-    None runs it on real CPU tensors (the kernels' counted route), random
-    weights and tokens from seed 0.  A train step updates with
-    ``optimizer`` (default: AdamW at ``cfg.optimizer_state_dtype``)."""
+    None runs it on real tensors on ``device`` (on the CPU the kernels'
+    counted route, on a card the kernels themselves), random weights and
+    tokens from seeds 0–2; on a card the record's memory also holds
+    ``max_memory_allocated`` over the step (what the process held at most,
+    its other tensors and the libraries' workspaces too).  A train step
+    updates with ``optimizer`` (default: AdamW at
+    ``cfg.optimizer_state_dtype``)."""
     import torch
-    from torch.distributed._tools.mem_tracker import MemTracker
 
-    from ..distributed.sharding import (_map_axes, distribute_tree,
-                                        logical_spec, param_specs,
-                                        placements_for, spec_tree,
-                                        use_rules, with_rules)
+    from ..distributed.sharding import (_map_axes, logical_spec,
+                                        param_specs, placements_for,
+                                        spec_tree, use_rules, with_rules)
     from ..kernels._work import COUNTER
     from ..models import abstract_params, param_axes
     from ..models import lm as lm_mod
@@ -336,21 +458,20 @@ def _run_step(cfg, shp, cell, mesh, rules, fake_mode, optimizer=None,
     else:
         p_specs = param_specs(param_axes(cfg), mesh, rules)
     inputs = {k: v for k, v in cell["specs"].items() if k != "index"}
-    params = _materialize(params_meta, fake_mode)
-    inputs = _materialize(inputs, fake_mode, seed=1)
-    if fake_mode is None:
-        gen = torch.Generator().manual_seed(2)
-        for k in ("tokens", "labels"):
-            if k in inputs:
-                inputs[k] = torch.randint(0, cfg.vocab_size,
-                                          inputs[k].shape, generator=gen,
-                                          dtype=torch.int32)
+    cuda = fake_mode is None and torch.device(device).type == "cuda"
+
+    def shards(key):
+        ids = key in ("tokens", "labels")
+        return _shards(fake_mode, device, 2 if ids else 1,
+                       cfg.vocab_size if ids else 2)
+    # the mode is entered only to make the shards: their shapes are found
+    # by tensor ops on the mesh's coordinates, which a fake tensor cannot
+    # answer
+    params = _placed(params_meta, p_specs, mesh,
+                     _shards(fake_mode, device, 0))
+    batch = {k: _placed(v, _map_axes(in_place, cell["axes"][k]), mesh,
+                        shards(k)) for k, v in inputs.items()}
     mode = fake_mode or contextlib.nullcontext()
-    with mode:
-        params = distribute_tree(params, p_specs, mesh)
-        batch = {k: distribute_tree(
-            v, _map_axes(in_place, cell["axes"][k]), mesh)
-            for k, v in inputs.items()}
     state_bytes = {}
     with mode:
         if shp.kind == "train":
@@ -390,17 +511,26 @@ def _run_step(cfg, shp, cell, mesh, rules, fake_mode, optimizer=None,
     arg_bytes = _local_bytes(args)
     counter = step_counter(fake_mode)
     comms = _collectives(mesh)
-    mem = MemTracker()
-    mem.track_external(*[t for t in _tensors(args)])
+    mem = memory_tracker(fake_mode)
+    mem.track(_tensors(args))
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
     # the fake mode is not entered: the fake tensors carry it into every op,
     # and DTensor's sharding propagation, finding no active fake mode,
     # makes its global-shape stand-ins in a mode of its own, which the
-    # counter skips
+    # counters skip
     with mem, comms, counter, use_rules(mesh, rules), COUNTER.counting(), \
             _propagation_uncounted(), torch.set_grad_enabled(grad):
         out = step_fn(*args)
-    peak = mem.get_tracker_snapshot("peak")
-    peak_total = max((v.get("Total", 0) for v in peak.values()), default=0)
+    memory = {"temp_size_in_bytes": max(0, mem.peak - arg_bytes),
+              "argument_size_in_bytes": arg_bytes,
+              "output_size_in_bytes": _local_bytes(out),
+              "alias_size_in_bytes": 0,
+              "peak_bytes": mem.peak}
+    if cuda:
+        torch.cuda.synchronize()
+        memory["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     kflops, kbytes = COUNTER.total()
     return {
         "flops": counter.flops + kflops,
@@ -409,11 +539,7 @@ def _run_step(cfg, shp, cell, mesh, rules, fake_mode, optimizer=None,
         "kernels": {k: {"flops": COUNTER.flops[k],
                         "bytes": COUNTER.bytes[k],
                         "calls": COUNTER.calls[k]} for k in COUNTER.flops},
-        "memory": {"temp_size_in_bytes": max(0, peak_total - arg_bytes),
-                   "argument_size_in_bytes": arg_bytes,
-                   "output_size_in_bytes": _local_bytes(out),
-                   "alias_size_in_bytes": 0,
-                   "peak_bytes": peak_total},
+        "memory": memory,
         "state_bytes": state_bytes,
         "collective_records": comms.records,
         "comm_counts": {str(k): v for k, v in
@@ -438,17 +564,21 @@ def run_cell(arch: str, shape, multi_pod: bool = False,
              config_overrides: Optional[Dict] = None,
              mesh_shape: Optional[Sequence[int]] = None,
              config=None, real: bool = False, optimizer=None,
-             ssd_chunk: int = 256) -> Dict:
+             ssd_chunk: int = 256, device: str = "cpu") -> Dict:
     """The dry run of one cell → the reference's record keys.
 
     ``shape`` is a name of ``SHAPES`` or a ``ShapeSpec`` (``chip_smoke.py``
     dry-runs its own training shapes).  ``mesh_shape`` replaces the
     production mesh's shape (same axis names), e.g. (1, 1) for one GPU;
     ``config`` replaces the arch's registered config (a cut one).
-    ``real`` runs the same count on real CPU tensors (random weights and
-    tokens; the fake process group's collectives move no data), which a
-    small config affords: the kernels take their counted route, so its
-    counts must equal the fake run's.  ``optimizer`` replaces the train
+    ``real`` runs the same count on real tensors on ``device`` (random
+    weights and tokens; the fake process group's collectives move no data
+    but allocate their outputs): on the CPU, which a small config affords,
+    the kernels take their counted route, so its counts and peak must
+    equal the fake run's; on a card (``"cuda"``, the mesh's device type
+    too) the kernels launch, adding no work to the counts, and the record's
+    memory holds what this rank allocated at most over the step
+    (``max_memory_allocated``) beside the peak.  ``optimizer`` replaces the train
     step's AdamW (a launcher's own; its ``init`` must work on DTensors)
     and ``ssd_chunk`` is the Mamba-2 chunk the step runs at."""
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -489,18 +619,19 @@ def run_cell(arch: str, shape, multi_pod: bool = False,
     if cell["batch"] != shp.global_batch:
         # the step ran on the padded batch; "tokens" stays the real work
         result["padded_batch"] = cell["batch"]
+    dev = device if real else "cpu"
     with fake_world(n_dev):
         if mesh_shape is None:
             mesh = make_production_mesh(multi_pod=multi_pod,
-                                        device_type="cpu")
+                                        device_type=dev)
         else:
             from torch.distributed.device_mesh import init_device_mesh
-            mesh = init_device_mesh("cpu", dims, mesh_dim_names=axes)
+            mesh = init_device_mesh(dev, dims, mesh_dim_names=axes)
         t = time.time()
         rec, _, _ = _run_step(
             cfg, shp, cell, mesh, rules,
             None if real else FakeTensorMode(allow_non_fake_inputs=True),
-            optimizer=optimizer, ssd_chunk=ssd_chunk)
+            optimizer=optimizer, ssd_chunk=ssd_chunk, device=dev)
         result["compile_scanned_s"] = round(time.time() - t, 2)
     result["memory"] = rec["memory"]
     if rec["state_bytes"]:

@@ -12,13 +12,14 @@ mesh (``shard()`` at the reference's sites, ``kernels/_dtensor.py``,
 * A smoke config's train, prefill and decode steps counted on fake tensors
   on a fake (2, 2) mesh equal the same steps counted on real CPU tensors
   (the kernels' counted route), exactly: FLOPs, bytes, each kernel's calls
-  and work, the collectives and the placed argument bytes.  On the GQA
-  path whose KV heads a rank slices (danube's train step), the fake run's
-  autograd copies two K/V gradients more in a view's backward
-  (``ViewBackward0``'s reshape): its bytes are held to 0.5 % there, the
-  rest exactly.  So do danube's decode steps, whose KV heads are
-  replicated and whose cache slots split over "model" (with and without
-  the cap).
+  and work, the collectives, the placed argument bytes and the peak of
+  live bytes.  So do danube's decode steps, whose KV heads are replicated
+  and whose cache slots split over "model" (with and without the cap).
+* ``memory_tracker`` counts by hand-worked bytes: a view and an in-place
+  op add nothing, a freed intermediate leaves the count, and a DTensor
+  redistribute on a fake (2, 2) mesh counts the collective's output (and
+  a reshuffle's) but not DTensor's global-shape stand-ins, the same on
+  fake and on real tensors.
 * A production-mesh cell carries the reference's record keys, with
   nonzero FLOPs, bytes and memory.  A batch its mesh axes do not divide is
   padded to their multiple, as GSPMD pads, and the record says so.
@@ -127,6 +128,7 @@ def _counts(rec):
     return {"flops": rec["flops"], "bytes": rec["bytes_accessed"],
             "kernels": rec["kernels"], "collectives": rec["collectives"],
             "args": rec["memory"]["argument_size_in_bytes"],
+            "peak": rec["memory"]["peak_bytes"],
             "state": rec.get("state_bytes")}
 
 
@@ -145,9 +147,7 @@ def test_fake_counts_equal_the_real_cpu_counts(arch, kinds):
         got, want = _counts(fake), _counts(real)
         assert got["flops"] > 0 and got["kernels"], (arch, kind)
         assert set(got["kernels"]) >= {"rmsnorm"}
-        if arch == "h2o-danube-1.8b" and kind == "train":
-            assert 0 <= got.pop("bytes") - want.pop("bytes") <= \
-                0.005 * real["bytes_accessed"]
+        assert got["peak"] > got["args"], (arch, kind)
         assert got == want, (arch, kind)
         assert fake["cost_source"] == "traced, every layer"
         if kind == "decode":
@@ -417,3 +417,123 @@ def test_a_batch_its_axes_do_not_divide_is_padded():
     assert recs[0]["padded_batch"] == 8 and "padded_batch" not in recs[1]
     assert (recs[0]["tokens"], recs[1]["tokens"]) == (4 * 32, 8 * 32)
     assert _counts(recs[0]) == _counts(recs[1])
+
+
+# ------------------------------------------------------- memory_tracker
+def _empty(mode, shape):
+    """A (4, 4)-like f32 tensor: fake under ``mode``, else real."""
+    if mode is None:
+        return torch.randn(shape)
+    with mode:
+        return torch.empty(shape)
+
+
+@pytest.mark.parametrize("fake", [True, False])
+def test_memory_tracker_counts_views_in_place_and_frees(fake):
+    """A tracked 4x4 f32 argument (64 B); a view of it and an in-place op
+    on it add nothing; ``a = x * 2`` adds 64, ``b = a + 1`` 64 more (the
+    peak, 192), freeing ``a`` takes 64 off, ``b.sum()`` adds its 4-byte
+    scalar, freeing ``b`` takes 64 off."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    mode = FakeTensorMode() if fake else None
+    x = _empty(mode, (4, 4))
+    mem = dryrun.memory_tracker(mode)
+    mem.track([x])
+    live = [mem.live]
+    with mem:
+        y = x.view(16)
+        live.append(mem.live)
+        x.add_(1)
+        live.append(mem.live)
+        a = x * 2
+        live.append(mem.live)
+        b = a + 1
+        live.append(mem.live)
+        del a
+        live.append(mem.live)
+        c = b.sum()
+        live.append(mem.live)
+        del b
+        live.append(mem.live)
+    assert live == [64, 64, 64, 128, 192, 128, 132, 68]
+    assert mem.peak == 192
+    assert y.shape == (16,) and c.shape == ()
+
+
+@pytest.mark.parametrize("fake", [True, False])
+def test_memory_tracker_counts_a_redistribute_on_a_fake_mesh(fake):
+    """Rank 0 of a fake (2, 2) mesh: a DTensor whose 4x4 f32 local shard
+    (64 B) splits a dim over "data".  Gathering it whole allocates the
+    all-gather's 8x4 output (128 B); over dim 0 that is the result (peak
+    64 + 128), over dim 1 the gathered rows are reshuffled into a fresh
+    4x8 (peak 64 + 128 + 128, the gathered buffer then freed).  ``x * 2``
+    on the shard adds its 64-B local result alone: sharding propagation's
+    global-shape stand-ins are not counted."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    got = {}
+    with dryrun.fake_world(4):
+        mesh = init_device_mesh("cpu", (2, 2),
+                                mesh_dim_names=("data", "model"))
+        mode = FakeTensorMode(allow_non_fake_inputs=True) if fake else None
+        for dim, whole in ((0, (8, 4)), (1, (4, 8))):
+            x = DTensor.from_local(_empty(mode, (4, 4)), mesh,
+                                   [Shard(dim), Replicate()],
+                                   run_check=False, shape=torch.Size(whole),
+                                   stride=(whole[1], 1))
+            mem = dryrun.memory_tracker(mode)
+            mem.track([x])
+            with mem:
+                y = x.redistribute(mesh, [Replicate(), Replicate()])
+                gathered = (mem.live, mem.peak)
+                z = x * 2
+            assert y.to_local().shape == whole
+            assert z.to_local().shape == (4, 4)
+            got[dim] = gathered + (mem.live,)
+    assert got == {0: (192, 192, 256), 1: (192, 320, 256)}
+
+
+@pytest.mark.parametrize("fake", [True, False])
+def test_counting_routes_free_what_the_kernels_free(fake):
+    """The kernels' counting routes (fake tensors, or real CPU ones while
+    the work counter runs) keep alive only what the kernels' autograd
+    Functions save: under remat (``torch.utils.checkpoint``, whose hooks
+    drop saved tensors) flash_attention's q and k and rmsnorm's input are
+    freed after the forward, and ssd_scan's input dbx is freed without
+    remat (``SSDScanFn`` saves the decay and h_before only)."""
+    import gc
+    import weakref
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan
+    from repro_torch.kernels._work import COUNTER
+    mode = FakeTensorMode() if fake else None
+    a = _empty(mode, (2, 4, 16, 8)).requires_grad_(True)
+    scale = _empty(mode, (8,))
+    decay = _empty(mode, (2, 3, 4))
+    refs = []
+
+    def block(t):
+        q, k = t * 2, t[:, :1] * 3
+        x = t + 1
+        refs.extend(weakref.ref(u) for u in (q, k, x))
+        return flash_attention(q, k, k * 1, causal=True) + rmsnorm(x, scale)
+
+    def scan(t):
+        dbx = t.reshape(2, 4, 4, 4, 8)[:, :3] * 2
+        refs.append(weakref.ref(dbx))
+        return ssd_scan(decay, dbx)
+
+    with COUNTER.counting():
+        y = checkpoint(block, a, use_reentrant=False)
+        before, final = scan(a)
+        gc.collect()
+        assert [r() is None for r in refs] == [True] * 4
+        (y.sum() + before.sum() + final.sum()).backward()
+    assert a.grad.shape == a.shape
+    assert set(COUNTER.calls) == {"flash_attention", "flash_attention_bwd",
+                                  "rmsnorm", "rmsnorm_bwd", "ssd_scan",
+                                  "ssd_scan_bwd"}
